@@ -1,0 +1,113 @@
+"""ECAPA-TDNN eval forward with the reference's state_dict names.
+
+Counterpart of the JAX package's ``models/ecapa.py`` ``ECAPA_TDNN`` and
+``Bottle2neck`` in eval mode (context attention, the "ECA" encoder, out-BN):
+
+- stem conv k=5 F -> C, ReLU, BN (``conv1``, ``bn1``);
+- three SE-Res2 Bottle2necks, kernel 3, dilations 2/3/4 (``layer1..3``);
+- the MFA 1x1 conv over [x1 | x2 | x3] to 1536, ReLU (``layer4``);
+- context attentive-statistics pooling (``attention.0/2/3``);
+- BN -> embedding -> logits -> BN (``bn5``, ``fc6``, ``fc7``, ``bn7``).
+
+The public forward takes (B, T, F) channels-last features, as the JAX model
+does, and returns (embedding, logits) in f32. This is the unfused plain
+path; the serving graph with the CUDA kernels is
+``serving/ecapa_serving.py``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from asvspoof2021_air_tpu_torch._device import disable_tf32, resolve_device
+from asvspoof2021_air_tpu_torch.models.common import BatchNorm1d, SEModule1D
+
+
+class Bottle2neck(nn.Module):
+    """SE-Res2 block over (B, C, T)."""
+
+    def __init__(self, planes: int, kernel_size: int = 3, dilation: int = 1,
+                 scale: int = 8):
+        super().__init__()
+        width = int(math.floor(planes / scale))
+        self.width, self.scale = width, scale
+        self.conv1 = nn.Conv1d(planes, width * scale, kernel_size=1)
+        self.bn1 = BatchNorm1d(width * scale)
+        pad = (kernel_size // 2) * dilation
+        self.convs = nn.ModuleList(
+            nn.Conv1d(width, width, kernel_size, dilation=dilation,
+                      padding=pad) for _ in range(scale - 1))
+        self.bns = nn.ModuleList(BatchNorm1d(width) for _ in range(scale - 1))
+        self.conv3 = nn.Conv1d(width * scale, planes, kernel_size=1)
+        self.bn3 = BatchNorm1d(planes)
+        self.se = SEModule1D(planes)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = self.bn1(F.relu(self.conv1(x)))
+        groups = torch.split(out, self.width, dim=1)
+        outs, sp = [], None
+        for i in range(self.scale - 1):
+            sp = groups[i] if i == 0 else sp + groups[i]
+            sp = self.bns[i](F.relu(self.convs[i](sp)))
+            outs.append(sp)
+        outs.append(groups[self.scale - 1])
+        out = self.bn3(F.relu(self.conv3(torch.cat(outs, dim=1))))
+        return self.se(out) + x
+
+
+class ECAPA_TDNN(nn.Module):
+    """Canonical instantiation: C=512, model_scale=8, n_out=2, n_feat=60,
+    enc_dim=256. Built on ``device`` (the GPU unless the caller asks for
+    the CPU)."""
+
+    def __init__(self, C: int = 512, model_scale: int = 8, n_out: int = 2,
+                 n_feat: int = 60, enc_dim: int = 256, device="cuda"):
+        super().__init__()
+        dev = resolve_device(device)
+        self.conv1 = nn.Conv1d(n_feat, C, kernel_size=5, padding=2)
+        self.bn1 = BatchNorm1d(C)
+        self.layer1 = Bottle2neck(C, 3, 2, model_scale)
+        self.layer2 = Bottle2neck(C, 3, 3, model_scale)
+        self.layer3 = Bottle2neck(C, 3, 4, model_scale)
+        self.layer4 = nn.Conv1d(3 * C, 1536, kernel_size=1)
+        self.attention = nn.Sequential(
+            nn.Conv1d(3 * 1536, 128, kernel_size=1),
+            nn.ReLU(),
+            BatchNorm1d(128),
+            nn.Conv1d(128, 1536, kernel_size=1),
+            nn.Softmax(dim=2),
+        )
+        self.bn5 = BatchNorm1d(3072)
+        self.fc6 = nn.Linear(3072, enc_dim)
+        self.fc7 = nn.Linear(enc_dim, n_out)
+        self.bn7 = BatchNorm1d(n_out)
+        self.to(dev)
+
+    def forward(self, feats: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        if feats.dtype == torch.float32:
+            disable_tf32()
+        x = self.bn1(F.relu(self.conv1(feats.transpose(1, 2))))
+        x1 = self.layer1(x)
+        x2 = self.layer2(x1)
+        x3 = self.layer3(x2)
+        x = F.relu(self.layer4(torch.cat([x1, x2, x3], dim=1)))
+
+        T = x.shape[-1]
+        mean = x.mean(dim=2, keepdim=True)
+        std = torch.sqrt(torch.clamp(x.var(dim=2, keepdim=True), min=1e-4))
+        ctx = torch.cat([x, mean.expand(-1, -1, T), std.expand(-1, -1, T)],
+                        dim=1)
+        w = self.attention(ctx)
+        mu = torch.sum(x * w, dim=2)
+        sg = torch.sqrt(torch.clamp(torch.sum(x * x * w, dim=2) - mu * mu,
+                                    min=1e-4))
+        x = self.bn5(torch.cat([mu, sg], dim=1))
+        feat = self.fc6(x)
+        out = self.bn7(self.fc7(feat))
+        return feat.float(), out.float()

@@ -1,0 +1,74 @@
+"""On-device scoring front-end: LFCC with per-utterance lengths, then the
+reference's padding policy to ``feat_len`` frames.
+
+Counterpart of the eval view of the JAX package's ``train/frontend.py``
+``OnDeviceFrontend`` (no augmenter; that comes with the training slice):
+
+- 'repeat':  frame t of a short utterance reads frame t mod T_valid;
+- 'zero':    frames at and past T_valid are zeroed;
+- 'silence': LFCC-of-silence frames are prepended and the valid frames
+  shifted right, so output frame t reads valid frame t - (feat_len -
+  T_valid).
+
+LFCC runs through kernel B1 (``ops/lfcc_cuda.py``) on the GPU.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from asvspoof2021_air_tpu_torch._device import resolve_device
+from asvspoof2021_air_tpu_torch.ops.lfcc import LFCC, LFCCConfig
+from asvspoof2021_air_tpu_torch.ops.lfcc_cuda import CudaLFCC
+
+
+class OnDeviceFrontend:
+    """fn({"wave": (B, L), "length": (B,)}) -> (B, feat_len, D) features."""
+
+    def __init__(self, feat_len: int = 750, padding: str = "repeat",
+                 config: LFCCConfig = LFCCConfig(), device="cuda"):
+        if padding not in ("repeat", "zero", "silence"):
+            raise ValueError("padding should be zero, repeat, or silence")
+        self.feat_len = feat_len
+        self.padding = padding
+        self.device = resolve_device(device)
+        self.extractor = CudaLFCC(config, device=self.device)
+        self.hop = config.hop_length
+        self._silence_vec = None
+        if padding == "silence":
+            self._silence_vec = LFCC(config, device="cpu").silence_frame().to(
+                self.device)
+
+    def min_samples(self) -> int:
+        """Waveform buffer length that yields >= feat_len frames."""
+        return (self.feat_len - 1) * self.hop
+
+    def __call__(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        wave = batch["wave"].to(self.device)
+        lengths = batch.get("length")
+        if lengths is None:
+            lengths = torch.full((wave.shape[0],), wave.shape[1])
+        lengths = lengths.to(self.device).long()
+
+        feats = self.extractor(wave, lengths)             # (B, T_max, D)
+        B, T_max, D = feats.shape
+        t_valid = torch.clamp(1 + lengths // self.hop, min=1)
+        if T_max < self.feat_len:
+            feats = torch.nn.functional.pad(
+                feats, (0, 0, 0, self.feat_len - T_max))
+            T_max = self.feat_len
+        t = torch.arange(self.feat_len, device=self.device)
+        rows = torch.arange(B, device=self.device)[:, None]
+
+        if self.padding == "repeat":
+            return feats[rows, t[None, :] % t_valid[:, None]]
+        if self.padding == "zero":
+            out = feats[:, :self.feat_len]
+            return out * (t[None, :] < t_valid[:, None])[..., None].to(out.dtype)
+        pad = self.feat_len - torch.clamp(t_valid, max=self.feat_len)
+        src = torch.clamp(t[None, :] - pad[:, None], 0, T_max - 1)
+        out = feats[rows, src]
+        is_pad = (t[None, :] < pad[:, None])[..., None]
+        return torch.where(is_pad, self._silence_vec.to(out.dtype), out)

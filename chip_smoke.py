@@ -1,0 +1,500 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one GPU.
+
+    python3 chip_smoke.py
+
+Phases, each fatal on failure:
+
+1. print the card (nvidia-smi name and power limit); build the CUDA
+   kernels from ``asvspoof2021_air_tpu_torch/csrc`` and print the build time;
+2. hold each kernel against its plain PyTorch version on the card at the
+   serving path's shapes (B1 LFCC at (64, 119840) and at win 400 / hop 200;
+   B2 Res2 chain at (64, 750, 512), d = 2/3/4; B3 attention pooling at
+   (64, 750, 1536)), in f32 with TF32 off and in bf16, with one padded case
+   (valid_len < T); print each kernel's error, its time and the plain
+   version's;
+3. drive the serving path at full width: ECAPA-TDNN C=512 (scale 8,
+   embedding 256) and an OC-Softmax center from a numpy seed, 136 synthetic
+   utterances written as wav files with a protocol, scored by
+   ``score_raw_to_file`` in bf16 at batch 64 (two full requests and a
+   partial one); check the score file (one finite score per utterance), the
+   kernels' launch counts over that run, and the bf16 embeddings' cosine
+   against the plain f32 path (unfused ECAPA, plain LFCC) on the card.
+
+The line before the last is a JSON object with one entry per kernel; the
+last line is the device JSON. The script imports only the port, torch and
+numpy. It exits non-zero without a GPU or without the port beside it.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+
+# Published H100 SXM peaks (NVIDIA data sheet, dense): bytes/s of HBM3 and
+# FLOP/s by operand type.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12}
+
+B, L, T, C, D = 64, 119840, 750, 512, 1536
+DEVICE = "cuda"
+
+
+def fail(msg: str) -> None:
+    print(f"FAIL: {msg}", file=sys.stderr)
+    sys.exit(1)
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        fail(msg)
+
+
+def gpu_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60).stdout
+    return out.strip().splitlines()[0]
+
+
+def time_ms(torch, fn, iters: int = 10, warmup: int = 2) -> float:
+    """Mean device time of fn() over iters back-to-back calls (CUDA
+    events), after warmup calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def bound(nbytes: float, flops: float, kind: str):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[kind] * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+
+
+def max_err(a, b) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+def bf16_ulp(v):
+    """One bf16 ulp at each |v| > 0: 2^(floor(log2 |v|) - 7)."""
+    import torch
+
+    return torch.exp2((torch.frexp(v.float())[1] - 8).float())
+
+
+KERNEL_GROUPS = (
+    ("B1 lfcc", ("lfcc_kernel",)),
+    ("B2 res2_chain", ("res2_chain_kernel",)),
+    ("B3 attn_pool", ("stats_kernel", "const_kernel", "hidden_kernel",
+                      "pool_kernel")),
+    ("matmul (cuBLAS)", ("gemm", "nvjet", "xmma", "cutlass", "cublas")),
+    ("conv (cuDNN)", ("conv", "cudnn", "implicit")),
+)
+
+
+def profile_forward(torch, fn, fwd_ms: float):
+    """Device time of one call of fn by kernel group (torch.profiler, device
+    events only), and the device's busy share: kernel time over the
+    forward's CUDA-event time ``fwd_ms`` measured without the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    other = "other (elementwise, reductions, copies)"
+    groups = {name: 0.0 for name, _ in KERNEL_GROUPS}
+    groups[other] = 0.0
+    kernels = []
+    for ev in prof.key_averages():
+        if not str(getattr(ev, "device_type", "")).endswith("CUDA"):
+            continue
+        us = float(getattr(ev, "self_device_time_total", 0.0) or 0.0)
+        kernels.append((us, ev.count, ev.key))
+        key = ev.key.lower()
+        for name, pats in KERNEL_GROUPS:
+            if any(p in key for p in pats):
+                groups[name] += us
+                break
+        else:
+            groups[other] += us
+    busy = sum(groups.values()) / 1e3
+    print(f"profile of one forward: kernels {busy:.3f} ms of the "
+          f"{fwd_ms:.3f} ms forward = device busy {100 * busy / fwd_ms:.1f}%")
+    for name, us in sorted(groups.items(), key=lambda kv: -kv[1]):
+        print(f"  {name}: {us / 1e3:.3f} ms")
+    for us, count, key in sorted(kernels, reverse=True)[:12]:
+        print(f"    {us / 1e3:8.3f} ms  x{count:<4d} {key[:90]}")
+
+
+def kernel_checks(torch, gen):
+    """Phase 2. Returns the kernel entries (without launches)."""
+    from asvspoof2021_air_tpu_torch.ops import attn_pool_cuda as ap
+    from asvspoof2021_air_tpu_torch.ops import lfcc_cuda as lc
+    from asvspoof2021_air_tpu_torch.ops import res2_chain_cuda as rc
+    from asvspoof2021_air_tpu_torch.ops.lfcc import LFCCConfig, emphasize
+
+    dev = torch.device(DEVICE)
+    randn = lambda *s, scale=1.0: torch.randn(
+        *s, generator=gen, device=dev) * scale
+    entries = {}
+
+    # B1: LFCC. f32 only (the front-end's bar rules out lower precision).
+    errs = []
+    for cfg in (LFCCConfig(), LFCCConfig(win_length=400, hop_length=200)):
+        fe = lc.CudaLFCC(cfg, device=dev)
+        x = emphasize(randn(B, L, scale=0.3), cfg, None).contiguous()
+        got = lc.lfcc_kernel(x, fe.cs, fe.fb, fe.dct, cfg)
+        want = lc.lfcc_plain(x, fe.cs, fe.fb, fe.dct, cfg)
+        err = max_err(got, want)
+        print(f"B1 lfcc win={cfg.win_length} hop={cfg.hop_length} "
+              f"shape={tuple(got.shape)} max_abs_err={err:.3e} (atol 5e-4)")
+        check(err <= 5e-4, f"B1 disagrees with its plain version: {err}")
+        errs.append(err)
+        if cfg == LFCCConfig():
+            T1 = got.shape[1]
+            ms = time_ms(torch, lambda: lc.lfcc_kernel(
+                x, fe.cs, fe.fb, fe.dct, cfg))
+            plain_ms = time_ms(torch, lambda: lc.lfcc_plain(
+                x, fe.cs, fe.fb, fe.dct, cfg))
+            frames = torch.nn.functional.pad(x, (cfg.hop_length,) * 2).unfold(
+                1, cfg.win_length, cfg.hop_length)[:, :T1].contiguous()
+            matmul_ms = time_ms(torch, lambda: frames @ fe.cs)
+            # The bound counts what the function needs, not this design's
+            # direct DFT: a real FFT of n_fft gives the bins in
+            # 2.5 n log2 n flops per frame; then the window, re^2 + im^2,
+            # the filterbank's nonzero weights, the log and the DCT. Bytes:
+            # the waveform read, the constants, the cepstra written.
+            n, nf = cfg.n_fft, cfg.n_filters
+            n_bins = fe.fb.shape[0]
+            fb_nnz = int((fe.fb != 0).sum())
+            nbytes = 4 * (x.numel() + cfg.win_length + fb_nnz
+                          + fe.dct.numel() + got.numel())
+            flops = B * T1 * (2.5 * n * float(np.log2(n)) + cfg.win_length
+                              + 3 * n_bins + 2 * fb_nnz + nf + 2 * nf * nf)
+            dft_flops = 2 * B * T1 * (cfg.win_length * 2 * n_bins
+                                      + n_bins * nf + nf * nf)
+            print(f"B1 work: the function needs {flops / 1e9:.3f} GFLOP "
+                  f"(FFT) and {nbytes / 1e6:.1f} MB; this kernel's direct "
+                  f"DFT does {dft_flops / 1e9:.2f} GFLOP of f32 FMA, "
+                  f"{dft_flops / PEAK_FLOPS['f32'] * 1e3:.4f} ms at the f32 "
+                  f"peak")
+            entries["B1"] = dict(
+                name="B1 lfcc (fused LFCC front-end)",
+                source="asvspoof2021_air_tpu_torch/csrc/lfcc.cu",
+                replaces="asvspoof2021_air_tpu/ops/lfcc_pallas.py:98 "
+                         "(_lfcc_lane128_kernel) and :45 (_lfcc_kernel)",
+                ms=ms, plain_ms=plain_ms, matmul_ms=matmul_ms,
+                bytes=nbytes, flops=flops, kind="f32", dft_flops=dft_flops)
+    entries["B1"]["max_abs_err"] = max(errs)
+
+    # B2: Res2 chain, f32 and bf16, d = 2/3/4, and one padded case.
+    sd = {}
+    for j in range(7):
+        sd[f"l.convs.{j}.weight"] = randn(64, 64, 3, scale=1 / 192 ** 0.5)
+        sd[f"l.convs.{j}.bias"] = randn(64, scale=0.05)
+        sd[f"l.bns.{j}.weight"] = 1 + randn(64, scale=0.1)
+        sd[f"l.bns.{j}.bias"] = randn(64, scale=0.1)
+        sd[f"l.bns.{j}.running_mean"] = randn(64, scale=0.1)
+        sd[f"l.bns.{j}.running_var"] = 1 + randn(64, scale=0.1).abs()
+    packed = rc.pack_chain_params(sd, "l")
+    # the kernel takes w in x's type, cast once (as ServingECAPA does)
+    packed_of = {torch.float32: packed,
+                 torch.bfloat16: (packed[0].bfloat16(), *packed[1:])}
+    x32 = randn(B, T, C)
+    xbf = x32.bfloat16()
+    errs, times, plain_times = [], [], []
+    for d in (2, 3, 4):
+        # f32: atol 1e-4. bf16, at every element, in ulps of max(|want|, 1):
+        # <= i + 1 in group i = 0..6 and 0 in the passed-through group 7;
+        # and at most 1e-5 of the elements over 1 ulp. The chain rounds to
+        # bf16 after each of its 7 convs, and a sum taken in another order
+        # can flip one of those roundings by one ulp. Group 0's conv reads
+        # only x, so it differs by at most that flip; group i also reads,
+        # through its conv, the flips of the i steps before it, each worth
+        # up to about one more ulp. Flips are rare, so few elements may
+        # exceed one ulp.
+        cases = [(x32, None), (xbf, None)]
+        if d == 3:
+            cases.append((x32, T - 50))
+        for x, valid in cases:
+            p = packed_of[x.dtype]
+            got = rc.res2_chain_kernel(x, *p, dilation=d, valid_len=valid)
+            want = rc.res2_chain_plain(x, *p, dilation=d, valid_len=valid)
+            err = max_err(got, want)
+            if x.dtype == torch.float32:
+                ok, bar = err <= 1e-4, "atol 1e-4"
+            else:
+                diff = (got.float() - want.float()).abs()
+                ulps = diff / bf16_ulp(want.float().abs().clamp(min=1.0))
+                g = ulps.unflatten(-1, (8, C // 8)).amax(dim=(0, 1, 3))
+                bars = torch.tensor([1.0, 2, 3, 4, 5, 6, 7, 0], device=dev)
+                n_over = int((ulps > 1).sum())
+                ok = bool((g <= bars).all()) and n_over <= 1e-5 * ulps.numel()
+                bar = (f"bf16 ulp of max(|want|, 1) per group "
+                       f"{[round(v, 3) for v in g.tolist()]}, bars "
+                       f"1..7/0; {n_over} of {ulps.numel()} elements over "
+                       f"1 ulp, bar {1e-5 * ulps.numel():.0f}")
+            print(f"B2 res2_chain d={d} {str(x.dtype)[6:]} valid={valid} "
+                  f"max_abs_err={err:.3e} ({bar})")
+            check(ok, f"B2 disagrees with its plain version (d={d}, "
+                      f"{x.dtype}, valid={valid}): {err}")
+            if x is x32 and valid is not None:
+                check(bool((got[:, valid:] == 0).all()),
+                      "B2 rows past valid_len are not zero")
+            if x is x32 and valid is None:
+                errs.append(err)
+        p = packed_of[torch.bfloat16]
+        times.append(time_ms(torch, lambda: rc.res2_chain_kernel(
+            xbf, *p, dilation=d)))
+        plain_times.append(time_ms(torch, lambda: rc.res2_chain_plain(
+            xbf, *p, dilation=d)))
+    w16 = packed_of[torch.bfloat16][0][0]
+    x3 = torch.cat([xbf[..., :64]] * 3, dim=-1).reshape(-1, 192)
+    matmul_ms = 7 * time_ms(torch, lambda: x3 @ w16)
+    entries["B2"] = dict(
+        name="B2 res2_chain (inference Res2 chain, one launch per block)",
+        source="asvspoof2021_air_tpu_torch/csrc/res2_chain.cu",
+        replaces="asvspoof2021_air_tpu/ops/res2_chain_pallas.py:54 "
+                 "(_chain_kernel)",
+        ms=float(np.mean(times)), plain_ms=float(np.mean(plain_times)),
+        matmul_ms=matmul_ms, max_abs_err=max(errs),
+        bytes=2 * 2 * B * T * C + 2 * packed[0].numel()
+        + 4 * 3 * packed[1].numel(),
+        flops=2 * B * T * 192 * 64 * 7, kind="bf16")
+
+    # B3: attention pooling, f32 and bf16 (products in f32 either way, so
+    # one tolerance: sums over T = 750 in another order), and one padded
+    # case.
+    sdp = {
+        "attention.0.weight": randn(128, 3 * D, 1, scale=0.02),
+        "attention.0.bias": randn(128, scale=0.05),
+        "attention.2.weight": 1 + randn(128, scale=0.1),
+        "attention.2.bias": randn(128, scale=0.1),
+        "attention.2.running_mean": randn(128, scale=0.1),
+        "attention.2.running_var": 1 + randn(128, scale=0.1).abs(),
+        "attention.3.weight": randn(D, 128, 1, scale=0.05),
+        "attention.3.bias": randn(D, scale=0.05),
+    }
+    pp = ap.pack_pool_params(sdp)
+    xp32 = torch.relu(randn(B, T, D))
+    xpbf = xp32.bfloat16()
+    errs = []
+    for x, valid in ((xp32, None), (xpbf, None), (xp32, T - 50)):
+        got = ap.attention_pooling_kernel(x, pp, valid)
+        want = ap.attention_pooling_plain(x, pp, valid)
+        err = max_err(got, want)
+        ok = torch.allclose(got, want, atol=1e-4, rtol=1e-4)
+        print(f"B3 attn_pool {str(x.dtype)[6:]} valid={valid} "
+              f"max_abs_err={err:.3e} (atol 1e-4, rtol 1e-4)")
+        check(ok, f"B3 disagrees with its plain version ({x.dtype}, "
+                  f"valid={valid}): {err}")
+        if valid is None:
+            errs.append(err)
+    ms = time_ms(torch, lambda: ap.attention_pooling_kernel(xpbf, pp))
+    plain_ms = time_ms(torch, lambda: ap.attention_pooling_plain(xpbf, pp))
+    wx16 = pp.wx.bfloat16()
+    matmul_ms = 2 * time_ms(torch, lambda: xpbf @ wx16)
+    entries["B3"] = dict(
+        name="B3 attn_pool (context attentive-statistics pooling)",
+        source="asvspoof2021_air_tpu_torch/csrc/attn_pool.cu",
+        replaces="asvspoof2021_air_tpu/ops/attn_pool_pallas.py:31 (_kernel)",
+        ms=ms, plain_ms=plain_ms, matmul_ms=matmul_ms, max_abs_err=max(errs),
+        bytes=2 * xpbf.numel() + 4 * sum(t.numel() for t in pp)
+        + 4 * B * 2 * D,
+        flops=2 * B * T * D * 128 * 2 + 2 * B * 2 * D * 128, kind="bf16")
+    return entries
+
+
+def write_corpus(root: str, n: int, seed: int):
+    """ASVspoof2019-layout corpus of n wavs (bona fide: noise, spoof: a
+    tone + noise), mostly 7.49 s, a few shorter and two longer."""
+    from asvspoof2021_air_tpu_torch.data.audio_io import write_wav
+
+    g = np.random.default_rng(seed)
+    wav_dir = os.path.join(root, "LA", "ASVspoof2019_LA_eval", "wav")
+    proto_dir = os.path.join(root, "LA", "ASVspoof2019_LA_cm_protocols")
+    os.makedirs(wav_dir)
+    os.makedirs(proto_dir)
+    lines = []
+    for i in range(n):
+        length = L
+        if i % 23 == 5:
+            length = int(g.integers(L // 8, L // 2))
+        elif i in (7, 70):
+            length = L + 20000
+        label = i % 2
+        wav = 0.1 * g.standard_normal(length)
+        if label:
+            t = np.arange(length) / 16000.0
+            wav = 0.3 * np.sin(2 * np.pi * (300 + 7 * i) * t) + 0.02 * wav
+        fname = f"LA_E_{i:07d}"
+        write_wav(os.path.join(wav_dir, fname + ".wav"), wav)
+        lines.append(f"LA_0001 {fname} - {'A07' if label else '-'} "
+                     f"{'spoof' if label else 'bonafide'}")
+    with open(os.path.join(proto_dir, "ASVspoof2019.LA.cm.eval.trl.txt"),
+              "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def main_path(torch, gpu: str, entries):
+    """Phase 3: the serving path at full width through score_raw_to_file."""
+    from asvspoof2021_air_tpu_torch.data.datasets import RawAudioDataset
+    from asvspoof2021_air_tpu_torch.interop.flax_weights import (
+        from_flax_variables, random_flax_variables)
+    from asvspoof2021_air_tpu_torch.losses.one_class import OCSoftmax
+    from asvspoof2021_air_tpu_torch.metrics.eer import eer_from_score_file
+    from asvspoof2021_air_tpu_torch.models.ecapa import ECAPA_TDNN
+    from asvspoof2021_air_tpu_torch.ops import attn_pool_cuda as ap
+    from asvspoof2021_air_tpu_torch.ops import lfcc_cuda as lc
+    from asvspoof2021_air_tpu_torch.ops import res2_chain_cuda as rc
+    from asvspoof2021_air_tpu_torch.ops.lfcc import LFCC
+    from asvspoof2021_air_tpu_torch.scoring import score_raw_to_file
+    from asvspoof2021_air_tpu_torch.serving.ecapa_serving import ServingECAPA
+    from asvspoof2021_air_tpu_torch.train.frontend import OnDeviceFrontend
+
+    sd = from_flax_variables(random_flax_variables(
+        0, C=C, model_scale=8, enc_dim=256), model_scale=8)
+    center = np.random.default_rng(1).uniform(-1, 1, (1, 256))
+    oc = OCSoftmax(feat_dim=256, r_real=0.9, r_fake=0.2, alpha=20.0,
+                   device=DEVICE)
+    with torch.no_grad():
+        oc.center.copy_(torch.from_numpy(center))
+    n_utt = 2 * B + 8
+    with tempfile.TemporaryDirectory() as tmp:
+        write_corpus(tmp, n_utt, seed=2)
+        ds = RawAudioDataset("LA", tmp, "eval")
+        fe = OnDeviceFrontend(feat_len=T, padding="repeat", device=DEVICE)
+        out = os.path.join(tmp, "scores.txt")
+        run = lambda: score_raw_to_file(
+            sd, ds, out, labeled=True, frontend=fe, loss_module=oc,
+            add_loss="ocsoftmax", batch_size=B, dtype=torch.bfloat16,
+            device=DEVICE)
+        run()                                   # warm-up (cuBLAS, cuDNN)
+        torch.cuda.synchronize()
+        lc.launches = rc.launches = ap.launches = 0
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {"B1": lc.launches, "B2": rc.launches, "B3": ap.launches}
+        n_batches = -(-n_utt // B)
+        print(f"main path launches over {n_batches} batches: {counts}")
+        check(counts["B1"] >= n_batches, "B1 did not run on the main path")
+        check(counts["B2"] >= 3 * n_batches, "B2 did not run 3x per batch")
+        check(counts["B3"] >= n_batches, "B3 did not run on the main path")
+        for k, v in counts.items():
+            entries[k]["launches"] = v
+
+        with open(out) as f:
+            rows = [line.split() for line in f]
+        check(len(rows) == n_utt, f"{len(rows)} score lines for {n_utt}")
+        check(sorted(r[0] for r in rows)
+              == sorted(e.filename for e in ds.entries), "fnames differ")
+        scores = np.array([float(r[1]) for r in rows])
+        check(bool(np.isfinite(scores).all()), "non-finite scores")
+        check(all(len(r) == 3 and r[2] in ("bonafide", "spoof")
+                  for r in rows), "malformed score lines")
+        print(f"score file: {len(rows)} lines, scores in "
+              f"[{scores.min():.4f}, {scores.max():.4f}], "
+              f"EER {eer_from_score_file(out):.4f} (random weights)")
+
+        # One full batch: device time of the forward, and the bf16
+        # embeddings against the plain f32 path.
+        from asvspoof2021_air_tpu_torch.data.pipeline import WaveformIterator
+        batch = next(WaveformIterator(ds, B, fe.min_samples(), seed=0,
+                                      shuffle=False).epoch())
+        wave = {"wave": torch.from_numpy(batch["wave"]).to(DEVICE),
+                "length": torch.from_numpy(batch["length"]).to(DEVICE)}
+        model = ServingECAPA(sd, dtype=torch.bfloat16, device=DEVICE)
+        with torch.inference_mode():
+            fwd_ms = time_ms(torch, lambda: model(fe(wave)), iters=5)
+            emb, _ = model(fe(wave))
+            ref_fe = OnDeviceFrontend(feat_len=T, padding="repeat",
+                                      device=DEVICE)
+            ref_fe.extractor = LFCC(device=DEVICE)
+            ref = ECAPA_TDNN(C=C, model_scale=8, enc_dim=256,
+                             device=DEVICE).eval()
+            ref.load_state_dict(sd)
+            ref_emb, _ = ref(ref_fe(wave))
+            profile_forward(torch, lambda: model(fe(wave)), fwd_ms)
+        cos = torch.nn.functional.cosine_similarity(emb, ref_emb, dim=1)
+        print(f"bf16 vs plain f32 embedding cosine: min {float(cos.min()):.6f}"
+              f" mean {float(cos.mean()):.6f} (bar 0.9996)")
+        check(bool((cos >= 0.9996).all()), "bf16 embedding cosine < 0.9996")
+    per_batch = wall * 1e3 / n_batches
+    print(f"main path [{gpu}]: score_raw_to_file {n_utt} utts in "
+          f"{wall * 1e3:.1f} ms = {per_batch:.2f} ms/batch (host clock, wav "
+          f"reading included), {n_utt / wall:.1f} utt/s; "
+          f"forward (LFCC + ECAPA, B={B}, bf16) {fwd_ms:.3f} ms/batch = "
+          f"{B / fwd_ms * 1e3:.1f} utt/s (CUDA events)")
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        fail("torch is not installed")
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this smoke run needs a GPU")
+    try:
+        from asvspoof2021_air_tpu_torch._device import disable_tf32
+        from asvspoof2021_air_tpu_torch.ops import _build
+    except ImportError as e:
+        fail(f"the port package is not beside chip_smoke.py ({e})")
+
+    gpu = gpu_line()
+    print(gpu)
+    disable_tf32()
+    t0 = time.perf_counter()
+    _build.library()
+    print(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s "
+          f"(nvcc: {_build.build_seconds})")
+
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    entries = kernel_checks(torch, gen)
+    main_path(torch, gpu, entries)
+
+    kernels = []
+    for key in ("B1", "B2", "B3"):
+        e = entries[key]
+        bound_ms, bound_by = bound(e["bytes"], e["flops"], e["kind"])
+        print(f"{e['name']} [{gpu}]: max_abs_err {e['max_abs_err']:.3e}, "
+              f"{e['ms']:.4f} ms (plain {e['plain_ms']:.4f} ms, bound "
+              f"{bound_ms:.4f} ms by {bound_by}), {e['launches']} launches "
+              f"on the main path")
+        kernels.append({
+            "name": e["name"], "route": "cuda", "source": e["source"],
+            "replaces": e["replaces"], "launches": e["launches"],
+            "max_abs_err": e["max_abs_err"], "ms": e["ms"],
+            "plain_ms": e["plain_ms"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None,
+            "matmul_ms": e["matmul_ms"], "bytes": e["bytes"],
+            "flops": e["flops"]})
+    print(json.dumps({"kernels": kernels}))
+    print(gpu)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
