@@ -15,11 +15,17 @@ state_dict.
 :func:`random_flax_variables` makes a seeded tree with exactly the names
 and shapes ``ECAPA_TDNN(...).init`` gives, so a full-width model can be
 built without JAX or a checkpoint.
+
+:func:`from_flax_train_state` carries a whole JAX ``TrainState`` (ECAPA,
+the OC-Softmax center, the backbone's Adam moments and the step) into the
+port's checkpoint form (``train/state.py``), so both packages can start
+from one mid-training state. It reads the state's arrays through numpy and
+imports nothing of JAX.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Any, Dict
 
 import numpy as np
 import torch
@@ -139,3 +145,37 @@ def random_flax_variables(seed: int, C: int = 512, model_scale: int = 8,
     params["Dense_1"] = conv(enc_dim, n_out)
     params["BatchNorm_3"], stats["BatchNorm_3"] = bn(n_out)
     return {"params": params, "batch_stats": stats}
+
+
+def _param_entries(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    return {k: v for k, v in sd.items()
+            if not k.endswith(("running_mean", "running_var"))}
+
+
+def from_flax_train_state(state, model_scale: int = 8) -> Dict[str, Any]:
+    """The JAX ``TrainState`` of an ECAPA run -> the port's checkpoint
+    dict (``TrainState.load_state_dict``):
+
+    - params and batch_stats -> ``model`` (the port's state_dict);
+    - ``loss_params["center"]`` -> ``loss_module`` ``{"center"}``, or None;
+    - the backbone's ``ScaleByAdamState`` (count, mu, nu) ->
+      ``optimizer``: per parameter name, ``torch.optim.Adam``'s state
+      ``{step, exp_avg, exp_avg_sq}``;
+    - ``step`` -> ``step``.
+
+    The center's SGD and the learning-rate schedule hold no state."""
+    bs = state.batch_stats
+    model = from_flax_variables({"params": state.params, "batch_stats": bs},
+                                model_scale)
+    adam = next(s for s in state.opt_state
+                if hasattr(s, "mu") and hasattr(s, "nu"))
+    moment = lambda tree: _param_entries(from_flax_variables(
+        {"params": tree, "batch_stats": bs}, model_scale))
+    mu, nu = moment(adam.mu), moment(adam.nu)
+    count = float(np.asarray(adam.count))
+    optimizer = {name: {"step": torch.tensor(count), "exp_avg": mu[name],
+                        "exp_avg_sq": nu[name]} for name in mu}
+    loss = (None if state.loss_params is None
+            else {"center": _t(state.loss_params["center"])})
+    return {"step": int(np.asarray(state.step)), "model": model,
+            "loss_module": loss, "optimizer": optimizer}

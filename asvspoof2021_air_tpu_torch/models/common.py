@@ -1,46 +1,84 @@
-"""Shared model building blocks: eval-mode BatchNorm and the SE module.
+"""Shared model building blocks: BatchNorm (eval and train mode), the SE
+module, and flax's default initializer.
 
-Counterparts of the JAX package's ``models/common.py`` ``BatchNorm``
-(inference branch) and ``SEModule1D``. Only inference is ported here; the
-train-mode BatchNorm, whose running-variance update uses the biased batch
-variance unlike ``torch.nn.BatchNorm1d``, belongs to the training slice.
+Counterparts of the JAX package's ``models/common.py`` ``BatchNorm`` and
+``SEModule1D``. Train mode follows the JAX ``BatchNorm`` and flax's
+``nn.BatchNorm``, not ``torch.nn.BatchNorm1d``: batch statistics in f32
+over every axis but the channel, variance max(0, E[x^2] - E[x]^2), and the
+running statistics updated as ``0.9 ra + 0.1 batch`` with the *biased*
+variance (``torch.nn.BatchNorm1d`` updates with the unbiased one).
 """
 
 from __future__ import annotations
 
+import math
+from typing import Optional
+
 import torch
 from torch import nn
 
+from asvspoof2021_air_tpu_torch.ops.bn_relu_vjp import (
+    channel_layout, relu_bn_train)
+
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.9      # flax: the retained fraction of the running statistics
 
 
 class BatchNorm1d(nn.Module):
-    """Inference BatchNorm over dim 1 of (B, C) or (B, C, T):
-    ``(x - mean) * (rsqrt(var + eps) * weight) + bias`` in f32, returned in
-    x's type promoted to at least f32 (as the JAX BatchNorm returns it).
-    State names match ``torch.nn.BatchNorm1d`` (weight, bias, running_mean,
-    running_var)."""
+    """BatchNorm over channel dim ``dim`` (default 1, for (B, C) and
+    (B, C, T)), computed in f32 and returned in x's type promoted to at
+    least f32 (as the JAX BatchNorm returns it). Eval mode normalizes with
+    the running statistics: ``(x - mean) * (rsqrt(var + eps) * weight) +
+    bias``. State names match ``torch.nn.BatchNorm1d`` (weight, bias,
+    running_mean, running_var)."""
 
-    def __init__(self, num_features: int, eps: float = BN_EPS):
+    def __init__(self, num_features: int, eps: float = BN_EPS,
+                 momentum: float = BN_MOMENTUM):
         super().__init__()
-        self.eps = eps
+        self.eps, self.momentum = eps, momentum
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        shape = (1, -1) + (1,) * (x.dim() - 2)
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        y = ((x.float() - self.running_mean.view(shape)) * mul.view(shape)
-             + self.bias.view(shape))
+    def _out(self, y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         return y.to(torch.promote_types(x.dtype, torch.float32))
+
+    def _update(self, mu: torch.Tensor, var: torch.Tensor) -> None:
+        m = self.momentum
+        with torch.no_grad():
+            self.running_mean.copy_(m * self.running_mean + (1 - m) * mu)
+            self.running_var.copy_(m * self.running_var + (1 - m) * var)
+
+    def forward(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+        dims, shape = channel_layout(x, dim)
+        xf = x.float()
+        if self.training:
+            mu = xf.mean(dims)
+            var = torch.clamp((xf * xf).mean(dims) - mu * mu, min=0.0)
+            self._update(mu.detach(), var.detach())
+        else:
+            mu, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mu.view(shape)) * mul.view(shape) + self.bias.view(shape)
+        return self._out(y, x)
+
+    def relu_bn(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+        """``self(relu(x))``; in train mode through the recompute VJP of
+        ``ops/bn_relu_vjp.py`` (same values, lighter residuals)."""
+        if not self.training:
+            return self(torch.relu(x), dim)
+        y, mu, var = relu_bn_train(x, self.weight, self.bias, self.eps, dim)
+        self._update(mu.detach(), var.detach())
+        return self._out(y, x)
 
 
 class SEModule1D(nn.Module):
     """Squeeze-excitation over (B, C, T) with a BatchNorm'd bottleneck:
     ``se`` = [avg-pool, 1x1 conv C->128, ReLU, BN, 1x1 conv 128->C,
-    sigmoid], indexed as the reference's state_dict names them."""
+    sigmoid], indexed as the reference's state_dict names them. In train
+    mode the BN takes its statistics over the batch, as flax's
+    ``nn.BatchNorm`` does in the JAX module."""
 
     def __init__(self, channels: int, bottleneck: int = 128):
         super().__init__()
@@ -55,3 +93,32 @@ class SEModule1D(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return x * self.se(x)
+
+
+def lecun_normal_(weight: torch.Tensor,
+                  generator: Optional[torch.Generator] = None) -> None:
+    """flax's ``lecun_normal``: a normal truncated to +-2 standard
+    deviations, scaled to variance 1 / fan_in. ``fan_in`` is the input
+    width times the kernel taps, ``weight[0].numel()`` in torch's (out, in,
+    k) and (out, in) layouts."""
+    std = math.sqrt(1.0 / weight[0].numel()) / 0.87962566103423978
+    with torch.no_grad():
+        nn.init.trunc_normal_(weight, 0.0, 1.0, -2.0, 2.0, generator=generator)
+        weight.mul_(std)
+
+
+def init_flax_like_(module: nn.Module,
+                    generator: Optional[torch.Generator] = None) -> None:
+    """Re-initialize ``module`` as flax initializes the JAX model:
+    lecun-normal kernels and zero biases for every conv and linear layer,
+    scale 1, bias 0, mean 0 and var 1 for every BatchNorm. Equal in law to
+    the JAX init, not bit for bit (the two generators differ)."""
+    for m in module.modules():
+        if isinstance(m, (nn.Conv1d, nn.Linear)):
+            lecun_normal_(m.weight, generator)
+            if m.bias is not None:
+                nn.init.zeros_(m.bias)
+        elif isinstance(m, BatchNorm1d):
+            for t, v in ((m.weight, 1.0), (m.bias, 0.0),
+                         (m.running_mean, 0.0), (m.running_var, 1.0)):
+                nn.init.constant_(t, v)

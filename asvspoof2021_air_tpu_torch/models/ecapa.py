@@ -1,7 +1,7 @@
-"""ECAPA-TDNN eval forward with the reference's state_dict names.
+"""ECAPA-TDNN in eval and train mode with the reference's state_dict names.
 
 Counterpart of the JAX package's ``models/ecapa.py`` ``ECAPA_TDNN`` and
-``Bottle2neck`` in eval mode (context attention, the "ECA" encoder, out-BN):
+``Bottle2neck`` (context attention, the "ECA" encoder, out-BN):
 
 - stem conv k=5 F -> C, ReLU, BN (``conv1``, ``bn1``);
 - three SE-Res2 Bottle2necks, kernel 3, dilations 2/3/4 (``layer1..3``);
@@ -10,22 +10,33 @@ Counterpart of the JAX package's ``models/ecapa.py`` ``ECAPA_TDNN`` and
 - BN -> embedding -> logits -> BN (``bn5``, ``fc6``, ``fc7``, ``bn7``).
 
 The public forward takes (B, T, F) channels-last features, as the JAX model
-does, and returns (embedding, logits) in f32. This is the unfused plain
-path; the serving graph with the CUDA kernels is
-``serving/ecapa_serving.py``.
+does, and returns (embedding, logits) in f32.
+
+Eval mode without ``fused_pool`` is the unfused plain path, the f32
+reference on the card; the serving graph with the CUDA kernels is
+``serving/ecapa_serving.py``. Train mode is the JAX model with
+``fused_pool=True, fused_bn=True``: batch-statistics BN with the JAX
+running-statistics rule, every ReLU -> BN pair through the recompute VJP
+(``ops/bn_relu_vjp.py``), the Res2 chain as seven plain convs, and the
+attention tail through :class:`~asvspoof2021_air_tpu_torch.ops.attn_pool_vjp.FusedSoftmaxStats`
+(kernels B4a/B4b on the card). With ``fused_pool`` the eval forward also
+pools through B4a, as the JAX eval step does. Weights start as flax
+initializes them (lecun-normal kernels, zero biases).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from asvspoof2021_air_tpu_torch._device import disable_tf32, resolve_device
-from asvspoof2021_air_tpu_torch.models.common import BatchNorm1d, SEModule1D
+from asvspoof2021_air_tpu_torch.models.common import (
+    BatchNorm1d, SEModule1D, init_flax_like_)
+from asvspoof2021_air_tpu_torch.ops.attn_pool_vjp import fused_softmax_stats
 
 
 class Bottle2neck(nn.Module):
@@ -48,27 +59,31 @@ class Bottle2neck(nn.Module):
         self.se = SEModule1D(planes)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = self.bn1(F.relu(self.conv1(x)))
+        out = self.bn1.relu_bn(self.conv1(x))
         groups = torch.split(out, self.width, dim=1)
         outs, sp = [], None
         for i in range(self.scale - 1):
             sp = groups[i] if i == 0 else sp + groups[i]
-            sp = self.bns[i](F.relu(self.convs[i](sp)))
+            sp = self.bns[i].relu_bn(self.convs[i](sp))
             outs.append(sp)
         outs.append(groups[self.scale - 1])
-        out = self.bn3(F.relu(self.conv3(torch.cat(outs, dim=1))))
+        out = self.bn3.relu_bn(self.conv3(torch.cat(outs, dim=1)))
         return self.se(out) + x
 
 
 class ECAPA_TDNN(nn.Module):
     """Canonical instantiation: C=512, model_scale=8, n_out=2, n_feat=60,
     enc_dim=256. Built on ``device`` (the GPU unless the caller asks for
-    the CPU)."""
+    the CPU), initialized from ``generator`` (a CPU generator; torch's
+    global one when None)."""
 
     def __init__(self, C: int = 512, model_scale: int = 8, n_out: int = 2,
-                 n_feat: int = 60, enc_dim: int = 256, device="cuda"):
+                 n_feat: int = 60, enc_dim: int = 256,
+                 fused_pool: bool = False,
+                 generator: Optional[torch.Generator] = None, device="cuda"):
         super().__init__()
         dev = resolve_device(device)
+        self.fused_pool = fused_pool
         self.conv1 = nn.Conv1d(n_feat, C, kernel_size=5, padding=2)
         self.bn1 = BatchNorm1d(C)
         self.layer1 = Bottle2neck(C, 3, 2, model_scale)
@@ -86,18 +101,29 @@ class ECAPA_TDNN(nn.Module):
         self.fc6 = nn.Linear(3072, enc_dim)
         self.fc7 = nn.Linear(enc_dim, n_out)
         self.bn7 = BatchNorm1d(n_out)
+        init_flax_like_(self, generator)
         self.to(dev)
 
     def forward(self, feats: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         if feats.dtype == torch.float32:
             disable_tf32()
-        x = self.bn1(F.relu(self.conv1(feats.transpose(1, 2))))
+        x = self.bn1.relu_bn(self.conv1(feats.transpose(1, 2)))
         x1 = self.layer1(x)
         x2 = self.layer2(x1)
         x3 = self.layer3(x2)
         x = F.relu(self.layer4(torch.cat([x1, x2, x3], dim=1)))
+        if self.training or self.fused_pool:
+            mu, sg = self._fused_pooling(x)
+        else:
+            mu, sg = self._pooling(x)
+        x = self.bn5(torch.cat([mu, sg], dim=1))
+        feat = self.fc6(x)
+        out = self.bn7(self.fc7(feat))
+        return feat.float(), out.float()
 
+    def _pooling(self, x: torch.Tensor):
+        """The unfused attentive statistics of x (B, D, T): (mu, sigma)."""
         T = x.shape[-1]
         mean = x.mean(dim=2, keepdim=True)
         std = torch.sqrt(torch.clamp(x.var(dim=2, keepdim=True), min=1e-4))
@@ -107,7 +133,22 @@ class ECAPA_TDNN(nn.Module):
         mu = torch.sum(x * w, dim=2)
         sg = torch.sqrt(torch.clamp(torch.sum(x * x * w, dim=2) - mu * mu,
                                     min=1e-4))
-        x = self.bn5(torch.cat([mu, sg], dim=1))
-        feat = self.fc6(x)
-        out = self.bn7(self.fc7(feat))
-        return feat.float(), out.float()
+        return mu, sg
+
+    def _fused_pooling(self, x: torch.Tensor):
+        """The attentive statistics of x (B, D, T) as the JAX model's fused
+        tail computes them (the JAX package's ``models/ecapa.py:251-281``),
+        channels-last: the context conv as one product over x plus a
+        per-utterance term from (mean, std), ReLU -> BN, then (mu, e2)
+        through FusedSoftmaxStats and sigma outside it."""
+        xt = x.transpose(1, 2).contiguous()             # (B, T, D)
+        D = xt.shape[-1]
+        wa = self.attention[0].weight[:, :, 0]           # (128, 3 D)
+        mean = xt.mean(dim=1)
+        std = torch.sqrt(torch.clamp(xt.var(dim=1), min=1e-4))
+        const = mean @ wa[:, D:2 * D].t() + std @ wa[:, 2 * D:].t()
+        h = xt @ wa[:, :D].t() + const[:, None, :] + self.attention[0].bias
+        h2 = self.attention[2].relu_bn(h, dim=-1)
+        w2 = self.attention[3].weight[:, :, 0].t().contiguous()   # (128, D)
+        mu, e2 = fused_softmax_stats(xt, h2, w2, self.attention[3].bias)
+        return mu, torch.sqrt(torch.clamp(e2 - mu * mu, min=1e-4))

@@ -40,6 +40,8 @@ SIGNATURES = {
     "res2_chain_forward": [P, P, P, P, P, P, I, I, I, I, I, I, P],
     "attn_pool_forward": [P, I, I, I, I, P, P, P, P, P, P, P, P, P, P, P, P,
                           P, I, P],
+    "attn_pool_vjp_forward": [P, P, P, P, I, I, I, P, P, P, P, I, P],
+    "attn_pool_vjp_backward": [P] * 10 + [I, I, I, P, P, P, P, I, P],
 }
 
 _lock = threading.Lock()

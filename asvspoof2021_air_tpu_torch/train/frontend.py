@@ -1,8 +1,11 @@
-"""On-device scoring front-end: LFCC with per-utterance lengths, then the
+"""On-device front-end: LFCC with per-utterance lengths, then the
 reference's padding policy to ``feat_len`` frames.
 
-Counterpart of the eval view of the JAX package's ``train/frontend.py``
-``OnDeviceFrontend`` (no augmenter; that comes with the training slice):
+Counterpart of the JAX package's ``train/frontend.py`` ``OnDeviceFrontend``
+without its channel augmenter (ROADMAP Queue A): the call form
+``fe(batch, rng, params)`` of the train step, ``params`` (the augmenter's
+tables, so None here) and ``eval_view()``. Without an augmenter the call
+is deterministic and ``rng`` is not read.
 
 - 'repeat':  frame t of a short utterance reads frame t mod T_valid;
 - 'zero':    frames at and past T_valid are zeroed;
@@ -15,6 +18,7 @@ LFCC runs through kernel B1 (``ops/lfcc_cuda.py``) on the GPU.
 
 from __future__ import annotations
 
+import copy
 from typing import Dict
 
 import torch
@@ -25,12 +29,17 @@ from asvspoof2021_air_tpu_torch.ops.lfcc_cuda import CudaLFCC
 
 
 class OnDeviceFrontend:
-    """fn({"wave": (B, L), "length": (B,)}) -> (B, feat_len, D) features."""
+    """fn({"wave": (B, L), "length": (B,)}, rng=None, params=None) ->
+    (B, feat_len, D) features on ``device``."""
 
     def __init__(self, feat_len: int = 750, padding: str = "repeat",
-                 config: LFCCConfig = LFCCConfig(), device="cuda"):
+                 config: LFCCConfig = LFCCConfig(), augmenter=None,
+                 device="cuda"):
         if padding not in ("repeat", "zero", "silence"):
             raise ValueError("padding should be zero, repeat, or silence")
+        if augmenter is not None:
+            raise NotImplementedError(
+                "the channel augmenter is not ported (ROADMAP Queue A)")
         self.feat_len = feat_len
         self.padding = padding
         self.device = resolve_device(device)
@@ -45,7 +54,17 @@ class OnDeviceFrontend:
         """Waveform buffer length that yields >= feat_len frames."""
         return (self.feat_len - 1) * self.hop
 
-    def __call__(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    @property
+    def params(self):
+        """The augmenter's tables in JAX; the port has no augmenter."""
+        return None
+
+    def eval_view(self) -> "OnDeviceFrontend":
+        """Augmenter-free copy sharing the extractor, for the eval step."""
+        return copy.copy(self)
+
+    def __call__(self, batch: Dict[str, torch.Tensor], rng=None,
+                 params=None) -> torch.Tensor:
         wave = batch["wave"].to(self.device)
         lengths = batch.get("length")
         if lengths is None:

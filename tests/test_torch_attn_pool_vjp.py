@@ -1,0 +1,116 @@
+"""Port B4a/B4b (the plain versions and FusedSoftmaxStats on the CPU,
+asvspoof2021_air_tpu_torch/ops/attn_pool_vjp.py) against the JAX package's
+fused_softmax_stats (Pallas, interpret mode), with the JAX test's own bars
+(tests/test_attn_pool_vjp.py): forward 1e-5, cotangents 2e-4, db2 exactly
+0, bf16 cotangents in the primal types."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from asvspoof2021_air_tpu.ops.attn_pool_vjp import fused_softmax_stats as jfss
+from asvspoof2021_air_tpu_torch.ops import attn_pool_vjp as vjp
+
+
+def _inputs(B=2, T=30, D=512, H=128, seed=0):
+    g = np.random.default_rng(seed)
+    f = lambda *s, sc=1.0: (sc * g.standard_normal(s)).astype(np.float32)
+    return f(B, T, D), f(B, T, H, sc=0.5), f(H, D, sc=0.2), f(D, sc=0.1)
+
+
+def _sigma_loss(mu, e2, cm, sqrt, clip):
+    """The JAX test's scalar: sum((0.7 mu + sigma) * cm) with sigma =
+    sqrt(clip(e2 - mu^2, 1e-4)), so both outputs carry cotangents."""
+    return ((mu * 0.7 + sqrt(clip(e2 - mu ** 2))) * cm).sum()
+
+
+@pytest.mark.parametrize("D", [512, 1024])
+def test_plain_forward_matches_pallas(D):
+    x, h2, w2, b2 = _inputs(D=D)
+    want = jfss(True, *map(jnp.asarray, (x, h2, w2, b2)))
+    got = vjp.fused_softmax_stats_plain(*map(torch.from_numpy,
+                                             (x, h2, w2, b2)))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5,
+                                   atol=1e-5)
+
+
+def test_cotangents_match_pallas():
+    """All four cotangents at T = 29 through FusedSoftmaxStats (the plain
+    backward on the CPU) against jax.grad through the Pallas VJP."""
+    x, h2, w2, b2 = _inputs(T=29)
+    cm = np.random.default_rng(5).standard_normal(512).astype(np.float32)
+
+    def jloss(*a):
+        mu, e2 = jfss(True, *a)
+        return _sigma_loss(mu, e2, cm, jnp.sqrt,
+                           lambda v: jnp.clip(v, 1e-4))
+
+    want = jax.grad(jloss, argnums=(0, 1, 2, 3))(
+        *map(jnp.asarray, (x, h2, w2, b2)))
+    args = [torch.from_numpy(a).requires_grad_() for a in (x, h2, w2, b2)]
+    mu, e2 = vjp.fused_softmax_stats(*args)
+    _sigma_loss(mu, e2, torch.from_numpy(cm), torch.sqrt,
+                lambda v: torch.clamp(v, min=1e-4)).backward()
+    for name, a, w in zip(("dx", "dh2", "dw2", "db2"), args, want):
+        np.testing.assert_allclose(a.grad.numpy(), np.asarray(w), rtol=2e-4,
+                                   atol=2e-4, err_msg=name)
+    assert torch.all(args[3].grad == 0.0)
+
+
+def test_function_matches_autograd_through_plain_forward():
+    """The hand-written plain backward against torch autograd through the
+    plain forward: the same function, so rounding only (atol 1e-5, rtol
+    1e-4); autograd's db2 is zero to rounding, the Function's exactly."""
+    x, h2, w2, b2 = _inputs(T=24, seed=3)
+    g = np.random.default_rng(4)
+    gmu, ge2 = (torch.from_numpy(g.standard_normal((2, 512)).astype(
+        np.float32)) for _ in range(2))
+    grads = []
+    for fn in (vjp.fused_softmax_stats, vjp.fused_softmax_stats_plain):
+        args = [torch.from_numpy(a).requires_grad_() for a in (x, h2, w2, b2)]
+        mu, e2 = fn(*args)
+        torch.autograd.backward((mu, e2), (gmu, ge2))
+        grads.append([a.grad for a in args])
+    (fx, fh, fw, fb), (px, ph, pw, pb) = grads
+    for name, got, want in (("dx", fx, px), ("dh2", fh, ph), ("dw2", fw, pw)):
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-4,
+                                   msg=name)
+    assert torch.all(fb == 0.0)
+    torch.testing.assert_close(pb, torch.zeros_like(pb), atol=1e-5, rtol=0)
+
+
+def test_bf16_inputs_track_pallas_and_keep_primal_types():
+    x, h2, w2, b2 = _inputs(T=24, seed=7)
+    jx, jh = jnp.asarray(x, jnp.bfloat16), jnp.asarray(h2, jnp.bfloat16)
+    want = jfss(True, jx, jh, jnp.asarray(w2), jnp.asarray(b2))
+    tx = torch.from_numpy(np.array(jx.astype(jnp.float32))).bfloat16()
+    th = torch.from_numpy(np.array(jh.astype(jnp.float32))).bfloat16()
+    tx.requires_grad_()
+    th.requires_grad_()
+    mu, e2 = vjp.fused_softmax_stats(tx, th, torch.from_numpy(w2),
+                                     torch.from_numpy(b2))
+    assert mu.dtype == e2.dtype == torch.float32
+    for g, w in zip((mu, e2), want):
+        np.testing.assert_allclose(g.detach().numpy(), np.asarray(w),
+                                   rtol=2e-2, atol=2e-2)
+    mu.sum().backward()
+    assert tx.grad.dtype == torch.bfloat16
+    assert th.grad.dtype == torch.bfloat16
+
+
+def test_kernel_wrappers_refuse_cpu_tensors_and_bad_shapes():
+    x, h2, w2, b2 = map(torch.from_numpy, _inputs(T=8))
+    with pytest.raises(ValueError, match="CUDA"):
+        vjp.softmax_stats_fwd_kernel(x, h2, w2, b2)
+    res = vjp.softmax_stats_fwd_plain(x, h2, w2, b2)
+    with pytest.raises(ValueError, match="CUDA"):
+        vjp.softmax_stats_bwd_kernel(x, h2, w2, b2, res, res[0], res[1])
+    with pytest.raises(ValueError, match="multiple of 128"):
+        vjp.softmax_stats_fwd_kernel(x[..., :100], h2, w2[:, :100], b2[:100])
+    with pytest.raises(ValueError, match="share a type"):
+        vjp.softmax_stats_fwd_kernel(x.bfloat16(), h2, w2, b2)
+    assert vjp.fwd_launches == vjp.bwd_launches == 0

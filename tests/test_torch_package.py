@@ -85,6 +85,34 @@ def test_entry_points_default_to_cuda_and_refuse_the_cpu(monkeypatch):
     assert OCSoftmax(device="cpu").center.device.type == "cpu"
 
 
+def test_training_entry_points_default_to_cuda_and_refuse_the_cpu(
+        monkeypatch, tmp_path):
+    """train, setup_training, the train and eval steps, the CLI and the
+    train-mode ECAPA (pooled through FusedSoftmaxStats) raise on a machine
+    without CUDA unless asked for the CPU."""
+    from asvspoof2021_air_tpu_torch.cli.train import main as cli_main
+    from asvspoof2021_air_tpu_torch.models.ecapa import ECAPA_TDNN
+    from asvspoof2021_air_tpu_torch.train.loop import (
+        TrainConfig, setup_training, train)
+    from asvspoof2021_air_tpu_torch.train.steps import (
+        StepConfig, make_eval_step, make_train_step)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = TrainConfig(out_fold=str(tmp_path / "run"), model="ecapa",
+                      on_the_fly=True, C=16, model_scale=4, enc_dim=8)
+    for make in (lambda: train(cfg), lambda: setup_training(cfg, 1),
+                 lambda: make_train_step(StepConfig()),
+                 lambda: make_eval_step(StepConfig()),
+                 lambda: ECAPA_TDNN(C=16, model_scale=4, fused_pool=True),
+                 lambda: cli_main(["-o", str(tmp_path / "cli"),
+                                   "--on_the_fly"])):
+        with pytest.raises(RuntimeError, match="cuda"):
+            make()
+    assert not (tmp_path / "run").exists()
+    model = setup_training(cfg, 1, device="cpu")[0]
+    assert next(model.parameters()).device.type == "cpu"
+
+
 def test_c_entry_points_match_ctypes_signatures():
     """Each extern "C" function in csrc/ has as many parameters as its
     ctypes argtypes, pointers where the C side has pointers."""
@@ -94,6 +122,7 @@ def test_c_entry_points_match_ctypes_signatures():
                 r'extern "C" int (\w+)\(([^)]*)\)', src.read_text()):
             found[name] = [p.strip() for p in params.split(",")]
     assert set(found) == set(_build.SIGNATURES)
+    assert {"attn_pool_vjp_forward", "attn_pool_vjp_backward"} <= set(found)
     for name, params in found.items():
         argtypes = _build.SIGNATURES[name]
         assert len(params) == len(argtypes), name
@@ -122,6 +151,8 @@ def test_kernel_launchers_refuse_cpu_tensors_and_bad_shapes():
     build or launch."""
     from asvspoof2021_air_tpu_torch.ops.attn_pool_cuda import (
         PoolParams, attention_pooling_kernel)
+    from asvspoof2021_air_tpu_torch.ops.attn_pool_vjp import (
+        softmax_stats_bwd_kernel, softmax_stats_fwd_kernel)
     from asvspoof2021_air_tpu_torch.ops.lfcc import LFCCConfig
     from asvspoof2021_air_tpu_torch.ops.lfcc_cuda import lfcc_kernel
     from asvspoof2021_air_tpu_torch.ops.res2_chain_cuda import (
@@ -146,3 +177,9 @@ def test_kernel_launchers_refuse_cpu_tensors_and_bad_shapes():
         attention_pooling_kernel(z(2, 10, 256), params)
     with pytest.raises(ValueError, match="valid_len"):
         attention_pooling_kernel(z(2, 10, 256), params, valid_len=1)
+    x, h2, w2, b2 = z(2, 10, 256), z(2, 10, 128), z(128, 256), z(256)
+    with pytest.raises(ValueError, match="CUDA"):
+        softmax_stats_fwd_kernel(x, h2, w2, b2)
+    with pytest.raises(ValueError, match="CUDA"):
+        softmax_stats_bwd_kernel(x, h2, w2, b2, [z(2, 256)] * 4, z(2, 256),
+                                 z(2, 256))
