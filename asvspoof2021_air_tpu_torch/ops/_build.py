@@ -36,7 +36,7 @@ P = ctypes.c_void_p
 I = ctypes.c_int
 # C entry point -> argument types; every entry returns cudaGetLastError().
 SIGNATURES = {
-    "lfcc_forward": [P, I, I, I, I, I, I, P, P, P, I, P, P],
+    "lfcc_forward": [P, I, I, I, I, I, I, P, P, I, P, I, P, P, I, P, P],
     "res2_chain_forward": [P, P, P, P, P, P, I, I, I, I, I, I, P],
     "attn_pool_forward": [P, I, I, I, I, P, P, P, P, P, P, P, P, P, P, P, P,
                           P, I, P],

@@ -21,7 +21,9 @@ sigma = sqrt(clip(e2 - mu^2, 1e-4)) belongs to the caller, so its autodiff
 stays standard. :class:`FusedSoftmaxStats` launches B4a and B4b on CUDA
 tensors and runs the plain versions on CPU tensors; the kernels never
 store the (B, T, D) logits or weights, and recompute them from h2 in the
-backward.
+backward. B4a's product runs as f32 FMAs; B4b's products run on the
+tensor cores in 3xTF32 (each f32 operand split into two TF32 parts, three
+TF32 products summed in f32), which keeps f32's accuracy.
 """
 
 from __future__ import annotations
@@ -118,6 +120,10 @@ def softmax_stats_bwd_kernel(x, h2, w2, b2, res: Sequence[torch.Tensor],
     global bwd_launches
     mu, e2, m, l = res
     _check("softmax_stats_bwd_kernel", x, h2, w2, b2, mu, e2, m, l, gmu, ge2)
+    if any(t.data_ptr() % 16 for t in (x, h2, w2)):
+        raise ValueError("softmax_stats_bwd_kernel: x, h2 and W2 must start "
+                         "on a 16-byte boundary (the kernel copies them "
+                         "with 16-byte cp.async)")
     B, T, D = x.shape
     dx = torch.empty_like(x)
     dh2 = torch.empty_like(h2)

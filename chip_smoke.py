@@ -8,18 +8,24 @@ Phases, each fatal on failure:
 1. print the card (nvidia-smi name and power limit); build the CUDA
    kernels from ``asvspoof2021_air_tpu_torch/csrc`` and print the build time;
 2. hold each kernel against its plain PyTorch version on the card at the
-   serving path's shapes (B1 LFCC at (64, 119840) and at win 400 / hop 200;
-   B2 Res2 chain at (64, 750, 512), d = 2/3/4; B3 attention pooling at
-   (64, 750, 1536)), in f32 with TF32 off and in bf16, with one padded case
-   (valid_len < T); print each kernel's error, its time and the plain
-   version's;
+   serving path's shapes (B1 LFCC at (64, 119840), at win 400 / hop 200,
+   at an odd hop (win 318 / hop 159), at every other FFT size it is built
+   for (n_fft 4 to 256) and on a padded input with digital silence after a
+   loud stretch and a -60 dB tone, and two B1 launches bitwise equal; B2
+   Res2 chain at
+   (64, 750, 512), d = 2/3/4; B3 attention pooling at (64, 750, 1536)), in
+   f32 with TF32 off and in bf16, with one padded case (valid_len < T);
+   print each kernel's error, its time, the plain version's and, for B1,
+   ``torch.fft.rfft`` of the windowed frames as a yardstick (the port never
+   calls it);
 2b. hold the training kernels B4a (forward) and B4b (backward) of the
    differentiable attentive statistics against their plain versions at
    (64, 750, 1536), H = 128, x in f32 and in bf16, and in f32 at T = 749;
    check that two launches of each on the same inputs are bitwise equal;
    print the peak device memory of one backward, kernel and plain, their
    times, the plain versions' and one f32 ``h2 @ W2`` matmul as a
-   yardstick (the port never calls it);
+   yardstick (the port never calls it), B4b's time against three of those,
+   and B4b's bound at the 3xTF32 rate beside the f32-FMA one;
 3. drive the serving path at full width: ECAPA-TDNN C=512 (scale 8,
    embedding 256) and an OC-Softmax center from a numpy seed, 136 synthetic
    utterances written as wav files with a protocol, scored by
@@ -58,7 +64,7 @@ import numpy as np
 # Published H100 SXM peaks (NVIDIA data sheet, dense): bytes/s of HBM3 and
 # FLOP/s by operand type.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12}
+PEAK_FLOPS = {"f32": 67e12, "tf32": 495e12, "bf16": 989e12}
 
 B, L, T, C, D = 64, 119840, 750, 512, 1536
 DEVICE = "cuda"
@@ -132,8 +138,10 @@ KERNEL_GROUPS = (
 
 def profile_device(torch, fn, fn_ms: float, what: str):
     """Device time of one call of fn by kernel group (torch.profiler, device
-    events only), and the device's busy share: kernel time over the call's
-    CUDA-event time ``fn_ms`` measured without the profiler."""
+    events only: kernels, copies and sets, not the ranges that annotate
+    them on the device's timeline, such as ``Optimizer.step#Adam.step``),
+    and the device's busy share: that time over the call's CUDA-event time
+    ``fn_ms`` measured without the profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -145,11 +153,15 @@ def profile_device(torch, fn, fn_ms: float, what: str):
     other = "other (elementwise, reductions, copies)"
     groups = {name: 0.0 for name, _ in KERNEL_GROUPS}
     groups[other] = 0.0
-    kernels = []
+    kernels, ranges = [], []
     for ev in prof.key_averages():
         if not str(getattr(ev, "device_type", "")).endswith("CUDA"):
             continue
         us = float(getattr(ev, "self_device_time_total", 0.0) or 0.0)
+        if (getattr(ev, "is_user_annotation", False)
+                or ev.key.startswith(("Optimizer.", "ProfilerStep#"))):
+            ranges.append(f"{ev.key} {us / 1e3:.3f} ms")
+            continue
         kernels.append((us, ev.count, ev.key))
         key = ev.key.lower()
         for name, pats in KERNEL_GROUPS:
@@ -163,6 +175,7 @@ def profile_device(torch, fn, fn_ms: float, what: str):
           f"{fn_ms:.3f} ms {what} = device busy {100 * busy / fn_ms:.1f}%")
     for name, us in sorted(groups.items(), key=lambda kv: -kv[1]):
         print(f"  {name}: {us / 1e3:.3f} ms")
+    print(f"  annotation ranges left out: {ranges or 'none'}")
     for us, count, key in sorted(kernels, reverse=True)[:12]:
         print(f"    {us / 1e3:8.3f} ms  x{count:<4d} {key[:90]}")
 
@@ -180,52 +193,86 @@ def kernel_checks(torch, gen):
     entries = {}
 
     # B1: LFCC. f32 only (the front-end's bar rules out lower precision).
+    # The serving configurations; an odd hop and frame offset (the kernel's
+    # unpaired loads); every other FFT size it is built for, where from
+    # n_fft 64 down several frames share a warp.
+    cfgs = [LFCCConfig(), LFCCConfig(win_length=400, hop_length=200),
+            LFCCConfig(win_length=318, hop_length=159),
+            LFCCConfig(n_fft=256, win_length=200, hop_length=100)]
+    cfgs += [LFCCConfig(n_fft=n, win_length=n, hop_length=n // 2)
+             for n in (4, 8, 16, 32, 64, 128)]
     errs = []
-    for cfg in (LFCCConfig(), LFCCConfig(win_length=400, hop_length=200)):
+    for cfg in cfgs:
         fe = lc.CudaLFCC(cfg, device=dev)
+        consts = (fe.window, fe.twiddle, fe.bands, fe.weights, fe.dct)
         x = emphasize(randn(B, L, scale=0.3), cfg, None).contiguous()
-        got = lc.lfcc_kernel(x, fe.cs, fe.fb, fe.dct, cfg)
+        got = lc.lfcc_kernel(x, *consts, cfg)
         want = lc.lfcc_plain(x, fe.cs, fe.fb, fe.dct, cfg)
         err = max_err(got, want)
-        print(f"B1 lfcc win={cfg.win_length} hop={cfg.hop_length} "
-              f"shape={tuple(got.shape)} max_abs_err={err:.3e} (atol 5e-4)")
+        print(f"B1 lfcc n_fft={cfg.n_fft} win={cfg.win_length} "
+              f"hop={cfg.hop_length} shape={tuple(got.shape)} "
+              f"max_abs_err={err:.3e} (atol 5e-4)")
         check(err <= 5e-4, f"B1 disagrees with its plain version: {err}")
         errs.append(err)
-        if cfg == LFCCConfig():
-            T1 = got.shape[1]
-            ms = time_ms(torch, lambda: lc.lfcc_kernel(
-                x, fe.cs, fe.fb, fe.dct, cfg))
-            plain_ms = time_ms(torch, lambda: lc.lfcc_plain(
-                x, fe.cs, fe.fb, fe.dct, cfg))
-            frames = torch.nn.functional.pad(x, (cfg.hop_length,) * 2).unfold(
-                1, cfg.win_length, cfg.hop_length)[:, :T1].contiguous()
-            matmul_ms = time_ms(torch, lambda: frames @ fe.cs)
-            # The bound counts what the function needs, not this design's
-            # direct DFT: a real FFT of n_fft gives the bins in
-            # 2.5 n log2 n flops per frame; then the window, re^2 + im^2,
-            # the filterbank's nonzero weights, the log and the DCT. Bytes:
-            # the waveform read, the constants, the cepstra written.
-            n, nf = cfg.n_fft, cfg.n_filters
-            n_bins = fe.fb.shape[0]
-            fb_nnz = int((fe.fb != 0).sum())
-            nbytes = 4 * (x.numel() + cfg.win_length + fb_nnz
-                          + fe.dct.numel() + got.numel())
-            flops = B * T1 * (2.5 * n * float(np.log2(n)) + cfg.win_length
-                              + 3 * n_bins + 2 * fb_nnz + nf + 2 * nf * nf)
-            dft_flops = 2 * B * T1 * (cfg.win_length * 2 * n_bins
-                                      + n_bins * nf + nf * nf)
-            print(f"B1 work: the function needs {flops / 1e9:.3f} GFLOP "
-                  f"(FFT) and {nbytes / 1e6:.1f} MB; this kernel's direct "
-                  f"DFT does {dft_flops / 1e9:.2f} GFLOP of f32 FMA, "
-                  f"{dft_flops / PEAK_FLOPS['f32'] * 1e3:.4f} ms at the f32 "
-                  f"peak")
-            entries["B1"] = dict(
-                name="B1 lfcc (fused LFCC front-end)",
-                source="asvspoof2021_air_tpu_torch/csrc/lfcc.cu",
-                replaces="asvspoof2021_air_tpu/ops/lfcc_pallas.py:98 "
-                         "(_lfcc_lane128_kernel) and :45 (_lfcc_kernel)",
-                ms=ms, plain_ms=plain_ms, matmul_ms=matmul_ms,
-                bytes=nbytes, flops=flops, kind="f32", dft_flops=dft_flops)
+        if cfg != LFCCConfig():
+            continue
+        # Two launches on the same input agree bit for bit.
+        check(torch.equal(got, lc.lfcc_kernel(x, *consts, cfg)),
+              "two B1 launches on the same input differ")
+        # A padded batch: a loud stretch, digital silence right after it,
+        # then a -60 dB tone, each utterance cut at its own length.
+        n = torch.arange(L, device=dev)
+        loud_end = (L // 3 + 37 * torch.arange(B, device=dev))[:, None]
+        tone = 1e-3 * torch.sin(2 * np.pi * 440.0 / 16000.0 * n.float())
+        wave = torch.where(n < loud_end, randn(B, L, scale=0.3),
+                           torch.where(n < 2 * L // 3, 0.0, tone))
+        lengths = torch.randint(L // 2, L + 1, (B,), generator=gen,
+                                device=dev)
+        lengths[0] = L
+        xp = emphasize(wave, cfg, lengths).contiguous()
+        got_p = lc.lfcc_kernel(xp, *consts, cfg)
+        want_p = lc.lfcc_plain(xp, fe.cs, fe.fb, fe.dct, cfg)
+        err = max_err(got_p, want_p)
+        print(f"B1 lfcc padded (lengths, silence after loud, -60 dB tone) "
+              f"max_abs_err={err:.3e} (atol 5e-4); two launches bitwise "
+              f"equal")
+        check(err <= 5e-4, f"B1 disagrees with its plain version on the "
+                           f"padded input: {err}")
+        errs.append(err)
+        T1 = got.shape[1]
+        ms = time_ms(torch, lambda: lc.lfcc_kernel(x, *consts, cfg))
+        plain_ms = time_ms(torch, lambda: lc.lfcc_plain(
+            x, fe.cs, fe.fb, fe.dct, cfg))
+        frames = torch.nn.functional.pad(x, (cfg.hop_length,) * 2).unfold(
+            1, cfg.win_length, cfg.hop_length)[:, :T1]
+        off = (cfg.n_fft - cfg.win_length) // 2
+        framed = torch.nn.functional.pad(
+            (frames * fe.window).reshape(-1, cfg.win_length),
+            (off, cfg.n_fft - cfg.win_length - off))
+        fft_ms = time_ms(torch, lambda: torch.fft.rfft(framed, dim=-1))
+        # The bound counts what the function needs: a real FFT of n_fft
+        # gives the bins in 2.5 n log2 n flops per frame; then the window,
+        # re^2 + im^2, the filterbank's nonzero weights, the log and the
+        # DCT. Bytes: the waveform read, the constants, the cepstra written.
+        n_fft, nf = cfg.n_fft, cfg.n_filters
+        n_bins = fe.fb.shape[0]
+        fb_nnz = int((fe.fb != 0).sum())
+        nbytes = 4 * (x.numel() + cfg.win_length + n_fft + fb_nnz
+                      + fe.dct.numel() + got.numel())
+        flops = B * T1 * (2.5 * n_fft * float(np.log2(n_fft))
+                          + cfg.win_length + 3 * n_bins + 2 * fb_nnz + nf
+                          + 2 * nf * nf)
+        print(f"B1 work: the function needs {flops / 1e9:.3f} GFLOP (FFT) "
+              f"and {nbytes / 1e6:.1f} MB; yardstick (never called by the "
+              f"port): torch.fft.rfft of the windowed ({B * T1}, {n_fft}) "
+              f"frames {fft_ms:.4f} ms")
+        entries["B1"] = dict(
+            name="B1 lfcc (fused LFCC front-end)",
+            source="asvspoof2021_air_tpu_torch/csrc/lfcc.cu",
+            replaces="asvspoof2021_air_tpu/ops/lfcc_pallas.py:98 "
+                     "(_lfcc_lane128_kernel) and :45 (_lfcc_kernel)",
+            ms=ms, plain_ms=plain_ms, bytes=nbytes, flops=flops,
+            kind="f32", extra={"fft_ms": fft_ms})
     entries["B1"]["max_abs_err"] = max(errs)
 
     # B2: Res2 chain, f32 and bf16, d = 2/3/4, and one padded case.
@@ -442,8 +489,9 @@ def vjp_checks(torch, gen, entries):
     bwd_plain_mib = peak_mib(lambda: vj.softmax_stats_bwd_plain(
         x, h2, w2, b2, res, gmu, ge2))
     print(f"B4b peak device memory of one backward ({B} x {T} x {D}, f32, "
-          f"outputs included): kernel {bwd_mib:.1f} MiB, plain "
+          f"outputs included): kernel {bwd_mib:.1f} MiB (bar 360), plain "
           f"{bwd_plain_mib:.1f} MiB")
+    check(bwd_mib <= 360, f"B4b's backward peaks at {bwd_mib:.1f} MiB")
 
     fwd_ms = time_ms(torch, lambda: vj.softmax_stats_fwd_kernel(x, h2, w2, b2))
     fwd_plain_ms = time_ms(torch, lambda: vj.softmax_stats_fwd_plain(
@@ -458,6 +506,18 @@ def vjp_checks(torch, gen, entries):
           f"torch.matmul, never called by the port) {matmul_ms:.4f} ms")
     flop = 2.0 * B * T * H * D
     xh_bytes = 4 * (x.numel() + h2.numel() + w2.numel() + b2.numel())
+    bwd_bytes = xh_bytes + 4 * (2 * B * D + x.numel() + h2.numel()
+                                + w2.numel())
+    # B4b runs its three products (3 flop) in 3xTF32: three TF32 products
+    # each, at the TF32 rate. The bound at the f32-FMA rate, which held the
+    # kernel's earlier FMA design, is printed beside it.
+    tf32_bound = bound(bwd_bytes, 3 * 3 * flop, "tf32")
+    fma_bound = bound(bwd_bytes, 3 * flop, "f32")
+    print(f"B4b {bwd_ms:.4f} ms against 3 x the h2 @ W2 yardstick "
+          f"{3 * matmul_ms:.4f} ms; bound {tf32_bound[0]:.4f} ms by "
+          f"{tf32_bound[1]} at the 3xTF32 rate (3 x {3 * flop / 1e9:.1f} "
+          f"GFLOP at 495 TFLOP/s), {fma_bound[0]:.4f} ms at the f32-FMA rate "
+          f"(the earlier FMA design's bound)")
     entries["B4a"] = dict(
         name="B4a softmax_stats fwd (differentiable attentive statistics)",
         source="asvspoof2021_air_tpu_torch/csrc/attn_pool_vjp.cu",
@@ -470,10 +530,8 @@ def vjp_checks(torch, gen, entries):
         source="asvspoof2021_air_tpu_torch/csrc/attn_pool_vjp.cu",
         replaces="asvspoof2021_air_tpu/ops/attn_pool_vjp.py:72 (_bwd_kernel)",
         ms=bwd_ms, plain_ms=bwd_plain_ms, matmul_ms=matmul_ms,
-        max_abs_err=max(errs["B4b"]),
-        bytes=xh_bytes + 4 * (2 * B * D + x.numel() + h2.numel()
-                              + w2.numel()),
-        flops=3 * flop, kind="f32")
+        max_abs_err=max(errs["B4b"]), bytes=bwd_bytes, flops=3 * 3 * flop,
+        kind="tf32", extra={"peak_mib": bwd_mib})
 
 
 @contextlib.contextmanager
@@ -861,8 +919,9 @@ def main() -> int:
         launches = sum(by_path.values())
         print(f"{e['name']} [{gpu}]: max_abs_err {e['max_abs_err']:.3e}, "
               f"{e['ms']:.4f} ms (plain {e['plain_ms']:.4f} ms, bound "
-              f"{bound_ms:.4f} ms by {bound_by}), launches on the main "
-              f"paths {by_path}")
+              f"{bound_ms:.4f} ms by {bound_by}: {e['bytes'] / 1e6:.1f} MB, "
+              f"{e['flops'] / 1e9:.2f} GFLOP {e['kind']}), launches on the "
+              f"main paths {by_path}")
         kernels.append({
             "name": e["name"], "route": "cuda", "source": e["source"],
             "replaces": e["replaces"], "launches": launches,
@@ -870,8 +929,8 @@ def main() -> int:
             "max_abs_err": e["max_abs_err"], "ms": e["ms"],
             "plain_ms": e["plain_ms"], "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None,
-            "matmul_ms": e["matmul_ms"], "bytes": e["bytes"],
-            "flops": e["flops"]})
+            **{k: e[k] for k in ("matmul_ms",) if k in e},
+            **e.get("extra", {})})
     print(json.dumps({"kernels": kernels}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {

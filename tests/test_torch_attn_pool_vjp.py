@@ -114,3 +114,99 @@ def test_kernel_wrappers_refuse_cpu_tensors_and_bad_shapes():
     with pytest.raises(ValueError, match="share a type"):
         vjp.softmax_stats_fwd_kernel(x.bfloat16(), h2, w2, b2)
     assert vjp.fwd_launches == vjp.bwd_launches == 0
+
+
+# --- B4b's 3xTF32 arithmetic, emulated on the CPU ---------------------------
+# The kernel splits every f32 operand a of its products into big = a rounded
+# to TF32 as cvt.rna.tf32.f32 rounds (to nearest, ties away from zero) and
+# small = a - big, which the tensor core reads as TF32 by dropping its low 13
+# bits, and sums small*big + big*small + big*big on the tensor cores in f32.
+# TF32 products are exact in f32 (11-bit significands); the emulation sums
+# them in float64 and rounds once to f32, so it leaves out the tensor cores'
+# f32 accumulation error, which the chip check covers.
+
+
+def _tf32_rna(a: torch.Tensor) -> torch.Tensor:
+    """cvt.rna.tf32.f32: f32 rounded to 10 mantissa bits, to nearest, ties
+    away from zero (half an ulp added to the magnitude's bits, then the low
+    13 bits cleared), as the kernel computes it."""
+    bits = a.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_read(a: torch.Tensor) -> torch.Tensor:
+    """An f32 register as an mma.sync TF32 operand: its low 13 bits
+    dropped."""
+    return (a.float().contiguous().view(torch.int32) & ~0x1FFF).view(
+        torch.float32)
+
+
+def _tf32_split(a: torch.Tensor):
+    """(big, small) as the tensor cores see the kernel's split of a."""
+    big = _tf32_rna(a)
+    return big, _tf32_read(a - big)
+
+
+def _products(T=50, seed=11):
+    """B4b's three products at chip_smoke's scales (B = 2, D = 256, H = 128),
+    as (name, a, b) with f32 operands: logits = h2 @ W2, dh2 = dlog @ W2^T,
+    dW2 = h2^T @ dlog, dlog computed in float64 and rounded to f32 as the
+    kernel holds it."""
+    g = np.random.default_rng(seed)
+    B, D, H = 2, 256, vjp.HIDDEN
+    f = lambda *s, sc=1.0: torch.from_numpy(
+        (sc * g.standard_normal(s)).astype(np.float32))
+    x, h2 = torch.relu(f(B, T, D)), f(B, T, H)
+    w2, b2 = f(H, D, sc=H ** -0.5), f(D, sc=0.05)
+    gmu, ge2 = f(B, D), f(B, D, sc=0.1)
+    xd = x.double()
+    w = torch.softmax(h2.double() @ w2.double() + b2.double(), dim=1)
+    q = gmu.double()[:, None] * xd + ge2.double()[:, None] * xd * xd
+    dlog = (w * (q - (w * q).sum(1, keepdim=True))).float()
+    h2f, dlf = h2.reshape(-1, H), dlog.reshape(-1, D)
+    return [("logits", h2f, w2), ("dh2", dlf, w2.t().contiguous()),
+            ("dW2", h2f.t().contiguous(), dlf)]
+
+
+def _over_bar(name, got, want):
+    """The largest error over chip_smoke's bar for this product: dW2 within
+    1e-4 of its largest element; the others rtol 1e-4 + atol 1e-5."""
+    err = (got - want).abs()
+    if name == "dW2":
+        return float(err.max() / (1e-4 * want.abs().max()))
+    return float((err / (1e-5 + 1e-4 * want.abs())).max())
+
+
+def test_tf32_split_reproduces_f32():
+    g = np.random.default_rng(2)
+    a = torch.from_numpy(np.concatenate([
+        g.standard_normal(4096), 1e-20 * g.standard_normal(64),
+        1e20 * g.standard_normal(64),
+        [1.0 + 2.0 ** -11, -(1.0 + 2.0 ** -11), 1.0 + 3 * 2.0 ** -12]]
+    ).astype(np.float32))
+    big, small = _tf32_split(a)
+    assert torch.all(big.view(torch.int32) & 0x1FFF == 0)
+    assert torch.all(small.view(torch.int32) & 0x1FFF == 0)
+    rel = ((big.double() + small.double() - a.double()).abs()
+           / a.double().abs())
+    assert float(rel.max()) <= 2.0 ** -21
+    # ties round away from zero, as cvt.rna does
+    assert big[-3] == 1.0 + 2.0 ** -10 and big[-2] == -(1.0 + 2.0 ** -10)
+
+
+@pytest.mark.parametrize("T", [50, 49])
+def test_three_tf32_products_hold_the_chip_bars(T):
+    for name, a, b in _products(T):
+        want = a.double() @ b.double()
+        (ab, as_), (bb, bs) = _tf32_split(a), _tf32_split(b)
+        got = (as_.double() @ bb.double() + ab.double() @ bs.double()
+               + ab.double() @ bb.double()).float().double()
+        assert _over_bar(name, got, want) <= 0.1, name
+
+
+def test_one_tf32_product_misses_the_chip_bars():
+    """Why three terms: big * big alone (plain TF32) misses every bar."""
+    for name, a, b in _products():
+        want = a.double() @ b.double()
+        one = (_tf32_rna(a).double() @ _tf32_rna(b).double()).float().double()
+        assert _over_bar(name, one, want) > 1.0, name

@@ -160,8 +160,8 @@ def test_kernel_launchers_refuse_cpu_tensors_and_bad_shapes():
 
     z = torch.zeros
     with pytest.raises(ValueError, match="CUDA"):
-        lfcc_kernel(z(2, 800), z(320, 512), z(256, 20), z(20, 20),
-                    LFCCConfig())
+        lfcc_kernel(z(2, 800), z(320), z(256, 2), z(20, 2, dtype=torch.int32),
+                    z(24, 20), z(20, 20), LFCCConfig())
     with pytest.raises(ValueError, match="CUDA"):
         res2_chain_kernel(z(2, 10, 512), z(7, 192, 64), z(7, 64), z(7, 64),
                           z(7, 64), dilation=2)
