@@ -12,13 +12,16 @@
 // The (B, T, D) logits and weights never reach device memory in either
 // direction: the backward recomputes them from the (B, T, 128) hidden h2.
 //
-// B4a is B3's pool pass (csrc/attn_pool.cu) without the folded BN: per
-// 128-channel tile and utterance, W2's tile stays in shared memory while
-// 64-row chunks of h2 stream through, with an online softmax over T
-// (running max, normalizer, sum w x, sum w x^2). It also writes the max and
-// the normalizer per (b, d), so the backward needs no pass to find them,
-// and S = g_mu mu + g_e2 e2 comes from the forward's outputs. Its product
-// runs as f32 FMAs from shared memory.
+// B4a, per 128-channel tile and utterance, keeps W2's tile in shared memory
+// while 64-row chunks of h2 and x stream through, with an online softmax
+// over T (running max, normalizer, sum e x, sum e x^2). It also writes the
+// max M and the normalizer L per (b, d), so the backward needs no pass to
+// find them, and S = g_mu mu + g_e2 e2 comes from the forward's outputs.
+// Its product runs on the tensor cores in 3xTF32, with B4b's tiles and
+// B4b's k order (below), so its logits are the ones B4b recomputes. On an
+// H100 SXM at 700 W (chip_smoke.py, 64 x 750 x 1536 f32) it takes 0.48 ms,
+// against 1.03 as f32 FMAs from shared memory; splitting its W2 tile once
+// per block, instead of as fragments are read, gained nothing.
 //
 // B4b is three kernels, each summing in a fixed order (no atomics, so two
 // runs agree bit for bit):
@@ -49,175 +52,35 @@
 // w = exp(logit + (b2 - M)) * (1 / L) from per-channel constants, with
 // __expf: expf and a division take about 13% longer at the training shape
 // and leave the errors phase 2b of chip_smoke.py measures where they are.
-// B4a forms exp(logit + b2 - M) / L from FMA logits, so w here does not sum
-// to exactly 1 over T; that and the 3xTF32 logits make B4b's errors.
+// B4a forms M and L from the same 3xTF32 logits, with __expf as well.
 //
 // Bound: at B = 64, T = 750, D = 1536 in f32 the forward's product is 18.9
-// GFLOP (0.28 ms at the f32 rate) against 320 MB (0.096 ms). The backward's
-// three products are 56.6 GFLOP, 3 x 56.6 = 170 GFLOP of TF32 in 3xTF32:
-// 0.343 ms at 495 TFLOP/s (0.845 ms at the f32 rate), against about 640 MB
-// (0.191 ms). Passes 1 and 2 both recompute the logits, a fourth product.
-// One pass that recomputed them once would save 3 x 18.9 GFLOP / 495
-// TFLOP/s = 0.115 ms at peak, but it has to keep a (B, D/128, T, 128) f32
+// GFLOP, 3 x 18.9 of TF32 in 3xTF32: 0.115 ms at 495 TFLOP/s (0.28 ms at
+// the f32 rate), against 320 MB (0.096 ms). The backward's three products
+// are 56.6 GFLOP, 3 x 56.6 = 170 GFLOP of TF32 in 3xTF32: 0.343 ms at 495
+// TFLOP/s (0.845 ms at the f32 rate), against about 640 MB (0.191 ms).
+// Passes 1 and 2 both recompute the logits, a fourth product. One pass that
+// recomputed them once would save 3 x 18.9 GFLOP / 495 TFLOP/s = 0.115 ms
+// at peak, but it has to keep a (B, D/128, T, 128) f32
 // partial of dh2 (its sum over channel tiles cannot stay in one block),
 // written and read back: 2 x 295 MB, at least 0.18 ms at 3.35 TB/s, and
 // about 281 MiB more peak memory. It gains nothing at the bound, so B4b
-// keeps its two passes.
+// keeps its two passes. B4b takes 1.50 ms at the same shape (5.27 as f32
+// FMAs).
 
 #include "common.cuh"
 
 namespace {
 
 constexpr int HID = 128;      // attention hidden width
-constexpr int TILE = 128;     // channels per tile
-constexpr int ROWS = 64;      // T rows per chunk
-constexpr int THREADS = 256;  // 8 warps (B4a: warp rg owns rows rg*8 .. rg*8+7)
+constexpr int THREADS = 256;  // 8 warps
+constexpr int BT1 = 64;       // B4b pass 1: channels per W2 tile
+constexpr int R1 = 128;       // B4b pass 1: T rows per block
+constexpr int BT2 = 128;      // B4a and B4b pass 2: channels per block
+constexpr int R2 = 64;        // B4a and B4b pass 2: T rows per chunk
+constexpr int NK = 5;         // per-channel constants: b2 - M, 1 / L, g_mu, g_e2, S
 
-// hs[r][j] = h2[b, t0 + r, j] in f32, zero past Tlen.
-template <typename T>
-__device__ __forceinline__ void load_rows(const T* __restrict__ hb, int Tlen,
-                                          int t0, float* hs) {
-  for (int idx = threadIdx.x; idx < ROWS * HID; idx += THREADS) {
-    const int t = t0 + idx / HID;
-    hs[idx] = t < Tlen ? asv::to_f32<T>(hb[static_cast<size_t>(t) * HID + idx % HID]) : 0.f;
-  }
-}
-
-// ws[j * stride + c] = W2[j, c0 + c].
-__device__ __forceinline__ void load_tile(const float* __restrict__ w2, int D,
-                                          int c0, int stride, float* ws) {
-  for (int idx = threadIdx.x; idx < HID * TILE; idx += THREADS) {
-    const int j = idx / TILE, c = idx % TILE;
-    ws[j * stride + c] = w2[static_cast<size_t>(j) * D + c0 + c];
-  }
-}
-
-// acc[i][q] = sum_j hs[rg*8 + i][j] * ws[j][lane + 32 q]: the logits of this
-// thread's 8 rows and 4 channels, summed over j in order.
-__device__ __forceinline__ void logits8x4(const float* hs, const float* ws,
-                                          int stride, int rg, int lane,
-                                          float acc[8][4]) {
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) acc[i][q] = 0.f;
-#pragma unroll 4
-  for (int j = 0; j < HID; ++j) {
-    float a[8], w[4];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) a[i] = hs[(rg * 8 + i) * HID + j];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) w[q] = ws[j * stride + lane + 32 * q];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[i][q] = fmaf(a[i], w[q], acc[i][q]);
-  }
-}
-
-// B4a. Grid (D / TILE, B). Writes mu, e2 and the softmax's max and
-// normalizer per (b, d).
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-softmax_stats_fwd_kernel(const T* __restrict__ x, const T* __restrict__ h2,
-                         const float* __restrict__ w2,
-                         const float* __restrict__ b2, int Tlen, int D,
-                         float* __restrict__ mu, float* __restrict__ e2,
-                         float* __restrict__ mx, float* __restrict__ nrm) {
-  extern __shared__ float4 smem4[];
-  float* ws = reinterpret_cast<float*>(smem4);   // HID x TILE
-  float* hs = ws + HID * TILE;                   // ROWS x HID
-  const int lane = threadIdx.x % 32, rg = threadIdx.x / 32;
-  const int b = blockIdx.y, c0 = blockIdx.x * TILE;
-  const T* xb = x + static_cast<size_t>(b) * Tlen * D;
-  const T* hb = h2 + static_cast<size_t>(b) * Tlen * HID;
-
-  load_tile(w2, D, c0, TILE, ws);
-  float bias[4], m[4], l[4], s1[4], s2[4];
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    bias[q] = b2[c0 + lane + 32 * q];
-    m[q] = -INFINITY;
-    l[q] = s1[q] = s2[q] = 0.f;
-  }
-  for (int t0 = 0; t0 < Tlen; t0 += ROWS) {
-    __syncthreads();
-    load_rows<T>(hb, Tlen, t0, hs);
-    __syncthreads();
-    float acc[8][4];
-    logits8x4(hs, ws, TILE, rg, lane, acc);
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int c = c0 + lane + 32 * q;
-      float cmax = m[q];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        acc[i][q] += bias[q];
-        if (t0 + rg * 8 + i < Tlen) cmax = fmaxf(cmax, acc[i][q]);
-      }
-      if (cmax == -INFINITY) continue;   // no valid row in this group yet
-      const float rescale = expf(m[q] - cmax);
-      l[q] *= rescale;
-      s1[q] *= rescale;
-      s2[q] *= rescale;
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int t = t0 + rg * 8 + i;
-        if (t < Tlen) {
-          const float e = expf(acc[i][q] - cmax);
-          const float v = asv::to_f32<T>(xb[static_cast<size_t>(t) * D + c]);
-          l[q] += e;
-          s1[q] = fmaf(e, v, s1[q]);
-          s2[q] = fmaf(e * v, v, s2[q]);
-        }
-      }
-      m[q] = cmax;
-    }
-  }
-  __syncthreads();
-
-  // Merge the 8 row groups per channel (reusing hs: 4 x 8 x TILE floats).
-  float* pm = hs;
-  float* pl = pm + 8 * TILE;
-  float* p1 = pl + 8 * TILE;
-  float* p2 = p1 + 8 * TILE;
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const int k = rg * TILE + lane + 32 * q;
-    pm[k] = m[q];
-    pl[k] = l[q];
-    p1[k] = s1[q];
-    p2[k] = s2[q];
-  }
-  __syncthreads();
-  if (threadIdx.x < TILE) {
-    const int k = threadIdx.x;
-    float M = -INFINITY;
-    for (int g = 0; g < 8; ++g) M = fmaxf(M, pm[g * TILE + k]);
-    float L = 0.f, S1 = 0.f, S2 = 0.f;
-    for (int g = 0; g < 8; ++g) {
-      const float mg = pm[g * TILE + k];
-      if (mg == -INFINITY) continue;
-      const float f = expf(mg - M);
-      L = fmaf(pl[g * TILE + k], f, L);
-      S1 = fmaf(p1[g * TILE + k], f, S1);
-      S2 = fmaf(p2[g * TILE + k], f, S2);
-    }
-    const size_t o = static_cast<size_t>(b) * D + c0 + k;
-    mu[o] = S1 / L;
-    e2[o] = S2 / L;
-    mx[o] = M;
-    nrm[o] = L;
-  }
-}
-
-// ---- B4b: products on the tensor cores in 3xTF32 ----
-
-constexpr int BT1 = 64;         // pass 1: channels per W2 tile
-constexpr int R1 = 128;         // pass 1: T rows per block
-constexpr int BT2 = 128;        // pass 2: channels per block
-constexpr int R2 = 64;          // pass 2: T rows per chunk
-constexpr int NK = 5;           // per-channel constants: b2 - M, 1 / L, g_mu, g_e2, S
+// ---- the products: on the tensor cores in 3xTF32 ----
 
 // Shared-memory tiles: element (r8 + y, c8 + x), r8 and c8 multiples of 8,
 // y and x < 8, sits at
@@ -355,19 +218,6 @@ template <> __device__ __forceinline__ void store2<__nv_bfloat16>(__nv_bfloat16*
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
-// 16-byte copy global -> shared that fills zeros where !valid.
-__device__ __forceinline__ void cp16(void* dst, const void* src, bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(s), "l"(src), "r"(valid ? 16 : 0) : "memory");
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
 // Tile element (r, v) = src[(t0 + r) * ld + v] for r < R, v < W, zero where
 // t0 + r >= n; issued as cp.async, not committed.
 template <typename T, int R, int W, class Lay>
@@ -379,8 +229,145 @@ __device__ __forceinline__ void copy_rows(const T* __restrict__ src, int ld,
   for (int i = threadIdx.x; i < R * PER_ROW; i += THREADS) {
     const int r = i / PER_ROW, v = (i % PER_ROW) * V;
     const bool ok = t0 + r < n;
-    cp16(dst + Lay::idx(r & ~7, r & 7, v & ~7, v & 7),
+    asv::cp16(dst + Lay::idx(r & ~7, r & 7, v & ~7, v & 7),
          src + (ok ? static_cast<size_t>(t0 + r) * ld + v : 0), ok);
+  }
+}
+
+// B4a. Grid (D / BT2, B), one 256-thread block per SM, the tiles of B4b's
+// pass 2: the block keeps its W2 tile and walks T in chunks of R2 rows, in
+// order, the next chunk's h2 and x on their way (cp.async, two buffers
+// each) while it works on this one. Warp w computes the chunk's logits at
+// rows 32 (w % 2), channels 32 (w / 2) with B4b's tile product (the same
+// operands, the same k order), so B4a's logits are the ones B4b
+// recomputes, and folds them into a running max, normalizer, sum e x and
+// sum e x^2 per channel of its row group: lane (g, t) owns rows
+// 32 (w % 2) + g + 8 k, k < 4, of every chunk and channels
+// 32 (w / 2) + 8 n + 2 t + q, n < 4, q < 2. The 16 row groups of a channel
+// are merged in order at the end. Writes mu, e2 and the softmax's max and
+// normalizer per (b, d).
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 1)
+softmax_stats_fwd_kernel(const T* __restrict__ x, const T* __restrict__ h2,
+                         const float* __restrict__ w2,
+                         const float* __restrict__ b2, int Tlen, int D,
+                         float* __restrict__ mu, float* __restrict__ e2,
+                         float* __restrict__ mx, float* __restrict__ nrm) {
+  using WL = Xor<BT2 + 8>;
+  using XL = Pad<BT2 + 8>;
+  constexpr int SH = HLay<T>::S;
+  constexpr int GROUPS = 16;                       // row groups per channel
+  extern __shared__ float4 smem4[];
+  float* ws = reinterpret_cast<float*>(smem4);     // HID rows: W2 tile
+  T* hs = reinterpret_cast<T*>(ws + HID * WL::S);  // 2 x R2 x SH: h2 chunks
+  T* xs = hs + 2 * R2 * SH;                        // 2 x R2 x XL::S: x chunks
+  const int warp = threadIdx.x / 32, g = threadIdx.x % 32 / 4, t = threadIdx.x % 4;
+  const int r0 = 32 * (warp % 2), n0 = 32 * (warp / 2);
+  const int b = blockIdx.y, c0 = blockIdx.x * BT2;
+  const T* xb = x + static_cast<size_t>(b) * Tlen * D + c0;
+  const T* hb = h2 + static_cast<size_t>(b) * Tlen * HID;
+  const int chunks = (Tlen + R2 - 1) / R2;
+
+  copy_rows<float, HID, BT2, WL>(w2 + c0, D, HID, 0, ws);
+  copy_rows<T, R2, HID, HLay<T>>(hb, HID, Tlen, 0, hs);
+  copy_rows<T, R2, BT2, XL>(xb, D, Tlen, 0, xs);
+  asv::cp_commit();
+  // Channel j = 2 n + q of this lane: b2, and its row group's running max,
+  // normalizer, sum e x and sum e x^2.
+  float bias[8], m[8], l[8], s1[8], s2[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    bias[j] = b2[c0 + n0 + 8 * (j / 2) + 2 * t + j % 2];
+    m[j] = -INFINITY;
+    l[j] = s1[j] = s2[j] = 0.f;
+  }
+
+  for (int i = 0; i < chunks; ++i) {
+    const int cur = i % 2;
+    asv::cp_wait_all();
+    __syncthreads();   // this chunk's h2 and x are in; the other buffers are free
+    if (i + 1 < chunks) {
+      copy_rows<T, R2, HID, HLay<T>>(hb, HID, Tlen, (i + 1) * R2, hs + (1 - cur) * R2 * SH);
+      copy_rows<T, R2, BT2, XL>(xb, D, Tlen, (i + 1) * R2, xs + (1 - cur) * R2 * XL::S);
+      asv::cp_commit();
+    }
+    float acc[2][4][4];
+    zero<2, 4>(acc);
+    tile_mma<2, 4, HID, HLay<T>, false, WL, false>(hs + cur * R2 * SH, r0, ws, n0, g, t, acc);
+    const T* xc = xs + cur * R2 * XL::S;
+    const int valid = Tlen - i * R2;   // rows of this chunk before T
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      float cmax[2] = {m[2 * n], m[2 * n + 1]};
+#pragma unroll
+      for (int mh = 0; mh < 4; ++mh)   // acc[mh / 2][n][2 (mh % 2) + q]: row r0 + 8 mh + g
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          float& v = acc[mh / 2][n][2 * (mh % 2) + q];
+          v += bias[2 * n + q];
+          if (r0 + 8 * mh + g < valid) cmax[q] = fmaxf(cmax[q], v);
+        }
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int j = 2 * n + q;
+        if (cmax[q] == -INFINITY) continue;   // no valid row in this group yet
+        const float f = __expf(m[j] - cmax[q]);
+        l[j] *= f;
+        s1[j] *= f;
+        s2[j] *= f;
+        m[j] = cmax[q];
+      }
+#pragma unroll
+      for (int mh = 0; mh < 4; ++mh) {
+        const int r8 = r0 + 8 * mh;
+        if (r8 + g >= valid) continue;
+        const float2 v = load2<T>(xc + XL::idx(r8, g, n0 + 8 * n, 2 * t));
+        const float vq[2] = {v.x, v.y};
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const int j = 2 * n + q;
+          const float e = __expf(acc[mh / 2][n][2 * (mh % 2) + q] - m[j]);
+          l[j] += e;
+          s1[j] = fmaf(e, vq[q], s1[j]);
+          s2[j] = fmaf(e * vq[q], vq[q], s2[j]);
+        }
+      }
+    }
+  }
+  __syncthreads();   // every warp is done with the tiles: ws takes the partials
+
+  float* pm = ws;                    // GROUPS x BT2 each
+  float* pl = pm + GROUPS * BT2;
+  float* p1 = pl + GROUPS * BT2;
+  float* p2 = p1 + GROUPS * BT2;
+  const int rg = 8 * (warp % 2) + g;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int k = rg * BT2 + n0 + 8 * (j / 2) + 2 * t + j % 2;
+    pm[k] = m[j];
+    pl[k] = l[j];
+    p1[k] = s1[j];
+    p2[k] = s2[j];
+  }
+  __syncthreads();
+  if (threadIdx.x < BT2) {
+    const int c = threadIdx.x;
+    float M = -INFINITY;
+    for (int q = 0; q < GROUPS; ++q) M = fmaxf(M, pm[q * BT2 + c]);
+    float L = 0.f, S1 = 0.f, S2 = 0.f;
+    for (int q = 0; q < GROUPS; ++q) {
+      const float mq = pm[q * BT2 + c];
+      if (mq == -INFINITY) continue;   // no valid row in this group
+      const float f = expf(mq - M);
+      L = fmaf(pl[q * BT2 + c], f, L);
+      S1 = fmaf(p1[q * BT2 + c], f, S1);
+      S2 = fmaf(p2[q * BT2 + c], f, S2);
+    }
+    const size_t o = static_cast<size_t>(b) * D + c0 + c;
+    mu[o] = S1 / L;
+    e2[o] = S2 / L;
+    mx[o] = M;
+    nrm[o] = L;
   }
 }
 
@@ -487,7 +474,7 @@ softmax_stats_bwd_dx_kernel(const T* __restrict__ x, const T* __restrict__ h2,
   copy_rows<T, R1, HID, HLay<T>>(hb, HID, Tlen, t0, hs);
   copy_rows<float, HID, BT1, WL>(w2, D, HID, 0, ws);
   copy_rows<T, R1, BT1, XL>(xb, D, valid, 0, xs);
-  cp_commit();
+  asv::cp_commit();
   load_consts<BT1>(b2, mx, nrm, mu, e2, gmu, ge2, b, D, 0, kc);
   float dh[4][4][4];
   zero<4, 4>(dh);
@@ -496,11 +483,11 @@ softmax_stats_bwd_dx_kernel(const T* __restrict__ x, const T* __restrict__ h2,
   for (int i = 0; i < tiles; ++i) {
     const int c0 = i * BT1;
     const float* wt = ws + (i % 2) * HID * WL::S;
-    cp_wait_all();
+    asv::cp_wait_all();
     __syncthreads();   // this tile's W2, x and constants are in
     if (i + 1 < tiles) {
       copy_rows<float, HID, BT1, WL>(w2 + c0 + BT1, D, HID, 0, ws + ((i + 1) % 2) * HID * WL::S);
-      cp_commit();
+      asv::cp_commit();
     }
     float acc[2][4][4];
     zero<2, 4>(acc);
@@ -511,7 +498,7 @@ softmax_stats_bwd_dx_kernel(const T* __restrict__ x, const T* __restrict__ h2,
     __syncthreads();   // dlog is in; x and the constants are free
     if (i + 1 < tiles) {
       copy_rows<T, R1, BT1, XL>(xb + c0 + BT1, D, valid, 0, xs);
-      cp_commit();
+      asv::cp_commit();
       load_consts<BT1>(b2, mx, nrm, mu, e2, gmu, ge2, b, D, c0 + BT1, kc);
     }
     // dh += dlog (rows, tile channels) @ W2_tile^T (tile channels, hidden)
@@ -570,18 +557,18 @@ softmax_stats_bwd_dw_kernel(const T* __restrict__ x, const T* __restrict__ h2,
   copy_rows<float, HID, BT2, WL>(w2 + c0, D, HID, 0, ws);
   copy_rows<T, R2, HID, HLay<T>>(hb, HID, Tlen, 0, hs);
   copy_rows<T, R2, BT2, XL>(xb, D, Tlen, 0, xs);
-  cp_commit();
+  asv::cp_commit();
   load_consts<BT2>(b2, mx, nrm, mu, e2, gmu, ge2, b, D, c0, kc);
   float dw[4][4][4];
   zero<4, 4>(dw);
 
   for (int i = 0; i < chunks; ++i) {
     const T* hc = hs + (i % 2) * R2 * SH;
-    cp_wait_all();
+    asv::cp_wait_all();
     __syncthreads();   // this chunk's h2 and x are in
     if (i + 1 < chunks) {
       copy_rows<T, R2, HID, HLay<T>>(hb, HID, Tlen, (i + 1) * R2, hs + ((i + 1) % 2) * R2 * SH);
-      cp_commit();
+      asv::cp_commit();
     }
     float acc[2][4][4];
     zero<2, 4>(acc);
@@ -592,7 +579,7 @@ softmax_stats_bwd_dw_kernel(const T* __restrict__ x, const T* __restrict__ h2,
     __syncthreads();   // dlog is in; the x chunk is free
     if (i + 1 < chunks) {
       copy_rows<T, R2, BT2, XL>(xb, D, Tlen, (i + 1) * R2, xs);
-      cp_commit();
+      asv::cp_commit();
     }
     // dw += h2_chunk^T (hidden, rows) @ dlog (rows, channels)
     tile_mma<4, 4, R2, HLay<T>, true, DL, false>(hc, 64 * (warp % 2), ds, 32 * (warp / 2), g,
@@ -621,7 +608,10 @@ softmax_stats_bwd_reduce_kernel(const float* __restrict__ part, int B, int n,
   dw2[i] = s;
 }
 
-constexpr size_t FWD_SMEM = (HID * TILE + ROWS * HID) * sizeof(float);
+template <typename T>
+constexpr size_t fwd_smem() {
+  return HID * (BT2 + 8) * sizeof(float) + 2 * R2 * (HLay<T>::S + BT2 + 8) * sizeof(T);
+}
 template <typename T>
 constexpr size_t dx_smem() {
   return (2 * HID * (BT1 + 8) + R1 * (BT1 + 8) + NK * BT1) * sizeof(float) +
@@ -637,9 +627,9 @@ template <typename T>
 cudaError_t launch_fwd(const void* x, const void* h2, const float* w2,
                        const float* b2, int B, int Tlen, int D, float* mu,
                        float* e2, float* mx, float* nrm, cudaStream_t st) {
-  cudaError_t err = asv::allow_smem(softmax_stats_fwd_kernel<T>, FWD_SMEM);
+  cudaError_t err = asv::allow_smem(softmax_stats_fwd_kernel<T>, fwd_smem<T>());
   if (err != cudaSuccess) return err;
-  softmax_stats_fwd_kernel<T><<<dim3(D / TILE, B), THREADS, FWD_SMEM, st>>>(
+  softmax_stats_fwd_kernel<T><<<dim3(D / BT2, B), THREADS, fwd_smem<T>(), st>>>(
       static_cast<const T*>(x), static_cast<const T*>(h2), w2, b2, Tlen, D,
       mu, e2, mx, nrm);
   return cudaGetLastError();
@@ -682,7 +672,7 @@ extern "C" int attn_pool_vjp_forward(const void* x, const void* h2,
                                      float* mx, float* nrm, int dtype,
                                      void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D % TILE != 0 || Tlen < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (D % BT2 != 0 || Tlen < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == asv::kF32)
     return static_cast<int>(launch_fwd<float>(x, h2, w2, b2, B, Tlen, D, mu, e2,
                                               mx, nrm, st));
@@ -705,7 +695,7 @@ extern "C" int attn_pool_vjp_backward(const void* x, const void* h2,
                                       void* dh2, float* part, float* dw2,
                                       int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D % TILE != 0 || Tlen < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (D % BT2 != 0 || Tlen < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == asv::kF32)
     return static_cast<int>(launch_bwd<float>(x, h2, w2, b2, mx, nrm, mu, e2,
                                               gmu, ge2, B, Tlen, D, dx, dh2,

@@ -21,9 +21,11 @@ sigma = sqrt(clip(e2 - mu^2, 1e-4)) belongs to the caller, so its autodiff
 stays standard. :class:`FusedSoftmaxStats` launches B4a and B4b on CUDA
 tensors and runs the plain versions on CPU tensors; the kernels never
 store the (B, T, D) logits or weights, and recompute them from h2 in the
-backward. B4a's product runs as f32 FMAs; B4b's products run on the
-tensor cores in 3xTF32 (each f32 operand split into two TF32 parts, three
-TF32 products summed in f32), which keeps f32's accuracy.
+backward. Every product of both kernels runs on the tensor cores in
+3xTF32 (each f32 operand split into two TF32 parts, three TF32 products
+summed in f32), which keeps f32's accuracy; B4a forms its logits with the
+same tiles and summation order as B4b, so the backward recomputes the
+forward's logits exactly.
 """
 
 from __future__ import annotations
@@ -97,6 +99,10 @@ def _check(name: str, x, h2, w2, b2, *more):
     _build.check_args(name, (x, None), (h2, (B, T, HIDDEN)),
                       (w2, (HIDDEN, D)), (b2, (D,)),
                       *((t, (B, D)) for t in more))
+    if any(t.data_ptr() % 16 for t in (x, h2, w2)):
+        raise ValueError(f"{name}: x, h2 and W2 must start on a 16-byte "
+                         f"boundary (the kernels copy them with 16-byte "
+                         f"cp.async)")
 
 
 def softmax_stats_fwd_kernel(x, h2, w2, b2):
@@ -120,10 +126,6 @@ def softmax_stats_bwd_kernel(x, h2, w2, b2, res: Sequence[torch.Tensor],
     global bwd_launches
     mu, e2, m, l = res
     _check("softmax_stats_bwd_kernel", x, h2, w2, b2, mu, e2, m, l, gmu, ge2)
-    if any(t.data_ptr() % 16 for t in (x, h2, w2)):
-        raise ValueError("softmax_stats_bwd_kernel: x, h2 and W2 must start "
-                         "on a 16-byte boundary (the kernel copies them "
-                         "with 16-byte cp.async)")
     B, T, D = x.shape
     dx = torch.empty_like(x)
     dh2 = torch.empty_like(h2)

@@ -12,9 +12,10 @@ Phases, each fatal on failure:
    at an odd hop (win 318 / hop 159), at every other FFT size it is built
    for (n_fft 4 to 256) and on a padded input with digital silence after a
    loud stretch and a -60 dB tone, and two B1 launches bitwise equal; B2
-   Res2 chain at
-   (64, 750, 512), d = 2/3/4; B3 attention pooling at (64, 750, 1536)), in
-   f32 with TF32 off and in bf16, with one padded case (valid_len < T);
+   Res2 chain at (64, 750, 512), d = 2/3/4, in bf16 with valid_len < T at
+   each d and two launches bitwise equal; B3 attention pooling at
+   (64, 750, 1536)), in f32 with TF32 off and in bf16, with one padded case
+   (valid_len < T), whose rows past valid_len B2 must leave zero;
    print each kernel's error, its time, the plain version's and, for B1,
    ``torch.fft.rfft`` of the windowed frames as a yardstick (the port never
    calls it);
@@ -24,8 +25,9 @@ Phases, each fatal on failure:
    check that two launches of each on the same inputs are bitwise equal;
    print the peak device memory of one backward, kernel and plain, their
    times, the plain versions' and one f32 ``h2 @ W2`` matmul as a
-   yardstick (the port never calls it), B4b's time against three of those,
-   and B4b's bound at the 3xTF32 rate beside the f32-FMA one;
+   yardstick (the port never calls it), B4a's and B4b's times against one
+   and three of those, and their bounds at the 3xTF32 rate beside the
+   f32-FMA ones;
 3. drive the serving path at full width: ECAPA-TDNN C=512 (scale 8,
    embedding 256) and an OC-Softmax center from a numpy seed, 136 synthetic
    utterances written as wav files with a protocol, scored by
@@ -125,7 +127,7 @@ KERNEL_GROUPS = (
     ("B4a softmax_stats fwd", ("softmax_stats_fwd_kernel",)),
     ("B4b softmax_stats bwd", ("softmax_stats_bwd_",)),
     ("B1 lfcc", ("lfcc_kernel",)),
-    ("B2 res2_chain", ("res2_chain_kernel",)),
+    ("B2 res2_chain", ("res2_chain_",)),
     ("B3 attn_pool", ("stats_kernel", "const_kernel", "hidden_kernel",
                       "pool_kernel")),
     # cuDNN's convolutions run implicit-GEMM kernels ("..._xmma_wgrad_
@@ -291,6 +293,9 @@ def kernel_checks(torch, gen):
     x32 = randn(B, T, C)
     xbf = x32.bfloat16()
     errs, times, plain_times = [], [], []
+    # valid_len inside an earlier tile (600), and inside the last (700, 730)
+    # for the 64- and 128-row tiles the kernel could take
+    valid_of = {2: T - 150, 3: T - 50, 4: T - 20}
     for d in (2, 3, 4):
         # f32: atol 1e-4. bf16, at every element, in ulps of max(|want|, 1):
         # <= i + 1 in group i = 0..6 and 0 in the passed-through group 7;
@@ -301,9 +306,9 @@ def kernel_checks(torch, gen):
         # through its conv, the flips of the i steps before it, each worth
         # up to about one more ulp. Flips are rare, so few elements may
         # exceed one ulp.
-        cases = [(x32, None), (xbf, None)]
+        cases = [(x32, None), (xbf, None), (xbf, valid_of[d])]
         if d == 3:
-            cases.append((x32, T - 50))
+            cases.append((x32, valid_of[d]))
         for x, valid in cases:
             p = packed_of[x.dtype]
             got = rc.res2_chain_kernel(x, *p, dilation=d, valid_len=valid)
@@ -326,16 +331,24 @@ def kernel_checks(torch, gen):
                   f"max_abs_err={err:.3e} ({bar})")
             check(ok, f"B2 disagrees with its plain version (d={d}, "
                       f"{x.dtype}, valid={valid}): {err}")
-            if x is x32 and valid is not None:
+            if valid is not None:
                 check(bool((got[:, valid:] == 0).all()),
-                      "B2 rows past valid_len are not zero")
-            if x is x32 and valid is None:
+                      f"B2 rows past valid_len are not zero ({x.dtype})")
+            elif x is x32:
                 errs.append(err)
+            else:
+                check(torch.equal(got, rc.res2_chain_kernel(
+                    x, *p, dilation=d)), "two B2 launches on the same "
+                                         "input differ")
+                print(f"B2 res2_chain d={d} bf16: two launches bitwise "
+                      f"equal")
         p = packed_of[torch.bfloat16]
         times.append(time_ms(torch, lambda: rc.res2_chain_kernel(
             xbf, *p, dilation=d)))
         plain_times.append(time_ms(torch, lambda: rc.res2_chain_plain(
             xbf, *p, dilation=d)))
+        print(f"B2 res2_chain d={d} bf16 {times[-1]:.4f} ms (plain "
+              f"{plain_times[-1]:.4f} ms)")
     w16 = packed_of[torch.bfloat16][0][0]
     x3 = torch.cat([xbf[..., :64]] * 3, dim=-1).reshape(-1, 192)
     matmul_ms = 7 * time_ms(torch, lambda: x3 @ w16)
@@ -508,23 +521,26 @@ def vjp_checks(torch, gen, entries):
     xh_bytes = 4 * (x.numel() + h2.numel() + w2.numel() + b2.numel())
     bwd_bytes = xh_bytes + 4 * (2 * B * D + x.numel() + h2.numel()
                                 + w2.numel())
-    # B4b runs its three products (3 flop) in 3xTF32: three TF32 products
-    # each, at the TF32 rate. The bound at the f32-FMA rate, which held the
-    # kernel's earlier FMA design, is printed beside it.
-    tf32_bound = bound(bwd_bytes, 3 * 3 * flop, "tf32")
-    fma_bound = bound(bwd_bytes, 3 * flop, "f32")
-    print(f"B4b {bwd_ms:.4f} ms against 3 x the h2 @ W2 yardstick "
-          f"{3 * matmul_ms:.4f} ms; bound {tf32_bound[0]:.4f} ms by "
-          f"{tf32_bound[1]} at the 3xTF32 rate (3 x {3 * flop / 1e9:.1f} "
-          f"GFLOP at 495 TFLOP/s), {fma_bound[0]:.4f} ms at the f32-FMA rate "
-          f"(the earlier FMA design's bound)")
+    # B4a runs its product (flop) and B4b its three (3 flop) in 3xTF32:
+    # three TF32 products each, at the TF32 rate. The bounds at the f32-FMA
+    # rate, which held the kernels' earlier FMA designs, are printed beside.
+    fwd_bytes = xh_bytes + 4 * 2 * B * D
+    for name, ms, nbytes, n in (("B4a", fwd_ms, fwd_bytes, 1),
+                                ("B4b", bwd_ms, bwd_bytes, 3)):
+        tf32_bound = bound(nbytes, 3 * n * flop, "tf32")
+        fma_bound = bound(nbytes, n * flop, "f32")
+        print(f"{name} {ms:.4f} ms against {n} x the h2 @ W2 yardstick "
+              f"{n * matmul_ms:.4f} ms; bound {tf32_bound[0]:.4f} ms by "
+              f"{tf32_bound[1]} at the 3xTF32 rate (3 x {n * flop / 1e9:.1f} "
+              f"GFLOP at 495 TFLOP/s), {fma_bound[0]:.4f} ms at the f32-FMA "
+              f"rate (the earlier FMA design's bound)")
     entries["B4a"] = dict(
         name="B4a softmax_stats fwd (differentiable attentive statistics)",
         source="asvspoof2021_air_tpu_torch/csrc/attn_pool_vjp.cu",
         replaces="asvspoof2021_air_tpu/ops/attn_pool_vjp.py:53 (_fwd_kernel)",
         ms=fwd_ms, plain_ms=fwd_plain_ms, matmul_ms=matmul_ms,
-        max_abs_err=max(errs["B4a"]), bytes=xh_bytes + 4 * 2 * B * D,
-        flops=flop, kind="f32")
+        max_abs_err=max(errs["B4a"]), bytes=fwd_bytes, flops=3 * flop,
+        kind="tf32")
     entries["B4b"] = dict(
         name="B4b softmax_stats bwd (its VJP: dx, dh2, dW2; db2 = 0)",
         source="asvspoof2021_air_tpu_torch/csrc/attn_pool_vjp.cu",

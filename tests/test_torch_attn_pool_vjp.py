@@ -2,7 +2,11 @@
 asvspoof2021_air_tpu_torch/ops/attn_pool_vjp.py) against the JAX package's
 fused_softmax_stats (Pallas, interpret mode), with the JAX test's own bars
 (tests/test_attn_pool_vjp.py): forward 1e-5, cotangents 2e-4, db2 exactly
-0, bf16 cotangents in the primal types."""
+0, bf16 cotangents in the primal types; and models of the kernels' 3xTF32
+products and of B4a's chunked online softmax against the plain versions."""
+
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -210,3 +214,76 @@ def test_one_tf32_product_misses_the_chip_bars():
         want = a.double() @ b.double()
         one = (_tf32_rna(a).double() @ _tf32_rna(b).double()).float().double()
         assert _over_bar(name, one, want) > 1.0, name
+
+
+# --- B4a's chunked online softmax, modelled on the CPU ----------------------
+# B4a (csrc/attn_pool_vjp.cu) walks T in chunks of R2 rows per 128-channel
+# tile; lane (g, t) of warp w keeps a running (max, normalizer, sum e x,
+# sum e x^2) per channel for rows 32 (w % 2) + g + 8 k, k < 4, of each chunk:
+# 16 row groups, rg = 8 (w % 2) + g, merged in order of rg at the end.
+
+R2 = int(re.search(r"constexpr int R2 = (\d+);",
+                   (Path(vjp.__file__).resolve().parent.parent / "csrc"
+                    / "attn_pool_vjp.cu").read_text()).group(1))
+
+
+def _b4a_model(x, h2, w2, b2):
+    """(mu, e2, max, normalizer) by B4a's schedule in f32, the logits h2 @ W2
+    in 3xTF32 (products summed in float64, rounded once to f32), and the
+    count of (chunk, row group) pairs with no row before T."""
+    (hb, hs), (wb, ws) = _tf32_split(h2), _tf32_split(w2)
+    prod = (hs.double() @ wb.double() + hb.double() @ ws.double()
+            + hb.double() @ wb.double()).float()
+    logits = (prod + b2).numpy()
+    xf = x.float().numpy()
+    T = x.shape[1]
+    groups = 16
+    shape = (groups,) + logits.shape[::2]          # (rg, B, D)
+    m = np.full(shape, -np.inf, np.float32)
+    l, s1, s2 = (np.zeros(shape, np.float32) for _ in range(3))
+    empty = 0
+    for t0 in range(0, T, R2):
+        for rg in range(groups):
+            rows = [t0 + 32 * (rg // 8) + rg % 8 + 8 * k for k in range(4)]
+            rows = [t for t in rows if t < T]
+            if not rows:
+                empty += 1
+                continue
+            cmax = np.maximum(m[rg], logits[:, rows].max(axis=1))
+            f = np.exp(m[rg] - cmax)
+            l[rg], s1[rg], s2[rg], m[rg] = l[rg] * f, s1[rg] * f, s2[rg] * f, cmax
+            for t in rows:
+                e = np.exp(logits[:, t] - m[rg])
+                v = xf[:, t]
+                l[rg] += e
+                s1[rg] += e * v
+                s2[rg] += e * v * v
+    M = m.max(axis=0)
+    L, S1, S2 = (np.zeros_like(M) for _ in range(3))
+    for rg in range(groups):
+        live = m[rg] > -np.inf
+        f = np.where(live, np.exp(np.where(live, m[rg] - M, 0)), 0).astype(
+            np.float32)
+        L += l[rg] * f
+        S1 += s1[rg] * f
+        S2 += s2[rg] * f
+    return (S1 / L, S2 / L, M, L), empty
+
+
+@pytest.mark.parametrize("T", [50, 49, 20, R2 + 6])
+def test_chunked_online_softmax_matches_plain(T):
+    """B4a's schedule against softmax_stats_fwd_plain, atol = rtol = 1e-4.
+    At T = 20 the row groups of rows 32-63 see no row at all; at R2 + 6 the
+    second chunk leaves most groups without a row."""
+    g = np.random.default_rng(T)
+    f = lambda *s, sc=1.0: torch.from_numpy(
+        (sc * g.standard_normal(s)).astype(np.float32))
+    B, D, H = 2, 256, vjp.HIDDEN
+    x, h2 = torch.relu(f(B, T, D)), f(B, T, H)
+    w2, b2 = f(H, D, sc=H ** -0.5), f(D, sc=0.05)
+    got, empty = _b4a_model(x, h2, w2, b2)
+    want = vjp.softmax_stats_fwd_plain(x, h2, w2, b2)
+    for name, a, w in zip(("mu", "e2", "max", "normalizer"), got, want):
+        np.testing.assert_allclose(a, w.numpy(), atol=1e-4, rtol=1e-4,
+                                   err_msg=name)
+    assert (empty > 0) == (T in (20, R2 + 6))

@@ -1,10 +1,14 @@
 """Port Res2 chain (B2's plain version and parameter packing,
 asvspoof2021_air_tpu_torch/ops/res2_chain_cuda.py) against the JAX package's
-res2_chain_infer (Pallas, interpret mode) in f32.
+res2_chain_infer (Pallas, interpret mode) in f32, and a model of kernel B2's
+tiling against the plain version.
 
 Tolerance atol 1e-4: the JAX kernel's own bar against the model's chain math
 (tests/test_res2_chain_pallas.py); seven chained f32 convs summed in another
 order."""
+
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -22,6 +26,7 @@ from asvspoof2021_air_tpu_torch.interop.flax_weights import (
     from_flax_variables,
     random_flax_variables,
 )
+from asvspoof2021_air_tpu_torch.ops import res2_chain_cuda
 from asvspoof2021_air_tpu_torch.ops.res2_chain_cuda import (
     pack_chain_params,
     res2_chain_infer,
@@ -94,3 +99,92 @@ def test_jax_tree_from_the_weight_maker_runs_in_jax(variables):
     emb, logits = model.apply(jax.tree.map(jnp.asarray, variables),
                               jnp.zeros((1, 20, 60)), False)
     assert emb.shape == (1, 32) and logits.shape == (1, 2)
+
+
+# --- B2's tiling, modelled on the CPU ---------------------------------------
+# The kernel (csrc/res2_chain.cu) computes one tile of TT output rows per
+# block over R = TT + 2 H local rows, H = (scale-1) d; conv i computes local
+# rows [(i+1) d, R - (i+1) d) from the rows of u next to them, and the rest
+# of u is never read for a kept row. The model below runs that schedule with
+# TT read from the source and NaN in every row of u the schedule does not
+# compute, so a read outside the halo would show.
+
+TT = int(re.search(r"constexpr int TT = (\d+);",
+                   (Path(res2_chain_cuda.__file__).resolve().parent.parent
+                    / "csrc" / "res2_chain.cu").read_text()).group(1))
+
+
+def _tiled_chain(x, w, cb, a, b, *, dilation, scale=SCALE, valid_len=None):
+    """res2_chain's function by B2's schedule: per tile, the halo recomputed
+    and shrinking by d per conv, rounding to x's type at u and s."""
+    Bn, T, Cn = x.shape
+    width, d, dt = Cn // scale, dilation, x.dtype
+    valid = T if valid_len is None else valid_len
+    H = (scale - 1) * d
+    R = TT + 2 * H
+    wf = w.to(dt).float()
+    out = torch.full_like(x, float("nan"))
+    for t0 in range(0, T, TT):
+        r = torch.arange(t0 - H, t0 - H + R)
+        inside = ((r >= 0) & (r < valid))[None, :, None]
+        xt = torch.where(inside, x[:, r.clamp(0, T - 1)],
+                         torch.zeros((), dtype=dt))
+        n_own = min(TT, T - t0)
+        u = xt[..., :width]
+        for i in range(scale - 1):
+            lo, hi = (i + 1) * d, R - (i + 1) * d
+            uf = u.float()
+            x3 = torch.cat([uf[:, lo - d:hi - d], uf[:, lo:hi],
+                            uf[:, lo + d:hi + d]], dim=-1)
+            y = x3 @ wf[i] + cb[i]
+            s = torch.where(inside[:, lo:hi], a[i] * torch.relu(y) + b[i],
+                            torch.zeros(())).to(dt)
+            out[:, t0:t0 + n_own, i * width:(i + 1) * width] = \
+                s[:, H - lo:H - lo + n_own]
+            if i + 2 < scale:
+                g = xt[:, lo:hi, (i + 1) * width:(i + 2) * width]
+                u = torch.full((Bn, R, width), float("nan"), dtype=dt)
+                u[:, lo:hi] = (g.float() + s.float()).to(dt)
+        out[:, t0:t0 + n_own, (scale - 1) * width:] = \
+            xt[:, H:H + n_own, (scale - 1) * width:]
+    return out
+
+
+def _bf16_ulps_over_bars(got, want):
+    """chip_smoke.py's bf16 bar for B2: the largest error per group in ulps
+    of max(|want|, 1) must be <= i + 1 in group i and 0 in the passed-through
+    group, with at most 1e-5 of the elements over 1 ulp. Returns (per-group
+    ulps, bars, count over 1 ulp, allowed count)."""
+    want = want.float()
+    ulp = torch.exp2((torch.frexp(want.abs().clamp(min=1.0))[1] - 8).float())
+    ulps = (got.float() - want).abs() / ulp
+    per_group = ulps.unflatten(-1, (SCALE, -1)).amax(dim=(0, 1, 3))
+    bars = torch.tensor([float(i + 1) for i in range(SCALE - 1)] + [0.0])
+    return per_group, bars, int((ulps > 1).sum()), 1e-5 * ulps.numel()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dilation", [2, 3, 4])
+@pytest.mark.parametrize("valid_from_end", [None, 10, TT + 20])
+def test_tiled_schedule_matches_plain_chain(variables, dtype, dilation,
+                                            valid_from_end):
+    """T = TT + 37 (two tiles, the last one partial); valid_len inside the
+    last tile (T - 10) and inside the first (T - TT - 20)."""
+    T = TT + 37
+    valid = None if valid_from_end is None else T - valid_from_end
+    sd = from_flax_variables(variables, SCALE)
+    packed = pack_chain_params(sd, DILATION_OF[dilation], SCALE)
+    x = torch.from_numpy((np.random.default_rng(dilation).standard_normal(
+        (2, T, C)) * 2.0).astype(np.float32)).to(dtype)
+    w = (packed[0].to(dtype), *packed[1:])
+    want = res2_chain_plain(x, *w, dilation=dilation, valid_len=valid)
+    got = _tiled_chain(x, *w, dilation=dilation, valid_len=valid)
+    assert not torch.isnan(got).any()
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+    else:
+        per_group, bars, n_over, allowed = _bf16_ulps_over_bars(got, want)
+        assert bool((per_group <= bars).all()), per_group
+        assert n_over <= allowed
+    if valid is not None:
+        assert bool((got[:, valid:] == 0).all())
