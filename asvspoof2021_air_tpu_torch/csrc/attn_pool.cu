@@ -11,316 +11,495 @@
 //
 // The TPU kernel keeps one utterance's (T, 1536) activation in VMEM
 // (2.3 MB in bf16); a Hopper block has 227 KB of shared memory, so this
-// port makes four passes instead:
-//   1. stats:  masked sum x and sum x^2 per channel -> mean, std;
-//   2. const:  mean @ Wm + std @ Ws per utterance;
-//   3. hidden: h = BN(relu(x @ Wx + const + ba)), a (B, T, 128) f32 scratch;
-//   4. pool:   per 128-channel tile, logits = h @ Wb + bb computed a
-//              64-row chunk at a time with an online softmax over T
-//              (running max, sum, sum w x, sum w x^2), as flash attention
-//              does, so the (B, T, D) logits never reach device memory.
+// port makes three passes in one call, each summing in a fixed order (no
+// atomics: two launches agree bit for bit), and reads x twice:
+//   A. proj_stats: grid (ceil(n / RA), B). Each block computes its tile
+//      P = x_tile @ Wx (RA x 128, f32) on the tensor cores, streaming
+//      K = D in chunks by double-buffered cp.async, and while each x chunk
+//      sits in shared memory adds its column sums of x and x^2 (rows < n;
+//      rows past n arrive as zeros) into per-(utterance, tile) partials.
+//      bf16 x (the serving path) is exact in bf16, so only Wx is split, once
+//      when the weights are packed, into NPL bf16 planes hi = bf16(W),
+//      mid = bf16(W - hi): mma.sync m16n8k16 with ldmatrix accumulates
+//      x mid + x hi in f32, and hi + mid holds W to 2^-17 |W| (one plane
+//      keeps 2^-8: about 0.3 of the 1e-4 bar on [mu || sigma], without a
+//      10x margin; tests/test_torch_attn_pool_schedule.py). f32 x runs 3xTF32 on
+//      m16n8k8 (tensor_core.cuh), both operands split as they are read.
+//   B. context_bias: the partials summed in tile order to mean and std, and
+//      c = mean @ Wm + std @ Ws + ba, (B, 128), as f32 FMAs (50 MFLOP).
+//   C. attentive_pool: B4a's pool (tensor_core.cuh softmax_pool): per
+//      128-channel tile, Wb's tile in shared memory while 64-row chunks of
+//      P and x arrive by double-buffered cp.async; each P chunk becomes
+//      h = relu(P + c) * s + bias as it lands, the logits h @ Wb run in
+//      3xbf16 (HiddenBf16x3 below), and an online softmax over the rows
+//      < n per warp tile gives sum w x and sum w x^2, so the (B, T, D)
+//      logits never reach device memory.
 //
-// Bound: near the knee. x is read once (147 MB in bf16 at B=64, T=750,
-// D=1536; 0.044 ms at 3.35 TB/s) against 37.7 GFLOP for the two products
-// (0.038 ms at the bf16 tensor-core rate). This first version reads x three
-// times and does the products as f32 FMAs from shared memory, so it is
-// bound by the FMA rate.
+// Bound: bytes. The function reads x once (147 MB in bf16 at B = 64,
+// T = 750, D = 1536: 0.044 ms at 3.35 TB/s) against 37.7 GFLOP for the two
+// products (0.038 ms at the bf16 tensor-core rate). This design reads x
+// twice and writes and reads P (348 MB in all, at least 0.104 ms): reading
+// x once would need an utterance's 2.3 MB resident across a 16-block
+// cluster's distributed shared memory. On an H100 SXM at 700 W
+// (chip_smoke.py, bf16) it takes 0.56 ms, against 1.96 for the first
+// design (four passes, x read three times, f32 FMAs): pass C 0.37, pass A
+// 0.17, pass B 0.03. Pass C's logits in B4a's 3xTF32 took 0.14 ms more,
+// and 64-row tiles in pass A 0.02 ms more (they read Wx's planes from L2
+// twice as often).
 
-#include "common.cuh"
+#include "tensor_core.cuh"
 
 namespace {
 
-constexpr int HID = 128;        // attention hidden width
-constexpr int THREADS = 256;
+using namespace asv::tc;
+using bf16 = __nv_bfloat16;
 
-// 1. Masked per-channel mean and std. Grid (D / 64, B).
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-stats_kernel(const T* __restrict__ x, int Tlen, int D, int n,
-             float* __restrict__ mean, float* __restrict__ stdv) {
-  __shared__ float r1[4][64], r2[4][64];
-  const int c = blockIdx.x * 64 + threadIdx.x % 64;
-  const int g = threadIdx.x / 64;
-  const int b = blockIdx.y;
-  const T* xb = x + static_cast<size_t>(b) * Tlen * D + c;
-  float s1 = 0.f, s2 = 0.f;
-  for (int t = g; t < n; t += 4) {
-    const float v = asv::to_f32<T>(xb[static_cast<size_t>(t) * D]);
-    s1 += v;
-    s2 = fmaf(v, v, s2);
-  }
-  r1[g][threadIdx.x % 64] = s1;
-  r2[g][threadIdx.x % 64] = s2;
-  __syncthreads();
-  if (g == 0) {
-    const int k = threadIdx.x;
-    const float t1 = (r1[0][k] + r1[1][k]) + (r1[2][k] + r1[3][k]);
-    const float t2 = (r2[0][k] + r2[1][k]) + (r2[2][k] + r2[3][k]);
-    const float nf = static_cast<float>(n);
-    const float m = t1 / nf;
-    const float ex2 = t2 / nf;
-    const float var = (ex2 - m * m) * (nf / (nf - 1.f));
-    mean[b * D + c] = m;
-    stdv[b * D + c] = sqrtf(fmaxf(var, 1e-4f));
-  }
+constexpr int RA = 128;        // pass A: rows per block
+constexpr int KA = 64;         // pass A, bf16: columns of x per chunk (128 bytes)
+constexpr int KF = 32;         // pass A, f32: columns of x per chunk (128 bytes)
+constexpr int NPL = 2;         // pass A, bf16: planes of Wx
+constexpr int MA = RA / 32;    // pass A: 16-row m tiles per warp (warp tile RA / 2 x 32)
+constexpr int R2 = POOL_R;     // pass C: rows per chunk
+constexpr int BT2 = POOL_BT;   // pass C: channels per block
+
+// Element (r, c) of a tile of bf16 rows W elements wide: 16-byte chunk c / 8
+// of row r sits at chunk (c / 8) ^ (r % 8) within its group of 8 chunks, so
+// the 8 rows of an ldmatrix, and the column sums' 8 rows x 16 bytes, hit
+// distinct banks.
+template <int W>
+__device__ __forceinline__ int swz(int r, int c) {
+  return r * W + ((((c >> 3) ^ r) & 7) | ((c >> 3) & ~7)) * 8 + (c & 7);
 }
 
-// 2. const = mean @ Wm + std @ Ws. Grid (B), CG x HID threads: group g
-//    sums channels [g D / CG, (g + 1) D / CG), then the groups are added in
-//    a fixed order.
-constexpr int CG = 8;
+// Sum of v over the 8 lanes of a warp that share lane % 4, in a fixed order.
+__device__ __forceinline__ float sum8(float v) {
+  v += __shfl_xor_sync(0xFFFFFFFFu, v, 4);
+  v += __shfl_xor_sync(0xFFFFFFFFu, v, 8);
+  return v + __shfl_xor_sync(0xFFFFFFFFu, v, 16);
+}
 
-__global__ void __launch_bounds__(CG * HID)
-const_kernel(const float* __restrict__ mean, const float* __restrict__ stdv,
-             const float* __restrict__ wm, const float* __restrict__ wsd,
-             int D, float* __restrict__ cst) {
-  __shared__ float part[CG][HID];
-  const int b = blockIdx.x, j = threadIdx.x % HID, g = threadIdx.x / HID;
-  const int per = D / CG;
+// Pass A's epilogue: rows < nv of this warp's P tile (rows m0, columns n0).
+__device__ __forceinline__ void store_p(float acc[MA][4][4], float* pb, int m0, int n0,
+                                        int nv, int g, int t) {
+#pragma unroll
+  for (int m = 0; m < MA; ++m)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = m0 + 16 * m + g + 8 * h;
+      if (r >= nv) continue;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+        store2<float>(pb + static_cast<size_t>(r) * HID + n0 + 8 * nt + 2 * t,
+                      acc[m][nt][2 * h], acc[m][nt][2 * h + 1]);
+    }
+}
+
+// A. bf16 x. Grid (ceil(n / RA), B), two 256-thread blocks per SM. Warp w
+// computes P at rows (RA / 2) (w % 2), columns 32 (w / 2); for the column
+// sums lane (g, t) of warp w owns the chunk's columns 2 (4 w + t) + q, q < 2,
+// at rows g + 8 i. x chunk and Wx planes double-buffered: 96 KB. (One
+// block per SM, without the spill of 36 bytes that 128 registers leave,
+// and with two to four chunks in flight, measured 0.02-0.03 ms slower.)
+__global__ void __launch_bounds__(THREADS, 2)
+proj_stats_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ planes, int Tlen,
+                       int D, int n, float* __restrict__ p, float* __restrict__ s1p,
+                       float* __restrict__ s2p) {
+  constexpr int XS = RA * KA, WS = KA * HID;   // one x chunk, one plane's chunk
+  extern __shared__ float4 smem4[];
+  bf16* xs = reinterpret_cast<bf16*>(smem4);   // 2 x XS
+  bf16* ws = xs + 2 * XS;                      // 2 x NPL x WS
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int lrow = (lane & 7) + 8 * ((lane >> 3) & 1), lchunk = 8 * (lane >> 4);
+  const int m0 = (RA / 2) * (warp % 2), n0 = 32 * (warp / 2);
+  const int tile = blockIdx.x, b = blockIdx.y, t0 = tile * RA;
+  const int nv = min(RA, n - t0);              // rows of this tile before n
+  const bf16* xb = x + (static_cast<size_t>(b) * Tlen + t0) * D;
+  const int chunks = D / KA;
+
+  auto load = [&](int kc, int buf) {
+    for (int i = threadIdx.x; i < RA * KA / 8; i += THREADS) {
+      const int r = i / (KA / 8), c = (i % (KA / 8)) * 8;
+      const bool ok = r < nv;
+      asv::cp16(xs + buf * XS + swz<KA>(r, c),
+                xb + (ok ? static_cast<size_t>(r) * D + kc * KA + c : 0), ok);
+    }
+#pragma unroll
+    for (int q = 0; q < NPL; ++q)
+      for (int i = threadIdx.x; i < KA * HID / 8; i += THREADS) {
+        const int r = i / (HID / 8), c = (i % (HID / 8)) * 8;
+        asv::cp16(ws + (buf * NPL + q) * WS + swz<HID>(r, c),
+                  planes + (static_cast<size_t>(q) * D + kc * KA + r) * HID + c, true);
+      }
+  };
+
+  load(0, 0);
+  asv::cp_commit();
+  float acc[MA][4][4];
+  zero<MA, 4>(acc);
+  const int cp = 2 * (4 * warp + t);   // this lane's column pair in a chunk
+  float* s1b = s1p + (static_cast<size_t>(b) * gridDim.x + tile) * D;
+  float* s2b = s2p + (static_cast<size_t>(b) * gridDim.x + tile) * D;
+
+  for (int kc = 0; kc < chunks; ++kc) {
+    const int cur = kc % 2;
+    asv::cp_wait_all();
+    __syncthreads();   // this chunk is in; the other buffers are free
+    if (kc + 1 < chunks) {
+      load(kc + 1, 1 - cur);
+      asv::cp_commit();
+    }
+    const bf16* xc = xs + cur * XS;
+    const bf16* wc = ws + cur * NPL * WS;
+#pragma unroll
+    for (int k0 = 0; k0 < KA; k0 += 16) {
+      uint32_t a[MA][4];
+#pragma unroll
+      for (int m = 0; m < MA; ++m)
+        ldsm4<false>(a[m], xc + swz<KA>(m0 + 16 * m + lrow, k0 + lchunk));
+#pragma unroll
+      for (int q = NPL - 1; q >= 0; --q) {   // the small plane first
+        uint32_t bq[2][4];
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          ldsm4<true>(bq[h], wc + q * WS + swz<HID>(k0 + lrow, n0 + 16 * h + lchunk));
+#pragma unroll
+        for (int m = 0; m < MA; ++m)
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt)
+            mma_bf16(acc[m][nt], a[m], bq[nt / 2][2 * (nt % 2)], bq[nt / 2][2 * (nt % 2) + 1]);
+      }
+    }
+    // Column sums of this chunk (rows past n are zeros).
+    float s1[2] = {0.f, 0.f}, s2[2] = {0.f, 0.f};
+#pragma unroll 4
+    for (int i = 0; i < RA / 8; ++i) {
+      const float2 v = load2<bf16>(xc + swz<KA>(g + 8 * i, cp));
+      s1[0] += v.x;
+      s1[1] += v.y;
+      s2[0] = fmaf(v.x, v.x, s2[0]);
+      s2[1] = fmaf(v.y, v.y, s2[1]);
+    }
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      s1[q] = sum8(s1[q]);
+      s2[q] = sum8(s2[q]);
+    }
+    if (g == 0) {
+      store2<float>(s1b + kc * KA + cp, s1[0], s1[1]);
+      store2<float>(s2b + kc * KA + cp, s2[0], s2[1]);
+    }
+  }
+  store_p(acc, p + (static_cast<size_t>(b) * Tlen + t0) * HID, m0, n0, nv, g, t);
+}
+
+// A. f32 x: the same tiles in 3xTF32, x and Wx split as they are read (B4b's
+// tile_mma, whose 64 x 32 warp tile takes more registers than two blocks
+// per SM leave: one block per SM). The column sums: lane (g, t) of warp w
+// owns the chunk's column 4 w + t at rows g + 8 i. x chunk and Wx chunk
+// double-buffered: 74 KB.
+__global__ void __launch_bounds__(THREADS, 1)
+proj_stats_f32_kernel(const float* __restrict__ x, const float* __restrict__ wx, int Tlen,
+                      int D, int n, float* __restrict__ p, float* __restrict__ s1p,
+                      float* __restrict__ s2p) {
+  using XL = Xor<KF + 8>;
+  using WL = Xor<HID + 8>;
+  constexpr int XS = RA * XL::S, WS = KF * WL::S;
+  extern __shared__ float4 smem4[];
+  float* xs = reinterpret_cast<float*>(smem4);   // 2 x XS
+  float* ws = xs + 2 * XS;                       // 2 x WS
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int m0 = (RA / 2) * (warp % 2), n0 = 32 * (warp / 2);
+  const int tile = blockIdx.x, b = blockIdx.y, t0 = tile * RA;
+  const int nv = min(RA, n - t0);
+  const float* xb = x + (static_cast<size_t>(b) * Tlen + t0) * D;
+  const int chunks = D / KF;
+
+  copy_rows<float, RA, KF, XL>(xb, D, nv, 0, xs);
+  copy_rows<float, KF, HID, WL>(wx, HID, KF, 0, ws);
+  asv::cp_commit();
+  float acc[MA][4][4];
+  zero<MA, 4>(acc);
+  const int col = 4 * warp + t;
+  float* s1b = s1p + (static_cast<size_t>(b) * gridDim.x + tile) * D;
+  float* s2b = s2p + (static_cast<size_t>(b) * gridDim.x + tile) * D;
+
+  for (int kc = 0; kc < chunks; ++kc) {
+    const int cur = kc % 2;
+    asv::cp_wait_all();
+    __syncthreads();
+    if (kc + 1 < chunks) {
+      copy_rows<float, RA, KF, XL>(xb + (kc + 1) * KF, D, nv, 0, xs + (1 - cur) * XS);
+      copy_rows<float, KF, HID, WL>(wx + static_cast<size_t>(kc + 1) * KF * HID, HID, KF, 0,
+                                    ws + (1 - cur) * WS);
+      asv::cp_commit();
+    }
+    const float* xc = xs + cur * XS;
+    tile_mma<MA, 4, KF, XL, false, WL, false>(xc, m0, ws + cur * WS, n0, g, t, acc);
+    float s1 = 0.f, s2 = 0.f;
+#pragma unroll 4
+    for (int i = 0; i < RA / 8; ++i) {
+      const float v = xc[XL::idx(8 * i, g, col & ~7, col & 7)];
+      s1 += v;
+      s2 = fmaf(v, v, s2);
+    }
+    s1 = sum8(s1);
+    s2 = sum8(s2);
+    if (g == 0) {
+      s1b[kc * KF + col] = s1;
+      s2b[kc * KF + col] = s2;
+    }
+  }
+  store_p(acc, p + (static_cast<size_t>(b) * Tlen + t0) * HID, m0, n0, nv, g, t);
+}
+
+// B. Grid (HID / 32, B): the block sums the tiles' partials in order to
+// mean and std for every channel, then its 32 hidden units of
+// c = mean @ Wm + std @ Ws + ba, thread (g, j) over channels
+// [g D / 8, (g + 1) D / 8), the 8 groups added in order.
+constexpr int CJ = 32;
+
+__global__ void __launch_bounds__(THREADS)
+context_bias_kernel(const float* __restrict__ s1p, const float* __restrict__ s2p, int tiles,
+                    int D, int n, const float* __restrict__ wm, const float* __restrict__ wsd,
+                    const float* __restrict__ ba, float* __restrict__ cst) {
+  extern __shared__ float4 smem4[];
+  float* mean = reinterpret_cast<float*>(smem4);   // D
+  float* stdv = mean + D;                          // D
+  float* part = stdv + D;                          // 8 x CJ
+  const int b = blockIdx.y, j0 = blockIdx.x * CJ;
+  const float nf = static_cast<float>(n);
+  for (int c = threadIdx.x; c < D; c += THREADS) {
+    float t1 = 0.f, t2 = 0.f;
+    for (int k = 0; k < tiles; ++k) {
+      const size_t o = (static_cast<size_t>(b) * tiles + k) * D + c;
+      t1 += s1p[o];
+      t2 += s2p[o];
+    }
+    const float m = t1 / nf;
+    const float var = (t2 / nf - m * m) * (nf / (nf - 1.f));
+    mean[c] = m;
+    stdv[c] = sqrtf(fmaxf(var, 1e-4f));
+  }
+  __syncthreads();
+  const int j = threadIdx.x % CJ, g = threadIdx.x / CJ;
+  const int per = D / (THREADS / CJ);
   float dm = 0.f, ds = 0.f;
   for (int c = g * per; c < (g + 1) * per; ++c) {
-    dm = fmaf(mean[b * D + c], wm[c * HID + j], dm);
-    ds = fmaf(stdv[b * D + c], wsd[c * HID + j], ds);
+    dm = fmaf(mean[c], wm[c * HID + j0 + j], dm);
+    ds = fmaf(stdv[c], wsd[c * HID + j0 + j], ds);
   }
-  part[g][j] = dm + ds;
+  part[g * CJ + j] = dm + ds;
   __syncthreads();
   if (g == 0) {
     float s = 0.f;
-    for (int k = 0; k < CG; ++k) s += part[k][j];
-    cst[b * HID + j] = s;
+    for (int k = 0; k < THREADS / CJ; ++k) s += part[k * CJ + j];
+    cst[b * HID + j0 + j] = s + ba[j0 + j];
   }
 }
 
-// 3. h = relu(x @ Wx + const + ba) * s + bias. Grid (ceil(T / 64), B); a
-//    64 x 128 output tile per block, K in chunks of 32, 8 rows x 4 columns
-//    a thread.
-constexpr int HR = 64, HK = 32;
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-hidden_kernel(const T* __restrict__ x, int Tlen, int D,
-              const float* __restrict__ wx, const float* __restrict__ cst,
-              const float* __restrict__ ba, const float* __restrict__ sc,
-              const float* __restrict__ bi, float* __restrict__ h) {
-  __shared__ float xs[HK][HR + 1];
-  __shared__ float wsm[HK][HID];
-  const int tid = threadIdx.x;
-  const int b = blockIdx.y;
-  const int t0 = blockIdx.x * HR;
-  const int tx = tid % 32;   // columns tx + 32 q
-  const int ty = tid / 32;   // rows ty * 8 + i
-  const T* xb = x + static_cast<size_t>(b) * Tlen * D;
-  float acc[8][4];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) acc[i][q] = 0.f;
-
-  for (int k0 = 0; k0 < D; k0 += HK) {
-    for (int idx = tid; idx < HR * HK; idx += THREADS) {
-      const int r = idx / HK, k = idx % HK;
-      const int t = t0 + r;
-      xs[k][r] = t < Tlen ? asv::to_f32<T>(xb[static_cast<size_t>(t) * D + k0 + k]) : 0.f;
-    }
-    for (int idx = tid; idx < HK * HID; idx += THREADS)
-      wsm[idx / HID][idx % HID] = wx[static_cast<size_t>(k0 + idx / HID) * HID + idx % HID];
-    __syncthreads();
-#pragma unroll 4
-    for (int k = 0; k < HK; ++k) {
-      float a[8], w[4];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) a[i] = xs[k][ty * 8 + i];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) w[q] = wsm[k][tx + 32 * q];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[i][q] = fmaf(a[i], w[q], acc[i][q]);
-    }
-    __syncthreads();
+// h = relu(P + c) * s + bias for the 4 hidden units k4 .. k4 + 3.
+struct Hidden {
+  float4 c, s, bias;
+  __device__ __forceinline__ Hidden(const float* cp, const float* sp, const float* bp, int k4)
+      : c(*reinterpret_cast<const float4*>(cp + k4)),
+        s(*reinterpret_cast<const float4*>(sp + k4)),
+        bias(*reinterpret_cast<const float4*>(bp + k4)) {}
+  __device__ __forceinline__ float4 operator()(float4 v) const {
+    return make_float4(fmaxf(v.x + c.x, 0.f) * s.x + bias.x, fmaxf(v.y + c.y, 0.f) * s.y + bias.y,
+                       fmaxf(v.z + c.z, 0.f) * s.z + bias.z, fmaxf(v.w + c.w, 0.f) * s.w + bias.w);
   }
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const int j = tx + 32 * q;
-    const float cj = cst[b * HID + j], bj = ba[j], sj = sc[j], oj = bi[j];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int t = t0 + ty * 8 + i;
-      if (t < Tlen)
-        h[(static_cast<size_t>(b) * Tlen + t) * HID + j] =
-            fmaxf((acc[i][q] + cj) + bj, 0.f) * sj + oj;
-    }
-  }
+};
+
+// Four floats as bf16 (round to nearest even), and what they leave.
+__device__ __forceinline__ uint2 to_bf16x4(float4 v, float4& rest) {
+  const __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y), b = __floats2bfloat162_rn(v.z, v.w);
+  const float2 fa = __bfloat1622float2(a), fb = __bfloat1622float2(b);
+  rest = make_float4(v.x - fa.x, v.y - fa.y, v.z - fb.x, v.w - fb.y);
+  return make_uint2(*reinterpret_cast<const uint32_t*>(&a), *reinterpret_cast<const uint32_t*>(&b));
 }
 
-// 4. logits = h @ Wb + bb with an online softmax over T, accumulating
-//    sum w x and sum w x^2. Grid (D / 128, B); Wb's 128 x 128 tile stays in
-//    shared memory while 64-row chunks of h stream through. Each thread
-//    owns 4 channels (lane + 32 q) of 8 rows of a chunk, keeps a running
-//    (max, sum, sum e x, sum e x^2) per channel, and the 8 row groups are
-//    merged at the end.
-constexpr int PC = 128, PR = 64;
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-pool_kernel(const T* __restrict__ x, int Tlen, int D, int n,
-            const float* __restrict__ h, const float* __restrict__ wb,
-            const float* __restrict__ bb, float* __restrict__ out) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* wbs = smem;                 // HID x PC
-  float* hs = wbs + HID * PC;        // PR x HID
-  const int tid = threadIdx.x;
-  const int lane = tid % 32, rg = tid / 32;
-  const int b = blockIdx.y;
-  const int c0 = blockIdx.x * PC;
-  const T* xb = x + static_cast<size_t>(b) * Tlen * D;
-  const float* hb = h + static_cast<size_t>(b) * Tlen * HID;
-
-  for (int idx = tid; idx < HID * PC; idx += THREADS) {
-    const int j = idx / PC, c = idx % PC;
-    wbs[idx] = wb[static_cast<size_t>(j) * D + c0 + c];
+// C's logits in 3xbf16: h and Wb's tile each as two bf16 planes hi + lo
+// (round to nearest even, lo = bf16(v - hi)), and mma.sync m16n8k16 with
+// ldmatrix accumulating lo hi + hi lo + hi hi in f32: the same logits to
+// about 2^-16, half the tensor-core work of 3xTF32 and no split as
+// fragments are read. The front of shared memory: Wb's tile as two planes
+// (HID rows of BT2, 256-byte swizzled rows), split once per block; then two
+// chunk buffers, each R2 rows of P in f32 that become h's two planes
+// (R2 rows of HID, swizzled) in place.
+struct HiddenBf16x3 {
+  static constexpr size_t W_BYTES = 2 * HID * BT2 * sizeof(bf16);
+  static constexpr size_t C_BYTES = R2 * HID * sizeof(float);
+  static constexpr size_t BYTES = W_BYTES + 2 * C_BYTES;
+  static_assert(2 * R2 * HID * sizeof(bf16) == C_BYTES, "h's planes fill its P chunk");
+  const float *wb, *pb, *c, *s, *bias;
+  int D;
+  bf16* wp;
+  char* chunks;
+  __device__ __forceinline__ void bind(char* smem) {
+    wp = reinterpret_cast<bf16*>(smem);
+    chunks = smem + W_BYTES;
   }
-  float bias[4], m[4], l[4], s1[4], s2[4];
+  __device__ __forceinline__ void load_w(int c0) const {
+    for (int i = threadIdx.x; i < HID * BT2 / 4; i += THREADS) {
+      const int k = i / (BT2 / 4), col = (i % (BT2 / 4)) * 4;
+      const float4 v = *reinterpret_cast<const float4*>(wb + static_cast<size_t>(k) * D + c0 + col);
+      float4 lo, none;
+      *reinterpret_cast<uint2*>(wp + swz<BT2>(k, col)) = to_bf16x4(v, lo);
+      *reinterpret_cast<uint2*>(wp + HID * BT2 + swz<BT2>(k, col)) = to_bf16x4(lo, none);
+    }
+  }
+  __device__ __forceinline__ void load_h(int n, int t0, int buf) const {
+    copy_rows<float, R2, HID, Pad<HID>>(pb, HID, n, t0,
+                                        reinterpret_cast<float*>(chunks + buf * C_BYTES));
+  }
+  __device__ __forceinline__ void logits(int buf, int r0, int n0, int g, int t,
+                                         float acc[2][4][4]) const {
+    const int k4 = 4 * (threadIdx.x % 32);
+    const Hidden hid(c, s, bias, k4);
+    const float* pc = reinterpret_cast<const float*>(chunks + buf * C_BYTES);
+    bf16* hp = reinterpret_cast<bf16*>(chunks + buf * C_BYTES);
+    float4 hv[R2 / 8];
 #pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    bias[q] = bb[c0 + lane + 32 * q];
-    m[q] = -INFINITY;
-    l[q] = s1[q] = s2[q] = 0.f;
-  }
-
-  for (int t0 = 0; t0 < n; t0 += PR) {
-    __syncthreads();
-    for (int idx = tid; idx < PR * HID / 4; idx += THREADS) {
-      const int r = idx / (HID / 4), j4 = idx % (HID / 4);
-      const int t = t0 + r;
-      reinterpret_cast<float4*>(hs)[idx] =
-          t < n ? reinterpret_cast<const float4*>(hb + static_cast<size_t>(t) * HID)[j4]
-                : make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int j = 0; j < R2 / 8; ++j)
+      hv[j] = hid(*reinterpret_cast<const float4*>(pc + (threadIdx.x / 32 + 8 * j) * HID + k4));
+    __syncthreads();   // the whole P chunk is read: its planes take its place
+#pragma unroll
+    for (int j = 0; j < R2 / 8; ++j) {
+      const int r = threadIdx.x / 32 + 8 * j;
+      float4 lo, none;
+      *reinterpret_cast<uint2*>(hp + swz<HID>(r, k4)) = to_bf16x4(hv[j], lo);
+      *reinterpret_cast<uint2*>(hp + R2 * HID + swz<HID>(r, k4)) = to_bf16x4(lo, none);
     }
     __syncthreads();
-    float acc[8][4];
+    const int lane = threadIdx.x % 32;
+    const int lrow = (lane & 7) + 8 * ((lane >> 3) & 1), lchunk = 8 * (lane >> 4);
+    zero<2, 4>(acc);
+#pragma unroll 2
+    for (int k0 = 0; k0 < HID; k0 += 16) {
+      uint32_t ah[2][4], al[2][4], bh[2][4], bl[2][4];
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[i][q] = 0.f;
-#pragma unroll 4
-    for (int j = 0; j < HID; ++j) {
-      float a[8], w[4];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) a[i] = hs[(rg * 8 + i) * HID + j];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) w[q] = wbs[j * PC + lane + 32 * q];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[i][q] = fmaf(a[i], w[q], acc[i][q]);
-    }
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int c = c0 + lane + 32 * q;
-      float cmax = m[q];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        acc[i][q] += bias[q];
-        if (t0 + rg * 8 + i < n) cmax = fmaxf(cmax, acc[i][q]);
+      for (int m = 0; m < 2; ++m) {
+        ldsm4<false>(ah[m], hp + swz<HID>(r0 + 16 * m + lrow, k0 + lchunk));
+        ldsm4<false>(al[m], hp + R2 * HID + swz<HID>(r0 + 16 * m + lrow, k0 + lchunk));
       }
-      if (cmax == -INFINITY) continue;   // no valid row in this group yet
-      const float rescale = expf(m[q] - cmax);
-      l[q] *= rescale;
-      s1[q] *= rescale;
-      s2[q] *= rescale;
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int t = t0 + rg * 8 + i;
-        if (t < n) {
-          const float e = expf(acc[i][q] - cmax);
-          const float v = asv::to_f32<T>(xb[static_cast<size_t>(t) * D + c]);
-          l[q] += e;
-          s1[q] = fmaf(e, v, s1[q]);
-          s2[q] = fmaf(e * v, v, s2[q]);
+      for (int h = 0; h < 2; ++h) {
+        ldsm4<true>(bh[h], wp + swz<BT2>(k0 + lrow, n0 + 16 * h + lchunk));
+        ldsm4<true>(bl[h], wp + HID * BT2 + swz<BT2>(k0 + lrow, n0 + 16 * h + lchunk));
+      }
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          const int h = nt / 2, e = 2 * (nt % 2);
+          mma_bf16(acc[m][nt], al[m], bh[h][e], bh[h][e + 1]);
+          mma_bf16(acc[m][nt], ah[m], bl[h][e], bl[h][e + 1]);
+          mma_bf16(acc[m][nt], ah[m], bh[h][e], bh[h][e + 1]);
         }
-      }
-      m[q] = cmax;
     }
   }
-  __syncthreads();
+};
 
-  // Merge the 8 row groups per channel (reusing hs: 4 x 8 x PC floats).
-  float* pm = hs;
-  float* pl = pm + 8 * PC;
-  float* p1 = pl + 8 * PC;
-  float* p2 = p1 + 8 * PC;
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const int k = rg * PC + lane + 32 * q;
-    pm[k] = m[q];
-    pl[k] = l[q];
-    p1[k] = s1[q];
-    p2[k] = s2[q];
+// C's output: [mu || sigma] of utterance b.
+struct MuSigma {
+  float* out;   // at (b, c0); sigma D further
+  int D;
+  __device__ __forceinline__ void operator()(int c, float mu, float e2, float, float) const {
+    out[c] = mu;
+    out[D + c] = sqrtf(fmaxf(e2 - mu * mu, 1e-4f));
   }
-  __syncthreads();
-  if (tid < PC) {
-    float M = -INFINITY;
-    for (int g = 0; g < 8; ++g) M = fmaxf(M, pm[g * PC + tid]);
-    float L = 0.f, S1 = 0.f, S2 = 0.f;
-    for (int g = 0; g < 8; ++g) {
-      const float mg = pm[g * PC + tid];
-      if (mg == -INFINITY) continue;
-      const float f = expf(mg - M);
-      L = fmaf(pl[g * PC + tid], f, L);
-      S1 = fmaf(p1[g * PC + tid], f, S1);
-      S2 = fmaf(p2[g * PC + tid], f, S2);
-    }
-    const float mu = S1 / L;
-    const float e2 = S2 / L;
-    out[static_cast<size_t>(b) * 2 * D + c0 + tid] = mu;
-    out[static_cast<size_t>(b) * 2 * D + D + c0 + tid] = sqrtf(fmaxf(e2 - mu * mu, 1e-4f));
-  }
+};
+
+// C. Grid (D / BT2, B), one 256-thread block per SM.
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 1)
+attentive_pool_kernel(const T* __restrict__ x, const float* __restrict__ p,
+                      const float* __restrict__ cst, const float* __restrict__ sc,
+                      const float* __restrict__ bi, const float* __restrict__ wb,
+                      const float* __restrict__ bb, int Tlen, int D, int n,
+                      float* __restrict__ out) {
+  const int b = blockIdx.y, c0 = blockIdx.x * BT2;
+  HiddenBf16x3 lg{};
+  lg.wb = wb;
+  lg.pb = p + static_cast<size_t>(b) * Tlen * HID;
+  lg.c = cst + b * HID;
+  lg.s = sc;
+  lg.bias = bi;
+  lg.D = D;
+  softmax_pool<T>(x + static_cast<size_t>(b) * Tlen * D + c0, bb, n, D, c0, lg,
+                  MuSigma{out + static_cast<size_t>(b) * 2 * D + c0, D});
+}
+
+constexpr size_t PROJ_SMEM_BF16 = 2 * (RA * KA + NPL * KA * HID) * sizeof(bf16);
+constexpr size_t PROJ_SMEM_F32 = 2 * (RA * (KF + 8) + KF * (HID + 8)) * sizeof(float);
+
+// Scratch floats: P (B, T, 128), the column-sum partials 2 x (B, tiles, D),
+// c (B, 128).
+size_t work_floats(int B, int Tlen, int D, int n) {
+  const size_t tiles = (n + RA - 1) / RA;
+  return static_cast<size_t>(B) * Tlen * HID + 2 * B * tiles * D + static_cast<size_t>(B) * HID;
 }
 
 template <typename T>
-cudaError_t launch(const void* xv, int B, int Tlen, int D, int n,
-                   const float* wx, const float* wm, const float* wsd,
-                   const float* ba, const float* sc, const float* bi,
-                   const float* wb, const float* bb, float* mean, float* stdv,
-                   float* cst, float* h, float* out, cudaStream_t st) {
+cudaError_t launch(const void* xv, const void* planes, int B, int Tlen, int D, int n,
+                   const float* wx, const float* wm, const float* wsd, const float* ba,
+                   const float* sc, const float* bi, const float* wb, const float* bb,
+                   float* work, float* out, cudaStream_t st) {
   const T* x = static_cast<const T*>(xv);
-  stats_kernel<T><<<dim3(D / 64, B), THREADS, 0, st>>>(x, Tlen, D, n, mean, stdv);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const_kernel<<<B, CG * HID, 0, st>>>(mean, stdv, wm, wsd, D, cst);
+  const int tiles = (n + RA - 1) / RA;
+  float* p = work;
+  float* s1p = p + static_cast<size_t>(B) * Tlen * HID;
+  float* s2p = s1p + static_cast<size_t>(B) * tiles * D;
+  float* cst = s2p + static_cast<size_t>(B) * tiles * D;
+  cudaError_t err;
+  if constexpr (sizeof(T) == 2) {
+    if ((err = asv::allow_smem(proj_stats_bf16_kernel, PROJ_SMEM_BF16)) != cudaSuccess) return err;
+    proj_stats_bf16_kernel<<<dim3(tiles, B), THREADS, PROJ_SMEM_BF16, st>>>(
+        x, static_cast<const bf16*>(planes), Tlen, D, n, p, s1p, s2p);
+  } else {
+    if ((err = asv::allow_smem(proj_stats_f32_kernel, PROJ_SMEM_F32)) != cudaSuccess) return err;
+    proj_stats_f32_kernel<<<dim3(tiles, B), THREADS, PROJ_SMEM_F32, st>>>(x, wx, Tlen, D, n, p,
+                                                                          s1p, s2p);
+  }
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  hidden_kernel<T><<<dim3((Tlen + HR - 1) / HR, B), THREADS, 0, st>>>(
-      x, Tlen, D, wx, cst, ba, sc, bi, h);
+  const size_t csmem = (2 * D + (THREADS / CJ) * CJ) * sizeof(float);
+  if ((err = asv::allow_smem(context_bias_kernel, csmem)) != cudaSuccess) return err;
+  context_bias_kernel<<<dim3(HID / CJ, B), THREADS, csmem, st>>>(s1p, s2p, tiles, D, n, wm, wsd,
+                                                                 ba, cst);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const size_t smem = (HID * PC + PR * HID) * sizeof(float);
-  if ((err = asv::allow_smem(pool_kernel<T>, smem)) != cudaSuccess) return err;
-  pool_kernel<T><<<dim3(D / PC, B), THREADS, smem, st>>>(x, Tlen, D, n, h, wb, bb, out);
+  constexpr size_t psmem = pool_smem<T, HiddenBf16x3>();
+  if ((err = asv::allow_smem(attentive_pool_kernel<T>, psmem)) != cudaSuccess) return err;
+  attentive_pool_kernel<T><<<dim3(D / BT2, B), THREADS, psmem, st>>>(x, p, cst, sc, bi, wb, bb,
+                                                                     Tlen, D, n, out);
   return cudaGetLastError();
 }
 
 }  // namespace
 
+// The scratch attn_pool_forward needs, in floats, for these sizes.
+extern "C" long long attn_pool_workspace(int B, int Tlen, int D, int n) {
+  return static_cast<long long>(work_floats(B, Tlen, D, n));
+}
+
 // x (B, T, D) f32 or bf16 (code 0 / 1), D a multiple of 128; n valid rows
 // (2 <= n <= T); wx, wm, wsd (D, 128), wb (128, D), ba, sc, bi (128), bb (D)
-// f32; scratch mean, stdv (B, D), cst (B, 128), h (B, T, 128) f32;
-// out (B, 2 D) f32. Returns cudaGetLastError() after the last launch.
+// f32; for bf16 x, planes (NPL, D, 128) bf16, the planes of wx (n_planes
+// must be NPL; unread for f32 x); work: attn_pool_workspace(B, T, D, n)
+// floats of scratch; out (B, 2 D) f32. x, wx, planes and wb start on a
+// 16-byte boundary. Returns cudaGetLastError() after the last launch.
 extern "C" int attn_pool_forward(const void* x, int B, int Tlen, int D, int n,
-                                 const float* wx, const float* wm,
-                                 const float* wsd, const float* ba,
-                                 const float* sc, const float* bi,
-                                 const float* wb, const float* bb, float* mean,
-                                 float* stdv, float* cst, float* h, float* out,
-                                 int dtype, void* stream) {
+                                 const float* wx, const void* planes, int n_planes,
+                                 const float* wm, const float* wsd, const float* ba,
+                                 const float* sc, const float* bi, const float* wb,
+                                 const float* bb, float* work, float* out, int dtype,
+                                 void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D % PC != 0 || n < 2 || n > Tlen) return static_cast<int>(cudaErrorInvalidValue);
+  if (D % BT2 != 0 || n < 2 || n > Tlen) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == asv::kF32)
-    return static_cast<int>(launch<float>(x, B, Tlen, D, n, wx, wm, wsd, ba, sc,
-                                          bi, wb, bb, mean, stdv, cst, h, out, st));
-  if (dtype == asv::kBF16)
-    return static_cast<int>(launch<__nv_bfloat16>(x, B, Tlen, D, n, wx, wm, wsd,
-                                                  ba, sc, bi, wb, bb, mean, stdv,
-                                                  cst, h, out, st));
+    return static_cast<int>(launch<float>(x, planes, B, Tlen, D, n, wx, wm, wsd, ba, sc, bi,
+                                          wb, bb, work, out, st));
+  if (dtype == asv::kBF16 && n_planes == NPL)
+    return static_cast<int>(launch<bf16>(x, planes, B, Tlen, D, n, wx, wm, wsd, ba, sc, bi, wb,
+                                         bb, work, out, st));
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -51,7 +51,7 @@
 // T=750, 0.03 ms at 3.35 TB/s) against 8.3 GFLOP of conv products per
 // launch (0.008 ms at the bf16 tensor-core rate).
 
-#include "common.cuh"
+#include "tensor_core.cuh"
 
 namespace {
 
@@ -62,6 +62,8 @@ constexpr int WARPS = THREADS / 32;
 constexpr int USTRIDE = WIDTH + 1;   // f32 kernel: padded row stride of u
 
 using bf16 = __nv_bfloat16;
+using asv::tc::ldsm4;
+using asv::tc::mma_bf16;
 
 // ---- bf16: the convs on the tensor cores ----
 
@@ -69,30 +71,6 @@ using bf16 = __nv_bfloat16;
 // row r sits at chunk (c / 8) ^ (r % 8).
 __device__ __forceinline__ int swz(int r, int c) {
   return r * WIDTH + ((((c >> 3) ^ r) & 7) << 3) + (c & 7);
-}
-
-// Four 8 x 8 bf16 matrices; lane l gives the address of row l % 8 of
-// matrix l / 8 (TR: each matrix transposed).
-template <bool TR>
-__device__ __forceinline__ void ldsm4(uint32_t (&v)[4], const bf16* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  if (TR)
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-                 : "=r"(v[0]), "=r"(v[1]), "=r"(v[2]), "=r"(v[3]) : "r"(s) : "memory");
-  else
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-                 : "=r"(v[0]), "=r"(v[1]), "=r"(v[2]), "=r"(v[3]) : "r"(s) : "memory");
-}
-
-// d += a b: a m16 x k16 (row major), b k16 x n8 (column major), bf16 in, f32
-// accumulators; d element 2 h + q sits at row g + 8 h, column 2 t + q.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // Rows r < n of a swizzled tile from src[(r0 + r) * ld], 64 channels each,

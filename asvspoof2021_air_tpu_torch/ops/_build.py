@@ -34,15 +34,18 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 P = ctypes.c_void_p
 I = ctypes.c_int
-# C entry point -> argument types; every entry returns cudaGetLastError().
+# C entry point -> argument types; every entry returns cudaGetLastError(),
+# but for those in RESTYPES.
 SIGNATURES = {
     "lfcc_forward": [P, I, I, I, I, I, I, P, P, I, P, I, P, P, I, P, P],
     "res2_chain_forward": [P, P, P, P, P, P, I, I, I, I, I, I, P],
-    "attn_pool_forward": [P, I, I, I, I, P, P, P, P, P, P, P, P, P, P, P, P,
-                          P, I, P],
+    "attn_pool_workspace": [I, I, I, I],
+    "attn_pool_forward": [P, I, I, I, I, P, P, I, P, P, P, P, P, P, P, P, P,
+                          I, P],
     "attn_pool_vjp_forward": [P, P, P, P, I, I, I, P, P, P, P, I, P],
     "attn_pool_vjp_backward": [P] * 10 + [I, I, I, P, P, P, P, I, P],
 }
+RESTYPES = {"attn_pool_workspace": ctypes.c_longlong}
 
 _lock = threading.Lock()
 _lib = None
@@ -110,7 +113,7 @@ def library() -> ctypes.CDLL:
             for name, argtypes in SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+                fn.restype = RESTYPES.get(name, ctypes.c_int)
             _lib = lib
         return _lib
 

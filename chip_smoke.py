@@ -14,11 +14,13 @@ Phases, each fatal on failure:
    loud stretch and a -60 dB tone, and two B1 launches bitwise equal; B2
    Res2 chain at (64, 750, 512), d = 2/3/4, in bf16 with valid_len < T at
    each d and two launches bitwise equal; B3 attention pooling at
-   (64, 750, 1536)), in f32 with TF32 off and in bf16, with one padded case
-   (valid_len < T), whose rows past valid_len B2 must leave zero;
-   print each kernel's error, its time, the plain version's and, for B1,
-   ``torch.fft.rfft`` of the windowed frames as a yardstick (the port never
-   calls it);
+   (64, 750, 1536), f32 with TF32 off and bf16, each at valid_len None,
+   T - 50, a row-tile boundary and inside the first tile, with the rows
+   past valid_len scaled by 7, and two launches bitwise equal), B2's rows
+   past valid_len zero; print each kernel's error, its time, the plain
+   version's and, for B1, ``torch.fft.rfft`` of the windowed frames as a
+   yardstick (the port never calls it); B3's peak memory, its bound beside
+   its design's floor (x read twice), and a profile of its three passes;
 2b. hold the training kernels B4a (forward) and B4b (backward) of the
    differentiable attentive statistics against their plain versions at
    (64, 750, 1536), H = 128, x in f32 and in bf16, and in f32 at T = 749;
@@ -112,6 +114,18 @@ def bound(nbytes: float, flops: float, kind: str):
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
+def peak_mib(torch, fn) -> float:
+    """Peak device memory of one call of fn above what was allocated before
+    it, its outputs included, in MiB."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    del out
+    return (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+
+
 def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
@@ -128,8 +142,8 @@ KERNEL_GROUPS = (
     ("B4b softmax_stats bwd", ("softmax_stats_bwd_",)),
     ("B1 lfcc", ("lfcc_kernel",)),
     ("B2 res2_chain", ("res2_chain_",)),
-    ("B3 attn_pool", ("stats_kernel", "const_kernel", "hidden_kernel",
-                      "pool_kernel")),
+    ("B3 attn_pool", ("proj_stats_", "context_bias_kernel",
+                      "attentive_pool_kernel")),
     # cuDNN's convolutions run implicit-GEMM kernels ("..._xmma_wgrad_
     # implicit_gemm_..."), so they are matched before cuBLAS's GEMMs.
     ("conv (cuDNN)", ("conv", "cudnn", "implicit", "wgrad", "dgrad",
@@ -138,7 +152,17 @@ KERNEL_GROUPS = (
 )
 
 
-def profile_device(torch, fn, fn_ms: float, what: str):
+# B3's three passes, for its own profile.
+B3_PASSES = (
+    ("B3 pass A proj_stats (x @ Wx, column sums)", ("proj_stats_",)),
+    ("B3 pass B context_bias (mean, std, c)", ("context_bias_kernel",)),
+    ("B3 pass C attentive_pool (h @ Wb, softmax over T)",
+     ("attentive_pool_kernel",)),
+)
+
+
+def profile_device(torch, fn, fn_ms: float, what: str,
+                   kernel_groups=KERNEL_GROUPS):
     """Device time of one call of fn by kernel group (torch.profiler, device
     events only: kernels, copies and sets, not the ranges that annotate
     them on the device's timeline, such as ``Optimizer.step#Adam.step``),
@@ -153,7 +177,7 @@ def profile_device(torch, fn, fn_ms: float, what: str):
         fn()
         torch.cuda.synchronize()
     other = "other (elementwise, reductions, copies)"
-    groups = {name: 0.0 for name, _ in KERNEL_GROUPS}
+    groups = {name: 0.0 for name, _ in kernel_groups}
     groups[other] = 0.0
     kernels, ranges = [], []
     for ev in prof.key_averages():
@@ -166,7 +190,7 @@ def profile_device(torch, fn, fn_ms: float, what: str):
             continue
         kernels.append((us, ev.count, ev.key))
         key = ev.key.lower()
-        for name, pats in KERNEL_GROUPS:
+        for name, pats in kernel_groups:
             if any(p in key for p in pats):
                 groups[name] += us
                 break
@@ -363,9 +387,14 @@ def kernel_checks(torch, gen):
         + 4 * 3 * packed[1].numel(),
         flops=2 * B * T * 192 * 64 * 7, kind="bf16")
 
-    # B3: attention pooling, f32 and bf16 (products in f32 either way, so
-    # one tolerance: sums over T = 750 in another order), and one padded
-    # case.
+    # B3: attention pooling, f32 and bf16 x. Both products keep f32's
+    # accuracy (x @ Wx against two bf16 planes of Wx for bf16 x, in 3xTF32
+    # for f32 x; h @ Wb in 3xbf16), so one tolerance: sums over T = 750 in
+    # another order. valid_len: none; T - 50 (inside the last row tile);
+    # 640 (a boundary of every row tile and chunk the kernel could take: 64
+    # and 128 rows); 37 (inside the first tile). Rows at and past valid_len
+    # are scaled by 7: the kernel must leave them out of every statistic.
+    # Two launches agree bit for bit.
     sdp = {
         "attention.0.weight": randn(128, 3 * D, 1, scale=0.02),
         "attention.0.bias": randn(128, scale=0.05),
@@ -380,29 +409,55 @@ def kernel_checks(torch, gen):
     xp32 = torch.relu(randn(B, T, D))
     xpbf = xp32.bfloat16()
     errs = []
-    for x, valid in ((xp32, None), (xpbf, None), (xp32, T - 50)):
-        got = ap.attention_pooling_kernel(x, pp, valid)
-        want = ap.attention_pooling_plain(x, pp, valid)
-        err = max_err(got, want)
-        ok = torch.allclose(got, want, atol=1e-4, rtol=1e-4)
-        print(f"B3 attn_pool {str(x.dtype)[6:]} valid={valid} "
-              f"max_abs_err={err:.3e} (atol 1e-4, rtol 1e-4)")
-        check(ok, f"B3 disagrees with its plain version ({x.dtype}, "
-                  f"valid={valid}): {err}")
-        if valid is None:
+    for x0 in (xp32, xpbf):
+        for valid in (None, T - 50, 640, 37):
+            x = x0
+            if valid is not None:
+                x = x0.clone()
+                x[:, valid:] *= 7
+            got = ap.attention_pooling_kernel(x, pp, valid)
+            want = ap.attention_pooling_plain(x, pp, valid)
+            err = max_err(got, want)
+            ok = torch.allclose(got, want, atol=1e-4, rtol=1e-4)
+            same = torch.equal(got, ap.attention_pooling_kernel(x, pp, valid))
+            print(f"B3 attn_pool {str(x.dtype)[6:]} valid={valid} "
+                  f"max_abs_err={err:.3e} (atol 1e-4, rtol 1e-4); two "
+                  f"launches bitwise equal: {same}")
+            check(ok, f"B3 disagrees with its plain version ({x.dtype}, "
+                      f"valid={valid}): {err}")
+            check(same, f"two B3 launches differ ({x.dtype}, valid={valid})")
             errs.append(err)
+            del x, got, want
     ms = time_ms(torch, lambda: ap.attention_pooling_kernel(xpbf, pp))
+    ms32 = time_ms(torch, lambda: ap.attention_pooling_kernel(xp32, pp))
     plain_ms = time_ms(torch, lambda: ap.attention_pooling_plain(xpbf, pp))
     wx16 = pp.wx.bfloat16()
     matmul_ms = 2 * time_ms(torch, lambda: xpbf @ wx16)
+    mib = peak_mib(torch, lambda: ap.attention_pooling_kernel(xpbf, pp))
+    nbytes = (2 * xpbf.numel() + 4 * sum(t.numel() for t in pp[:8])
+              + 4 * B * 2 * D)
+    flops = 2 * B * T * D * 128 * 2 + 2 * B * 2 * D * 128
+    fn_bound = bound(nbytes, flops, "bf16")
+    # The design reads x twice and writes and reads P (B, T, 128) f32.
+    floor_bytes = nbytes + 2 * xpbf.numel() + 2 * 4 * B * T * 128
+    print(f"B3 attn_pool bf16 {ms:.4f} ms, f32 {ms32:.4f} ms (plain, bf16, "
+          f"{plain_ms:.4f} ms; yardstick: two bf16 x @ Wx products, never "
+          f"called by the port, {matmul_ms:.4f} ms); peak device memory of "
+          f"one bf16 call {mib:.1f} MiB (output included); bound "
+          f"{fn_bound[0]:.4f} ms by {fn_bound[1]} (the function reads x "
+          f"once: {nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP bf16); this "
+          f"design's floor, x read twice and P written and read: "
+          f"{floor_bytes / 1e6:.1f} MB = "
+          f"{floor_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms")
+    profile_device(torch, lambda: ap.attention_pooling_kernel(xpbf, pp), ms,
+                   "B3 call (bf16)", kernel_groups=B3_PASSES)
     entries["B3"] = dict(
         name="B3 attn_pool (context attentive-statistics pooling)",
         source="asvspoof2021_air_tpu_torch/csrc/attn_pool.cu",
         replaces="asvspoof2021_air_tpu/ops/attn_pool_pallas.py:31 (_kernel)",
         ms=ms, plain_ms=plain_ms, matmul_ms=matmul_ms, max_abs_err=max(errs),
-        bytes=2 * xpbf.numel() + 4 * sum(t.numel() for t in pp)
-        + 4 * B * 2 * D,
-        flops=2 * B * T * D * 128 * 2 + 2 * B * 2 * D * 128, kind="bf16")
+        bytes=nbytes, flops=flops, kind="bf16",
+        extra={"ms_f32": ms32, "peak_mib": mib})
     return entries
 
 
@@ -486,20 +541,11 @@ def vjp_checks(torch, gen, entries):
           "inputs are bitwise equal")
     del res2, outs
 
-    # Peak device memory of one backward call above what was allocated
-    # before it (its outputs dx, dh2, dW2 included), kernel against plain.
-    def peak_mib(fn):
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.memory_allocated()
-        out = fn()
-        torch.cuda.synchronize()
-        del out
-        return (torch.cuda.max_memory_allocated() - base) / 2 ** 20
-
-    bwd_mib = peak_mib(lambda: vj.softmax_stats_bwd_kernel(
+    # Peak device memory of one backward call (its outputs dx, dh2, dW2
+    # included), kernel against plain.
+    bwd_mib = peak_mib(torch, lambda: vj.softmax_stats_bwd_kernel(
         x, h2, w2, b2, res, gmu, ge2))
-    bwd_plain_mib = peak_mib(lambda: vj.softmax_stats_bwd_plain(
+    bwd_plain_mib = peak_mib(torch, lambda: vj.softmax_stats_bwd_plain(
         x, h2, w2, b2, res, gmu, ge2))
     print(f"B4b peak device memory of one backward ({B} x {T} x {D}, f32, "
           f"outputs included): kernel {bwd_mib:.1f} MiB (bar 360), plain "

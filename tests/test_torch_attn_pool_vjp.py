@@ -234,7 +234,13 @@ def _b4a_model(x, h2, w2, b2):
     (hb, hs), (wb, ws) = _tf32_split(h2), _tf32_split(w2)
     prod = (hs.double() @ wb.double() + hb.double() @ ws.double()
             + hb.double() @ wb.double()).float()
-    logits = (prod + b2).numpy()
+    return _chunked_pool((prod + b2).numpy(), x)
+
+
+def _chunked_pool(logits, x):
+    """B4a's chunked online softmax over the T rows of logits (B, T, D) f32:
+    (mu, e2, max, normalizer) and the count of (chunk, row group) pairs with
+    no row before T."""
     xf = x.float().numpy()
     T = x.shape[1]
     groups = 16

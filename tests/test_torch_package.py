@@ -119,7 +119,8 @@ def test_c_entry_points_match_ctypes_signatures():
     found = {}
     for src in sorted(_build.CSRC.glob("*.cu")):
         for name, params in re.findall(
-                r'extern "C" int (\w+)\(([^)]*)\)', src.read_text()):
+                r'extern "C" (?:int|long long) (\w+)\(([^)]*)\)',
+                src.read_text()):
             found[name] = [p.strip() for p in params.split(",")]
     assert set(found) == set(_build.SIGNATURES)
     assert {"attn_pool_vjp_forward", "attn_pool_vjp_backward"} <= set(found)
