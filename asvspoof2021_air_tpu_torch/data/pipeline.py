@@ -1,11 +1,19 @@
-"""Fixed-shape waveform batching for the on-device front-end.
+"""Batching: feature pad/crop policies, collation, the sequential scoring
+iterator, and fixed-shape waveform batches for the on-device front-end.
 
-The port's own copy of the JAX package's ``data/pipeline.py``
-``WaveformIterator`` (with its index stream). Long utterances are
-random-cropped to ``max_samples`` with draws from
-``np.random.default_rng(seed)``, in the same order as the JAX package, so
-both crop a corpus the same way; short ones are zero-padded with their true
-length carried alongside.
+The port's own copy of the JAX package's ``data/pipeline.py``:
+
+- ``pad_or_crop`` / ``collate``: a feature (1, T, D) longer than
+  ``feat_len`` is cropped (at a random start when given a generator, else
+  at 0); a shorter one is zero-, repeat- or silence-padded, silence
+  *prepended* as the reference does;
+- ``SequentialIterator``: deterministic batches for scoring, the last one
+  filled up with repeats of its last item and a ``valid`` mask;
+- ``WaveformIterator`` (with its index stream): long utterances are
+  random-cropped to ``max_samples`` with draws from
+  ``np.random.default_rng(seed)``, in the same order as the JAX package, so
+  both crop a corpus the same way; short ones are zero-padded with their
+  true length carried alongside.
 """
 
 from __future__ import annotations
@@ -13,6 +21,94 @@ from __future__ import annotations
 from typing import Dict, Iterator, Optional, Sequence
 
 import numpy as np
+
+_SILENCE_FRAME: Optional[np.ndarray] = None
+
+
+def _silence_frame(dim: int) -> np.ndarray:
+    """LFCC feature vector (dim,) of pure silence from the port's plain
+    LFCC on the CPU with ``dim // 3`` filters, computed once per dim."""
+    global _SILENCE_FRAME
+    if _SILENCE_FRAME is None or _SILENCE_FRAME.shape[-1] != dim:
+        from asvspoof2021_air_tpu_torch.ops.lfcc import LFCC, LFCCConfig
+
+        lfcc = LFCC(LFCCConfig(n_filters=max(dim // 3, 1)), device="cpu")
+        _SILENCE_FRAME = lfcc.silence_frame().numpy()
+    return _SILENCE_FRAME
+
+
+def pad_or_crop(feat: np.ndarray, feat_len: int, padding: str = "repeat",
+                rng: Optional[np.random.Generator] = None) -> np.ndarray:
+    """(1, T, D) -> (1, feat_len, D) by crop or by the padding policy."""
+    _, t, d = feat.shape
+    if t > feat_len:
+        start = 0
+        if rng is not None and t - feat_len > 0:
+            start = int(rng.integers(0, t - feat_len))
+        return feat[:, start:start + feat_len, :]
+    if t < feat_len:
+        pad = feat_len - t
+        if padding == "zero":
+            return np.concatenate(
+                [feat, np.zeros((1, pad, d), feat.dtype)], axis=1)
+        if padding == "repeat":
+            reps = -(-feat_len // t)
+            return np.tile(feat, (1, reps, 1))[:, :feat_len, :]
+        if padding == "silence":
+            sil = np.broadcast_to(_silence_frame(d), (1, pad, d)).astype(
+                feat.dtype)
+            return np.concatenate([sil, feat], axis=1)
+        raise ValueError("padding should be zero, repeat, or silence")
+    return feat
+
+
+def collate(samples: Sequence[tuple], feat_len: int, padding: str,
+            rng: Optional[np.random.Generator] = None,
+            pad_chop: bool = True) -> Dict[str, np.ndarray]:
+    """Dataset items -> a batch dict with "feat" (B, T, F) f32, "fname",
+    and "tag"/"label" for labeled items, "channel" for augmented ones.
+    ``pad_chop=False`` is the reference's variable-length collate:
+    repeat-pad every item to the batch's longest + 1 frames."""
+    if not pad_chop:
+        feat_len = max(s[0].shape[1] for s in samples) + 1
+        padding = "repeat"
+    feats = np.concatenate(
+        [pad_or_crop(s[0], feat_len, padding, rng) for s in samples], axis=0)
+    batch: Dict[str, np.ndarray] = {"feat": feats.astype(np.float32),
+                                    "fname": np.array([s[1] for s in samples])}
+    if len(samples[0]) >= 4:
+        batch["tag"] = np.array([s[2] for s in samples], np.int32)
+        batch["label"] = np.array([s[3] for s in samples], np.int32)
+    if len(samples[0]) >= 5:
+        batch["channel"] = np.array([s[4] for s in samples], np.int32)
+    return batch
+
+
+class SequentialIterator:
+    """Deterministic batches for scoring: the last, partial batch is filled
+    up to ``batch_size`` with repeats of its last item, and ``valid`` marks
+    the real rows, so every batch has one shape."""
+
+    def __init__(self, dataset, batch_size: int, feat_len: int = 750,
+                 padding: str = "repeat"):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.feat_len = feat_len
+        self.padding = padding
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        n = len(self.dataset)
+        for start in range(0, n, self.batch_size):
+            idx = list(range(start, min(start + self.batch_size, n)))
+            valid = len(idx)
+            idx += [idx[-1]] * (self.batch_size - valid)
+            batch = collate([self.dataset[i] for i in idx], self.feat_len,
+                            self.padding)
+            batch["valid"] = np.arange(self.batch_size) < valid
+            yield batch
+
+    def __len__(self) -> int:
+        return -(-len(self.dataset) // self.batch_size)
 
 
 class _IndexStream:

@@ -1,8 +1,14 @@
-"""ASVspoof protocol parsing and the label vocabularies the scorer needs.
+"""ASVspoof protocol parsing and label vocabularies.
 
-The port's own copy of the JAX package's ``data/protocol.py`` (protocol
-entries, their parser and path, attack tags and labels); the channel and
-device vocabularies come with the augmented datasets of a later slice.
+The port's own copy of the JAX package's ``data/protocol.py``: protocol
+entries, their parser and path, and the vocabularies that keep tag, label,
+channel and device ids compatible with the reference's checkpoints and
+score files:
+- attack tags (ASVspoof2019 LA/PA, ASVspoof2015, the augmented-training
+  subset);
+- labels spoof=1 / bonafide=0;
+- the LA codec channel vocabulary (60 entries), the DF compression
+  vocabulary (7) and the device impulse-response vocabulary (13).
 """
 
 from __future__ import annotations
@@ -22,7 +28,57 @@ PA_TAGS: Dict[str, int] = {
     "CA": 7, "CB": 8, "CC": 9,
 }
 
+ASVSPOOF2015_TAGS: Dict[str, int] = {
+    "human": 0, "S1": 1, "S2": 2, "S3": 3, "S4": 4, "S5": 5,
+    "S6": 6, "S7": 7, "S8": 8, "S9": 9, "S10": 10,
+}
+
+# Augmented-training tag vocabulary: train/dev attacks only
+# (the reference implementation's dataset.py:120).
+LA_TRAIN_TAGS: Dict[str, int] = {
+    "-": 0, "A01": 1, "A02": 2, "A03": 3, "A04": 4, "A05": 5, "A06": 6,
+}
+
 LABELS: Dict[str, int] = {"spoof": 1, "bonafide": 0}
+
+LA_CHANNELS: List[str] = [
+    "no_channel", "amr[br=10k2,nodtx]", "amr[br=5k9]", "amr[br=6k7,nodtx]",
+    "amr[br=7k95,nodtx]", "amrwb[br=12k65]", "amrwb[br=15k85]", "g711[law=a]",
+    "g711[law=u]", "g722[br=64k]", "g726[law=a,br=16k]", "g726[law=a,br=24k]",
+    "g726[law=u,40k]", "g726[law=u,br=24k]", "g726[law=u,br=32k]", "g728",
+    "silk[br=10k,loss=10]", "silk[br=15k,loss=5]", "silk[br=15k]",
+    "silk[br=20k,loss=5]", "silk[br=5k,loss=10]", "silk[br=5k]", "amr[br=12k2]",
+    "amr[br=5k9,nodtx]", "amrwb[br=6k6,nodtx]", "g722[br=56k]",
+    "g726[law=a,br=32k]", "g726[law=a,br=40k]", "silk[br=15k,loss=10]",
+    "silk[br=20k]", "silkwb[br=10k,loss=5]", "amr[br=10k2]", "amr[br=4k75]",
+    "amr[br=7k95]", "amrwb[br=15k85,nodtx]", "amrwb[br=23k05]",
+    "g726[law=u,br=16k]", "g729a", "gsmfr", "silkwb[br=10k,loss=10]",
+    "silkwb[br=20k]", "silkwb[br=30k,loss=10]", "amr[br=7k4,nodtx]",
+    "amrwb[br=6k6]", "silk[br=10k]", "silk[br=5k,loss=5]",
+    "silkwb[br=30k,loss=5]", "amr[br=4k75,nodtx]", "amr[br=7k4]",
+    "g722[br=48k]", "silk[br=20k,loss=10]", "silkwb[br=30k]", "amr[br=5k15]",
+    "silkwb[br=20k,loss=5]", "amrwb[br=23k05,nodtx]", "amrwb[br=12k65,nodtx]",
+    "silkwb[br=20k,loss=10]", "amr[br=6k7]", "silkwb[br=10k]",
+    "silk[br=10k,loss=5]",
+]
+
+DF_CHANNELS: List[str] = [
+    "no_channel", "aac[16k]", "aac[32k]", "aac[8k]",
+    "mp3[16k]", "mp3[32k]", "mp3[8k]",
+]
+
+DEVICES: List[str] = [
+    "OktavaML19-16000.ir", "iPhoneirRecording-16000.ir",
+    "iPadirRecording-16000.ir", "ResloRB250-16000.ir",
+    "telephonehornT65C-16000.ir", "ResloSR1-16000.ir", "RCAPB90-16000.ir",
+    "ResloRBRedLabel-16000.ir", "telephone90sC-16000.ir",
+    "SonyC37Fet-16000.ir", "Doremi-16000.ir", "BehritoneirRecording-16000.ir",
+    "",
+]
+
+LA_CHANNEL_INDEX = {c: i for i, c in enumerate(LA_CHANNELS)}
+DF_CHANNEL_INDEX = {c: i for i, c in enumerate(DF_CHANNELS)}
+DEVICE_INDEX = {d: i for i, d in enumerate(DEVICES)}
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,4 +1,5 @@
-"""DET curve and equal error rate, and the EER of a score file.
+"""DET curve and equal error rate (and, re-exported from ``evaluate``, the
+EER of a score file).
 
 The port's own copy of the JAX package's ``metrics/eer.py``: stable
 mergesort over pooled scores, cumulative-sum sweep of the threshold, EER at
@@ -52,13 +53,12 @@ def polarity_min_eer(target_scores, nontarget_scores):
     return min(eer_pos, eer_neg)
 
 
-def eer_from_score_file(path: str) -> float:
-    """Polarity-min EER of a ``fname score bonafide|spoof`` score file."""
-    with open(path) as f:
-        rows = [line.split() for line in f if line.strip()]
-    if not rows or len(rows[0]) != 3:
-        raise ValueError(f"score file needs 3 columns (fname score key): {path}")
-    scores = np.array([float(r[1]) for r in rows])
-    keys = np.array([r[2] for r in rows])
-    return polarity_min_eer(scores[keys == "bonafide"],
-                            scores[keys == "spoof"])
+def __getattr__(name: str):
+    """``eer_from_score_file`` is ``metrics/evaluate``'s, which reads the
+    2-, 3- and 4-column layouts; it is re-exported here lazily, as
+    ``evaluate`` imports this module."""
+    if name == "eer_from_score_file":
+        from asvspoof2021_air_tpu_torch.metrics.evaluate import (
+            eer_from_score_file)
+        return eer_from_score_file
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

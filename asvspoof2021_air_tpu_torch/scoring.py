@@ -1,26 +1,59 @@
-"""Cache-free scoring: raw-audio dataset -> on-device LFCC -> ECAPA serving
-graph -> reference-format score file.
+"""Batched scoring: feature files or raw audio -> ECAPA serving graph ->
+reference-format score file.
 
-Counterpart of the JAX package's ``scoring.py`` ``score_rule`` and
-``score_raw_to_file``. The file stores ``fname -score [bonafide|spoof]``
-lines, where the score is -softmax(logits)[:, 0] by default and the loss
-module's score (-cos) for OC-Softmax, so an OC-Softmax file stores +cos
-(bona fide near +1). The feature-file scorer and its task router come with
-a later slice.
+Counterpart of the JAX package's ``scoring.py``: the 8-task router
+(``build_task_dataset``), the feature-file scorer (``make_score_fn``,
+``score_to_file``, ``test_on_asvspoof2021``), the per-loss ``score_rule``
+and the cache-free ``score_raw_to_file`` (waveforms -> LFCC on the card ->
+ECAPA). A score file holds ``fname -score [bonafide|spoof]`` lines, where
+the score is -softmax(logits)[:, 0] by default and the loss module's score
+(-cos) for OC-Softmax, so an OC-Softmax file stores +cos (bona fide near
++1).
+
+Both scorers run the serving graph (``ServingECAPA``: kernels B2 and B3 on
+the card) in f32 by default, as the JAX scorer runs ``model.apply`` in f32;
+``dtype=torch.bfloat16`` is the bf16 serving tier.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Optional
+from typing import Callable, Dict, Optional
 
+import numpy as np
 import torch
 
 from asvspoof2021_air_tpu_torch._device import resolve_device
-from asvspoof2021_air_tpu_torch.data.pipeline import WaveformIterator
+from asvspoof2021_air_tpu_torch.data.datasets import (
+    ASVspoof2019FeatureDataset, AugmentedFeatureDataset, EvalFeatureDataset)
+from asvspoof2021_air_tpu_torch.data.pipeline import (
+    SequentialIterator, WaveformIterator)
 from asvspoof2021_air_tpu_torch.serving.ecapa_serving import ServingECAPA
+from asvspoof2021_air_tpu_torch.serving.stream import make_scanned_infer
+
+TASKS = ("LA", "DF", "19dev", "19laaugdev", "19lapaaugdev", "19dfaugdev",
+         "19dfpaaugdev", "19eval")
 
 LABEL_NAMES = {0: "bonafide", 1: "spoof"}
+
+
+def build_task_dataset(task: str, paths: Dict[str, str],
+                       feature: str = "LFCC"):
+    """The dataset of one scoring task. ``paths`` maps the roles
+    ori_features, aug_features, la_eval and df_eval to directories."""
+    if task == "LA":
+        return EvalFeatureDataset(paths["la_eval"], feature)
+    if task == "DF":
+        return EvalFeatureDataset(paths["df_eval"], feature)
+    if task in ("19dev", "19eval"):
+        return ASVspoof2019FeatureDataset("LA", paths["ori_features"],
+                                          task[2:], feature)
+    if task in ("19laaugdev", "19lapaaugdev", "19dfaugdev", "19dfpaaugdev"):
+        return AugmentedFeatureDataset(
+            paths["ori_features"], paths["aug_features"], "dev", feature,
+            variant="LA" if "la" in task[:6] else "DF",
+            with_device="pa" in task)
+    raise ValueError(f"unknown task {task!r}; choices: {TASKS}")
 
 
 def score_rule(add_loss: Optional[str], emb: torch.Tensor,
@@ -39,6 +72,104 @@ def score_rule(add_loss: Optional[str], emb: torch.Tensor,
     return -torch.softmax(logits, dim=1)[:, 0]
 
 
+def make_score_fn(state_dict, loss_module=None,
+                  add_loss: Optional[str] = None, *,
+                  dtype: torch.dtype = torch.float32, model_scale: int = 8,
+                  device="cuda") -> Callable:
+    """Batched scorer: feats (B, T, F) (numpy or tensor) -> raw score (B,)
+    f32 on ``device``, through the ECAPA serving graph built once from
+    ``state_dict`` and the per-loss scoring rule. The function's
+    ``device`` attribute names its device."""
+    dev = resolve_device(device)
+    model = ServingECAPA(state_dict, dtype=dtype, model_scale=model_scale,
+                         device=dev)
+    if loss_module is not None:
+        loss_module = loss_module.to(dev).eval()
+
+    @torch.no_grad()
+    def score_fn(feats) -> torch.Tensor:
+        emb, logits = model(torch.as_tensor(feats).to(dev))
+        return score_rule(add_loss, emb, logits, loss_module).float()
+
+    score_fn.device = dev
+    return score_fn
+
+
+def _write_scored(f, batch, scores: np.ndarray, labeled: bool) -> None:
+    for j in np.nonzero(batch["valid"])[0]:
+        if labeled:
+            key = LABEL_NAMES[int(batch["label"][j])]
+            f.write(f"{batch['fname'][j]} {-scores[j]} {key}\n")
+        else:
+            f.write(f"{batch['fname'][j]} {-scores[j]}\n")
+
+
+def score_to_file(score_fn: Callable, dataset, output_path: str,
+                  labeled: bool, batch_size: int = 64, feat_len: int = 750,
+                  padding: str = "repeat", scan_batches: int = 1) -> str:
+    """Score ``dataset`` in batches of ``batch_size`` (the last one filled
+    up, its extra rows not written) and write the score file.
+
+    ``scan_batches=K`` runs K consecutive batches as one dispatch
+    (``serving/stream.make_scanned_infer``: a CUDA graph on the card) with
+    the same scores; a tail of fewer than K batches runs batch by batch.
+    The scan runs on ``score_fn.device`` ("cuda" when it has none)."""
+    os.makedirs(os.path.dirname(os.path.abspath(output_path)), exist_ok=True)
+    it = SequentialIterator(dataset, batch_size, feat_len, padding)
+    scanned = None
+    if scan_batches > 1:
+        scanned = make_scanned_infer(score_fn,
+                                     getattr(score_fn, "device", "cuda"))
+    run = lambda batch: score_fn(batch["feat"]).cpu().numpy()
+    with open(output_path, "w") as f, torch.no_grad():
+        group: list = []
+        for batch in it:
+            if scanned is None:
+                _write_scored(f, batch, run(batch), labeled)
+                continue
+            group.append(batch)
+            if len(group) == scan_batches:
+                stacked = np.stack([b["feat"] for b in group])
+                for b, s in zip(group, scanned(stacked).cpu().numpy()):
+                    _write_scored(f, b, s, labeled)
+                group = []
+        for batch in group:
+            _write_scored(f, batch, run(batch), labeled)
+    return output_path
+
+
+def test_on_asvspoof2021(
+    task: str,
+    state_dict,
+    paths: Dict[str, str],
+    output_score_path: str,
+    model_name: str,
+    add_loss: Optional[str] = None,
+    loss_module=None,
+    batch_size: int = 64,
+    feature: str = "LFCC",
+    feat_len: int = 750,
+    padding: str = "repeat",
+    scan_batches: int = 1,
+    dtype: torch.dtype = torch.float32,
+    model_scale: int = 8,
+    device="cuda",
+) -> str:
+    """Score one task and return the score file's path: the '19*' tasks
+    write ``<out>/<model_name>_<task>_score.txt`` (labeled), the challenge
+    tasks ``<out>/<model_name>_<task>/score.txt`` (unlabeled)."""
+    dataset = build_task_dataset(task, paths, feature)
+    if "19" in task:
+        out = os.path.join(output_score_path, f"{model_name}_{task}_score.txt")
+    else:
+        out = os.path.join(output_score_path, f"{model_name}_{task}",
+                           "score.txt")
+    score_fn = make_score_fn(state_dict, loss_module, add_loss, dtype=dtype,
+                             model_scale=model_scale, device=device)
+    return score_to_file(score_fn, dataset, out, "19" in task, batch_size,
+                         feat_len, padding, scan_batches=scan_batches)
+
+
 def score_raw_to_file(
     state_dict,
     dataset,
@@ -48,7 +179,7 @@ def score_raw_to_file(
     loss_module=None,
     add_loss: Optional[str] = None,
     batch_size: int = 64,
-    dtype: torch.dtype = torch.bfloat16,
+    dtype: torch.dtype = torch.float32,
     model_scale: int = 8,
     device="cuda",
 ) -> str:

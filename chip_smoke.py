@@ -32,11 +32,28 @@ Phases, each fatal on failure:
    f32-FMA ones;
 3. drive the serving path at full width: ECAPA-TDNN C=512 (scale 8,
    embedding 256) and an OC-Softmax center from a numpy seed, 136 synthetic
-   utterances written as wav files with a protocol, scored by
-   ``score_raw_to_file`` in bf16 at batch 64 (two full requests and a
-   partial one); check the score file (one finite score per utterance), the
-   kernels' launch counts over that run, and the bf16 embeddings' cosine
-   against the plain f32 path (unfused ECAPA, plain LFCC) on the card;
+   utterances written as FLAC (16-bit verbatim subframes, by the numpy
+   writer below) under ``flac/`` with a protocol, read by
+   ``RawAudioDataset`` (decoded waveforms checked against the samples
+   written) and scored by ``score_raw_to_file`` in bf16 at batch 64 (two
+   full requests and a partial one); check the score file (one finite score
+   per utterance), the kernels' launch counts over that run, that a WAV
+   copy of the corpus scores the same (its host time printed beside the
+   FLAC one), an unlabeled ``ASVspoof2021EvalRawDataset`` tree of WAV and
+   FLAC mixed (a 2-column file), and the bf16 embeddings' cosine against
+   the plain f32 path (unfused ECAPA, plain LFCC) on the card;
+3b. drive feature-file scoring through ``cli.generate_score`` at full
+   width: a port run folder (``args.json``, ``best.pt``) from seed
+   weights, ``19dev`` and ``LA`` trees of 136 LFCC ``.npy`` files each
+   (T = 750 mostly, some shorter, some longer), scored in f32 (the
+   default), in bf16 and in f32 with ``--scan_batches 2`` (a CUDA graph);
+   check B2 (3 per batch) and B3 (1 per batch) launches in the f32 and bf16
+   scorers, the files' rows against the datasets, the f32 scores against a
+   plain f32 ECAPA on the same batches (1e-4), bf16 against f32 (0.03),
+   the scanned file against K = 1 (1e-6); then ``cli.evaluate_tdcf`` with
+   a synthetic ASV score file and ``cli.score_fusion -m avg / wght`` over
+   the f32 and bf16 files; print the CLI's host ms per batch, the scorer's
+   forward ms (CUDA events) and a profile of the f32 forward;
 4. drive the training path at full width: ``train`` of ECAPA-TDNN C=512
    with OC-Softmax (ang_iso), on the fly from 4 x 64 synthetic train wavs
    and 64 dev wavs, batch 64, 750 frames, 2 epochs (8 steps, 2 dev
@@ -58,6 +75,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -316,7 +334,7 @@ def kernel_checks(torch, gen):
                  torch.bfloat16: (packed[0].bfloat16(), *packed[1:])}
     x32 = randn(B, T, C)
     xbf = x32.bfloat16()
-    errs, times, plain_times = [], [], []
+    errs, times, plain_times, times32 = [], [], [], []
     # valid_len inside an earlier tile (600), and inside the last (700, 730)
     # for the 64- and 128-row tiles the kernel could take
     valid_of = {2: T - 150, 3: T - 50, 4: T - 20}
@@ -371,8 +389,11 @@ def kernel_checks(torch, gen):
             xbf, *p, dilation=d)))
         plain_times.append(time_ms(torch, lambda: rc.res2_chain_plain(
             xbf, *p, dilation=d)))
+        # f32, the feature-file scorer's default: B2's FMA kernel
+        times32.append(time_ms(torch, lambda: rc.res2_chain_kernel(
+            x32, *packed_of[torch.float32], dilation=d)))
         print(f"B2 res2_chain d={d} bf16 {times[-1]:.4f} ms (plain "
-              f"{plain_times[-1]:.4f} ms)")
+              f"{plain_times[-1]:.4f} ms), f32 {times32[-1]:.4f} ms")
     w16 = packed_of[torch.bfloat16][0][0]
     x3 = torch.cat([xbf[..., :64]] * 3, dim=-1).reshape(-1, 192)
     matmul_ms = 7 * time_ms(torch, lambda: x3 @ w16)
@@ -385,7 +406,14 @@ def kernel_checks(torch, gen):
         matmul_ms=matmul_ms, max_abs_err=max(errs),
         bytes=2 * 2 * B * T * C + 2 * packed[0].numel()
         + 4 * 3 * packed[1].numel(),
-        flops=2 * B * T * 192 * 64 * 7, kind="bf16")
+        flops=2 * B * T * 192 * 64 * 7, kind="bf16",
+        extra={"ms_f32": float(np.mean(times32))})
+    f32_bound = bound(2 * 4 * B * T * C + 4 * packed[0].numel()
+                      + 4 * 3 * packed[1].numel(), 2 * B * T * 192 * 64 * 7,
+                      "f32")
+    print(f"B2 res2_chain f32 (FMA kernel) {np.mean(times32):.4f} ms per "
+          f"launch, mean of d = 2/3/4; bound {f32_bound[0]:.4f} ms by "
+          f"{f32_bound[1]} at the f32 rate (8.26 GFLOP at 67 TFLOP/s)")
 
     # B3: attention pooling, f32 and bf16 x. Both products keep f32's
     # accuracy (x @ Wx against two bf16 planes of Wx for bf16 x, in 3xTF32
@@ -624,17 +652,87 @@ def plain_b4(reverse_t: bool = False):
         vj.softmax_stats_fwd_kernel, vj.softmax_stats_bwd_kernel = saved
 
 
-def write_corpus(root: str, n: int, seed: int, part: str = "eval"):
-    """ASVspoof2019-layout corpus part of n wavs (bona fide: noise, spoof: a
-    tone + noise), mostly 7.49 s, a few shorter and two longer."""
+def _crc_table(poly: int, width: int) -> np.ndarray:
+    """Byte table of the MSB-first CRC of ``width`` bits (init 0)."""
+    top, mask = 1 << (width - 1), (1 << width) - 1
+    table = []
+    for b in range(256):
+        crc = b << (width - 8)
+        for _ in range(8):
+            crc = ((crc << 1) ^ poly) & mask if crc & top else (crc << 1) & mask
+        table.append(crc)
+    return np.array(table, np.uint32)
+
+
+CRC8, CRC16 = _crc_table(0x07, 8), _crc_table(0x8005, 16)
+
+
+def _crc16_rows(rows: np.ndarray) -> np.ndarray:
+    """FLAC's CRC-16 of each row of a (n, length) uint8 array."""
+    crc = np.zeros(len(rows), np.uint32)
+    for j in range(rows.shape[1]):
+        crc = ((crc << 8) & 0xFFFF) ^ CRC16[(crc >> 8) ^ rows[:, j]]
+    return crc
+
+
+def _utf8_number(v: int) -> bytes:
+    """A frame number in FLAC's UTF-8-like coding."""
+    if v < 0x80:
+        return bytes([v])
+    n = (v.bit_length() - 2) // 5     # continuation bytes: 5 n + 6 bits
+    out = [0x80 | ((v >> (6 * i)) & 0x3F) for i in range(n)][::-1]
+    return bytes([((0xFF00 >> (n + 1)) & 0xFF) | (v >> (6 * n))] + out)
+
+
+def write_flac_files(items, sr: int = 16000, block: int = 4096) -> None:
+    """Write each (path, int16 samples) as a mono 16-bit FLAC stream of
+    verbatim subframes, with valid header CRC-8 and frame CRC-16 (computed
+    for all frames of one length at once)."""
+    streams, frames = [], []
+    for k, (path, pcm) in enumerate(items):
+        n = len(pcm)
+        info = ((block << 128) | (block << 112) | (sr << 44) | (15 << 36)
+                | n).to_bytes(18, "big") + bytes(16)
+        streams.append(bytearray(b"fLaC" + bytes([0x80, 0, 0, 34]) + info))
+        for f, start in enumerate(range(0, n, block)):
+            blk = pcm[start:start + block]
+            head = (bytes([0xFF, 0xF8, 0x70, 0x08]) + _utf8_number(f)
+                    + (len(blk) - 1).to_bytes(2, "big"))
+            crc = 0
+            for b in head:
+                crc = int(CRC8[crc ^ b])
+            frames.append((k, head + bytes([crc, 0x02])
+                           + blk.astype(">i2").tobytes()))
+    by_len = {}
+    for i, (_k, body) in enumerate(frames):
+        by_len.setdefault(len(body), []).append(i)
+    crcs = [0] * len(frames)
+    for idx in by_len.values():
+        rows = np.frombuffer(b"".join(frames[i][1] for i in idx),
+                             np.uint8).reshape(len(idx), -1)
+        for i, c in zip(idx, _crc16_rows(rows)):
+            crcs[i] = int(c)
+    for (k, body), crc in zip(frames, crcs):
+        streams[k] += body + crc.to_bytes(2, "big")
+    for (path, _pcm), data in zip(items, streams):
+        with open(path, "wb") as f:
+            f.write(bytes(data))
+
+
+def write_corpus(root: str, n: int, seed: int, part: str = "eval",
+                 fmt: str = "wav"):
+    """ASVspoof2019-layout corpus part of n utterances (bona fide: noise,
+    spoof: a tone + noise), mostly 7.49 s, a few shorter and two longer,
+    as 16-bit WAVs under ``wav/`` or FLACs under ``flac/``. Returns
+    {filename: int16 samples written}."""
     from asvspoof2021_air_tpu_torch.data.audio_io import write_wav
 
     g = np.random.default_rng(seed)
-    wav_dir = os.path.join(root, "LA", f"ASVspoof2019_LA_{part}", "wav")
+    audio_dir = os.path.join(root, "LA", f"ASVspoof2019_LA_{part}", fmt)
     proto_dir = os.path.join(root, "LA", "ASVspoof2019_LA_cm_protocols")
-    os.makedirs(wav_dir)
+    os.makedirs(audio_dir)
     os.makedirs(proto_dir, exist_ok=True)
-    lines = []
+    lines, written, flacs = [], {}, []
     for i in range(n):
         length = L
         if i % 23 == 5:
@@ -647,17 +745,29 @@ def write_corpus(root: str, n: int, seed: int, part: str = "eval"):
             t = np.arange(length) / 16000.0
             wav = 0.3 * np.sin(2 * np.pi * (300 + 7 * i) * t) + 0.02 * wav
         fname = f"LA_{part[0].upper()}_{i:07d}"
-        write_wav(os.path.join(wav_dir, fname + ".wav"), wav)
+        # write_wav's quantization, kept for the FLAC copy
+        pcm = np.round(np.clip(wav.astype(np.float32), -1.0, 1.0)
+                       * 32767.0).astype(np.int16)
+        written[fname] = pcm
+        path = os.path.join(audio_dir, f"{fname}.{fmt}")
+        if fmt == "flac":
+            flacs.append((path, pcm))
+        else:
+            write_wav(path, wav)
         lines.append(f"LA_0001 {fname} - {'A07' if label else '-'} "
                      f"{'spoof' if label else 'bonafide'}")
+    write_flac_files(flacs)
     with open(os.path.join(proto_dir, f"ASVspoof2019.LA.cm.{part}.trl.txt"),
               "w") as f:
         f.write("\n".join(lines) + "\n")
+    return written
 
 
 def main_path(torch, gpu: str, entries):
-    """Phase 3: the serving path at full width through score_raw_to_file."""
-    from asvspoof2021_air_tpu_torch.data.datasets import RawAudioDataset
+    """Phase 3: the serving path at full width through score_raw_to_file,
+    reading FLAC."""
+    from asvspoof2021_air_tpu_torch.data.datasets import (
+        ASVspoof2021EvalRawDataset, RawAudioDataset)
     from asvspoof2021_air_tpu_torch.interop.flax_weights import (
         from_flax_variables, random_flax_variables)
     from asvspoof2021_air_tpu_torch.losses.one_class import OCSoftmax
@@ -680,19 +790,32 @@ def main_path(torch, gpu: str, entries):
         oc.center.copy_(torch.from_numpy(center))
     n_utt = 2 * B + 8
     with tempfile.TemporaryDirectory() as tmp:
-        write_corpus(tmp, n_utt, seed=2)
+        t0 = time.perf_counter()
+        written = write_corpus(tmp, n_utt, seed=2, fmt="flac")
+        flac_write_s = time.perf_counter() - t0
+        wav_root = os.path.join(tmp, "wav_copy")
+        write_corpus(wav_root, n_utt, seed=2, fmt="wav")
         ds = RawAudioDataset("LA", tmp, "eval")
+        check(ds.audio_dir.endswith("flac") and ds.audio_ext == ".flac",
+              "RawAudioDataset does not read the flac/ tree")
+        for i in range(len(ds)):
+            wav, fname = ds[i][:2]
+            check(np.array_equal(
+                wav, written[fname].astype(np.float32) / 32768.0),
+                f"decoded FLAC {fname} differs from the samples written")
+        print(f"FLAC: {n_utt} utterances written in {flac_write_s:.2f} s "
+              f"(verbatim subframes) decode to the samples written, exactly")
         fe = OnDeviceFrontend(feat_len=T, padding="repeat", device=DEVICE)
-        out = os.path.join(tmp, "scores.txt")
-        run = lambda: score_raw_to_file(
-            sd, ds, out, labeled=True, frontend=fe, loss_module=oc,
+        score = lambda dataset, path, labeled=True: score_raw_to_file(
+            sd, dataset, path, labeled=labeled, frontend=fe, loss_module=oc,
             add_loss="ocsoftmax", batch_size=B, dtype=torch.bfloat16,
             device=DEVICE)
-        run()                                   # warm-up (cuBLAS, cuDNN)
+        out = os.path.join(tmp, "scores.txt")
+        score(ds, out)                          # warm-up (cuBLAS, cuDNN)
         torch.cuda.synchronize()
         lc.launches = rc.launches = ap.launches = 0
         t0 = time.perf_counter()
-        run()
+        score(ds, out)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = {"B1": lc.launches, "B2": rc.launches, "B3": ap.launches}
@@ -716,6 +839,54 @@ def main_path(torch, gpu: str, entries):
         print(f"score file: {len(rows)} lines, scores in "
               f"[{scores.min():.4f}, {scores.max():.4f}], "
               f"EER {eer_from_score_file(out):.4f} (random weights)")
+
+        # The same corpus as WAV: the same samples, so the same scores;
+        # its host time beside the FLAC one.
+        wav_ds = RawAudioDataset("LA", wav_root, "eval")
+        wav_out = os.path.join(tmp, "scores_wav.txt")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        score(wav_ds, wav_out)
+        torch.cuda.synchronize()
+        wav_wall = time.perf_counter() - t0
+        with open(wav_out) as f:
+            wav_rows = [line.split() for line in f]
+        check([r[0] for r in wav_rows] == [r[0] for r in rows],
+              "the WAV copy's fnames differ")
+        diff = max(abs(float(a[1]) - float(b[1]))
+                   for a, b in zip(rows, wav_rows))
+        print(f"FLAC vs WAV copy of the corpus: largest score difference "
+              f"{diff:.3e} (bitwise: {wav_rows == rows})")
+        check(diff <= 1e-6, "FLAC and WAV copies of a corpus score apart")
+
+        # An unlabeled ASVspoof2021 eval tree, WAV and FLAC mixed: a
+        # 2-column file.
+        eval_root = os.path.join(tmp, "LA_eval")
+        n_flac = (B + 8) // 2
+        for fmt, (lo, hi) in (("flac", (0, n_flac)), ("wav", (n_flac,
+                                                              B + 8))):
+            os.makedirs(os.path.join(eval_root, fmt))
+            for fname in list(written)[lo:hi]:
+                shutil.copyfile(os.path.join(
+                    tmp if fmt == "flac" else wav_root, "LA",
+                    "ASVspoof2019_LA_eval", fmt, f"{fname}.{fmt}"),
+                    os.path.join(eval_root, fmt,
+                                 f"{fname.replace('_E_', '_X_')}.{fmt}"))
+        eval_ds = ASVspoof2021EvalRawDataset(eval_root)
+        eval_out = score(eval_ds, os.path.join(tmp, "eval.txt"),
+                         labeled=False)
+        with open(eval_out) as f:
+            eval_rows = [line.split() for line in f]
+        check(len(eval_rows) == len(eval_ds) == B + 8
+              and all(len(r) == 2 for r in eval_rows)
+              and [r[0] for r in eval_rows] == [
+                  os.path.splitext(os.path.basename(p))[0]
+                  for p in eval_ds.files]
+              and np.isfinite([float(r[1]) for r in eval_rows]).all(),
+              "malformed unlabeled ASVspoof2021 eval score file")
+        print(f"ASVspoof2021 eval tree ({n_flac} FLAC + {B + 8 - n_flac} "
+              f"WAV): "
+              f"{len(eval_rows)} unlabeled 2-column lines, finite")
 
         # One full batch: device time of the forward, and the bf16
         # embeddings against the plain f32 path.
@@ -741,11 +912,237 @@ def main_path(torch, gpu: str, entries):
               f" mean {float(cos.mean()):.6f} (bar 0.9996)")
         check(bool((cos >= 0.9996).all()), "bf16 embedding cosine < 0.9996")
     per_batch = wall * 1e3 / n_batches
-    print(f"main path [{gpu}]: score_raw_to_file {n_utt} utts in "
-          f"{wall * 1e3:.1f} ms = {per_batch:.2f} ms/batch (host clock, wav "
-          f"reading included), {n_utt / wall:.1f} utt/s; "
+    print(f"main path [{gpu}]: score_raw_to_file {n_utt} utts from FLAC in "
+          f"{wall * 1e3:.1f} ms = {per_batch:.2f} ms/batch (host clock, "
+          f"FLAC decoding included), {n_utt / wall:.1f} utt/s; the same "
+          f"corpus from WAV {wav_wall * 1e3 / n_batches:.2f} ms/batch; "
           f"forward (LFCC + ECAPA, B={B}, bf16) {fwd_ms:.3f} ms/batch = "
           f"{B / fwd_ms * 1e3:.1f} utt/s (CUDA events)")
+
+
+def write_feature_tree(root: str, n: int, seed: int, labeled: bool):
+    """n LFCC-shaped feature files (1, T', 60) .npy with the reference
+    cache's names: T' = 750 mostly, some shorter (repeat-padded), some
+    longer (cropped). Returns the filenames in the dataset's order."""
+    g = np.random.default_rng(seed)
+    os.makedirs(root)
+    names = []
+    for i in range(n):
+        t = T if i % 9 else (T * 14 // 25 if i % 2 else T * 6 // 5)
+        label = i % 2
+        x = g.standard_normal((1, t, 60)).astype(np.float32)
+        if label:
+            x[..., :20] += 0.5
+        if labeled:
+            fname = f"LA_D_{1000000 + i}"
+            base = (f"{i:06d}_{fname}_{'A0' + str(1 + i % 6) if label else '-'}"
+                    f"_{'spoof' if label else 'bonafide'}")
+        else:
+            fname = base = f"LA_E_{2000000 + i}"
+            base = f"{i:06d}_{fname}"
+        np.save(os.path.join(root, base + ".npy"), x)
+        names.append(fname)
+    return names
+
+
+def score_path(torch, gpu: str, entries):
+    """Phase 3b: feature-file scoring through the CLI at full width."""
+    import ast
+    import contextlib
+    import dataclasses
+    import io
+
+    from asvspoof2021_air_tpu_torch.cli import evaluate_tdcf, score_fusion
+    from asvspoof2021_air_tpu_torch.cli import generate_score
+    from asvspoof2021_air_tpu_torch.data.datasets import (
+        ASVspoof2019FeatureDataset)
+    from asvspoof2021_air_tpu_torch.data.pipeline import SequentialIterator
+    from asvspoof2021_air_tpu_torch.interop.flax_weights import (
+        from_flax_variables, random_flax_variables)
+    from asvspoof2021_air_tpu_torch.models.ecapa import ECAPA_TDNN
+    from asvspoof2021_air_tpu_torch.ops import attn_pool_cuda as ap
+    from asvspoof2021_air_tpu_torch.ops import res2_chain_cuda as rc
+    from asvspoof2021_air_tpu_torch.scoring import make_score_fn
+    from asvspoof2021_air_tpu_torch.serving.stream import make_scanned_infer
+    from asvspoof2021_air_tpu_torch.train.checkpoint import save_checkpoint
+    from asvspoof2021_air_tpu_torch.train.loop import (
+        TrainConfig, setup_training)
+
+    n_utt = 2 * B + 8
+    n_batches = -(-n_utt // B)
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)              # the 19* tasks write under ./scores
+        try:
+            run = os.path.join(tmp, "runs", "sys")
+            cfg = TrainConfig(out_fold=run, model="ecapa", add_loss="ang_iso",
+                              on_the_fly=True, C=C, feat_len=T)
+            state = setup_training(cfg, 1, device=DEVICE)[2]
+            sd = from_flax_variables(random_flax_variables(
+                5, C=C, model_scale=8, enc_dim=256), model_scale=8)
+            state.model.load_state_dict(sd)
+            with torch.no_grad():
+                state.loss_module.center.copy_(torch.from_numpy(
+                    np.random.default_rng(6).uniform(-1, 1, (1, 256))))
+            os.makedirs(run)
+            with open(os.path.join(run, "args.json"), "w") as f:
+                json.dump(dataclasses.asdict(cfg), f)
+            save_checkpoint(os.path.join(run, "best.pt"), state)
+            ori = os.path.join(tmp, "feats")
+            dev_names = write_feature_tree(
+                os.path.join(ori, "dev", "LFCC"), n_utt, 7, labeled=True)
+            la_names = write_feature_tree(
+                os.path.join(tmp, "la_eval", "LFCC"), n_utt, 8,
+                labeled=False)
+            base = ["--model_folder", os.path.join(tmp, "runs"), "-n", "sys",
+                    "--ori_features", ori, "--la_eval",
+                    os.path.join(tmp, "la_eval"), "--batch_size", str(B),
+                    "--device", DEVICE]
+
+            def cli(task, *extra):
+                """Run the CLI; keep its file (the next run rewrites it)."""
+                with contextlib.redirect_stdout(io.StringIO()):
+                    path = generate_score.main([*base, "-t", task, *extra])
+                keep = os.path.join(tmp, f"{task}{'_'.join(extra)}.txt")
+                shutil.copyfile(path, keep)
+                return keep
+
+            cli("19dev")                            # warm-up
+            files, walls, counts = {}, {}, {}
+            for dtype in ("float32", "bfloat16"):
+                torch.cuda.synchronize()
+                rc.launches = ap.launches = 0
+                t0 = time.perf_counter()
+                for task in ("19dev", "LA"):
+                    files[task, dtype] = cli(task, "--dtype", dtype)
+                torch.cuda.synchronize()
+                walls[dtype] = time.perf_counter() - t0
+                counts[dtype] = {"B2": rc.launches, "B3": ap.launches}
+                print(f"score path launches, CLI {dtype}, 19dev + LA "
+                      f"({2 * n_batches} batches): {counts[dtype]}")
+                check(counts[dtype]["B2"] >= 3 * 2 * n_batches,
+                      f"B2 did not run 3x per batch in the {dtype} scorer")
+                check(counts[dtype]["B3"] >= 2 * n_batches,
+                      f"B3 did not run once per batch in the {dtype} scorer")
+            for k in ("B2", "B3"):
+                entries[k]["launches_score"] = sum(c[k] for c in
+                                                   counts.values())
+            rc.launches = ap.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for task in ("19dev", "LA"):
+                files[task, "scan"] = cli(task, "--scan_batches", "2")
+            torch.cuda.synchronize()
+            walls["scan"] = time.perf_counter() - t0
+            print(f"score path launches, CLI f32 --scan_batches 2 (counted "
+                  f"at warm-up and capture, not on replay): "
+                  f"{{'B2': {rc.launches}, 'B3': {ap.launches}}}")
+
+            read = lambda p: [line.split() for line in open(p)]
+            for task, names in (("19dev", dev_names), ("LA", la_names)):
+                rows = {k: read(files[task, k])
+                        for k in ("float32", "bfloat16", "scan")}
+                for k, r in rows.items():
+                    check([x[0] for x in r] == names,
+                          f"{task} {k}: fnames differ from the dataset")
+                    check(all(len(x) == (3 if task == "19dev" else 2)
+                              for x in r), f"{task} {k}: column count")
+                    check(bool(np.isfinite([float(x[1]) for x in r]).all()),
+                          f"{task} {k}: non-finite scores")
+                s = {k: np.array([float(x[1]) for x in r])
+                     for k, r in rows.items()}
+                bf = float(np.abs(s["bfloat16"] - s["float32"]).max())
+                scan = float(np.abs(s["scan"] - s["float32"]).max())
+                print(f"{task}: bf16 vs f32 file, largest difference {bf:.3e}"
+                      f" (bar 0.03); --scan_batches 2 vs K = 1 {scan:.3e} "
+                      f"(bar 1e-6, bitwise: {rows['scan'] == rows['float32']})")
+                check(bf <= 0.03, f"{task}: bf16 scores off the f32 ones")
+                check(scan <= 1e-6, f"{task}: the scanned file differs")
+
+            # The f32 file against a plain f32 ECAPA (eval, unfused) on
+            # the same batches.
+            sd_dev = {k: v.to(DEVICE) for k, v in sd.items()}
+            ref = ECAPA_TDNN(C=C, model_scale=8, enc_dim=256,
+                             device=DEVICE).eval()
+            ref.load_state_dict(sd_dev)
+            oc = state.loss_module.eval()
+            ref_scores = []
+            dev_ds = ASVspoof2019FeatureDataset("LA", ori, "dev")
+            with torch.no_grad():
+                for batch in SequentialIterator(dev_ds, B, T):
+                    emb, _ = ref(torch.from_numpy(batch["feat"]).to(DEVICE))
+                    score = oc(emb, torch.zeros(B, dtype=torch.long,
+                                                device=DEVICE))[1]
+                    ref_scores.append(-score.cpu().numpy()[batch["valid"]])
+            ref_scores = np.concatenate(ref_scores)
+            got = np.array([float(x[1]) for x in read(files["19dev",
+                                                            "float32"])])
+            err = float(np.abs(got - ref_scores).max())
+            print(f"19dev f32 file vs the plain f32 ECAPA on the card: "
+                  f"largest difference {err:.3e} (bar 1e-4)")
+            check(err <= 1e-4, "f32 scores off the plain f32 model")
+
+            # Evaluate and fuse.
+            asv = os.path.join(tmp, "asv.txt")
+            g = np.random.default_rng(9)
+            with open(asv, "w") as f:
+                for i in range(300):
+                    kind = ("target", "nontarget", "spoof")[i % 3]
+                    f.write(f"LA_{i:04d} {kind} "
+                            f"{g.standard_normal() + 2.0 * (i % 3 != 1)}\n")
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                evaluate_tdcf.main([files["19dev", "float32"],
+                                    "--asv_score_file", asv])
+            result = ast.literal_eval(buf.getvalue().strip().splitlines()[-1])
+            print(f"evaluate_tdcf on the 19dev f32 file: {result}")
+            check(all(np.isfinite(v) for v in result.values()),
+                  "EER or min-tDCF not finite")
+            for method in ("avg", "wght"):
+                buf = io.StringIO()
+                out_dir = os.path.join(tmp, f"fuse_{method}")
+                with contextlib.redirect_stdout(buf):
+                    score_fusion.main(["-i", files["19dev", "float32"],
+                                       files["19dev", "bfloat16"], "-m",
+                                       method, "-o", out_dir])
+                fused_eer = float(buf.getvalue().strip().splitlines()[-1])
+                fused = read(os.path.join(out_dir, "avg_fuse_score"))
+                print(f"score_fusion -m {method} (f32 + bf16 files): EER "
+                      f"{fused_eer:.4f}, {len(fused)} rows")
+                check(np.isfinite(fused_eer) and len(fused) == n_utt,
+                      f"score_fusion -m {method}")
+
+            # Forward times of the scorer and the f32 forward's profile.
+            x = torch.from_numpy(next(iter(SequentialIterator(
+                dev_ds, B, T)))["feat"]).to(DEVICE)
+            fwd = {}
+            for name, dtype in (("f32", torch.float32),
+                                ("bf16", torch.bfloat16)):
+                fn = make_score_fn(sd, oc, "ang_iso", dtype=dtype,
+                                   device=DEVICE)
+                fwd[name] = time_ms(torch, lambda: fn(x), iters=10)
+                if name == "f32":
+                    profile_device(torch, lambda: fn(x), fwd[name],
+                                   "f32 feature-file forward")
+                    # two batches as one CUDA graph replay, per batch
+                    scan = make_scanned_infer(fn, DEVICE)
+                    pair = torch.stack([x, x.flip(0)])
+                    fwd["f32 graph"] = time_ms(torch, lambda: scan(pair),
+                                               iters=10) / 2
+        finally:
+            os.chdir(cwd)
+    for run, what in (("float32", "float32"), ("bfloat16", "bfloat16"),
+                      ("scan", "float32 --scan_batches 2")):
+        print(f"score path [{gpu}]: cli.generate_score {what}, 19dev + LA "
+              f"({2 * n_utt} utts, {2 * n_batches} batches) "
+              f"{walls[run] * 1e3 / (2 * n_batches):.2f} ms/batch (host "
+              f"clock: model build, checkpoint, .npy reading included)")
+    print(f"score path [{gpu}]: make_score_fn forward (B={B}, T={T}, "
+          f"C={C}) f32 {fwd['f32']:.3f} ms/batch = "
+          f"{B / fwd['f32'] * 1e3:.1f} utt/s, bf16 {fwd['bf16']:.3f} "
+          f"ms/batch = {B / fwd['bf16'] * 1e3:.1f} utt/s; f32 in a CUDA "
+          f"graph of two batches {fwd['f32 graph']:.3f} ms/batch (CUDA "
+          f"events)")
 
 
 RUNNING = ("running_mean", "running_var")
@@ -970,13 +1367,15 @@ def main() -> int:
     entries = kernel_checks(torch, gen)
     vjp_checks(torch, gen, entries)
     main_path(torch, gpu, entries)
+    score_path(torch, gpu, entries)
     train_path(torch, gpu, entries)
 
     kernels = []
     for key in ("B1", "B2", "B3", "B4a", "B4b"):
         e = entries[key]
         bound_ms, bound_by = bound(e["bytes"], e["flops"], e["kind"])
-        by_path = {p: e[f"launches_{p}"] for p in ("serve", "train")
+        by_path = {p: e[f"launches_{p}"] for p in ("serve", "score",
+                                                   "train")
                    if f"launches_{p}" in e}
         launches = sum(by_path.values())
         print(f"{e['name']} [{gpu}]: max_abs_err {e['max_abs_err']:.3e}, "

@@ -184,3 +184,78 @@ def test_kernel_launchers_refuse_cpu_tensors_and_bad_shapes():
     with pytest.raises(ValueError, match="CUDA"):
         softmax_stats_bwd_kernel(x, h2, w2, b2, [z(2, 256)] * 4, z(2, 256),
                                  z(2, 256))
+
+
+def test_scoring_slice_entry_points_default_to_cuda_and_refuse_the_cpu(
+        monkeypatch, tmp_path):
+    """The feature-file scorer, its CLI and loaders, the scanned runner and
+    the checkpoint loaders raise on a machine without CUDA unless asked
+    for the CPU."""
+    import asvspoof2021_air_tpu_torch.scoring as scoring
+    from asvspoof2021_air_tpu_torch.cli import generate_score
+    from asvspoof2021_air_tpu_torch.interop.checkpoints import (
+        ecapa_from_state_dict)
+    from asvspoof2021_air_tpu_torch.interop.flax_weights import (
+        from_flax_variables)
+    from asvspoof2021_air_tpu_torch.serving.stream import make_scanned_infer
+
+    sd = from_flax_variables(random_flax_variables(0, C=16, model_scale=4,
+                                                   enc_dim=8), model_scale=4)
+    run = tmp_path / "run"
+    run.mkdir()
+    (run / "args.json").write_text('{"model": "ecapa"}')
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (lambda: scoring.make_score_fn(sd, model_scale=4),
+                 lambda: scoring.test_on_asvspoof2021(
+                     "LA", sd, {"la_eval": str(tmp_path)}, str(tmp_path),
+                     "x", model_scale=4),
+                 lambda: generate_score.load_system(str(run)),
+                 lambda: generate_score.main([
+                     "--model_folder", str(tmp_path), "-n", "run", "-t",
+                     "LA"]),
+                 lambda: make_scanned_infer(lambda b: b),
+                 lambda: ecapa_from_state_dict(sd)):
+        with pytest.raises(RuntimeError, match="cuda"):
+            make()
+    fn = scoring.make_score_fn(sd, model_scale=4, device="cpu")
+    assert fn.device.type == "cpu"
+    assert fn(torch.zeros(2, 12, 60)).shape == (2,)
+    scan = make_scanned_infer(lambda b: b.sum(-1), device="cpu")
+    assert torch.equal(scan(torch.ones(3, 2, 4)), torch.full((3, 2), 4.0))
+
+
+def test_scoring_cli_runs_with_jax_blocked():
+    """``python -m ...cli.generate_score --help`` with jax, flax and the
+    JAX package unimportable; the import guards above cover the scoring
+    slice's modules."""
+    assert {f"asvspoof2021_air_tpu_torch.{m}" for m in (
+        "cli.generate_score", "cli.evaluate_tdcf", "cli.prepare4matlab",
+        "cli.score_fusion", "fusion", "interop.checkpoints",
+        "metrics.evaluate", "metrics.tdcf", "serving.stream")} <= set(MODULES)
+    code = (
+        "import runpy, sys\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'asvspoof2021_air_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "sys.argv = ['generate_score', '--help']\n"
+        "runpy.run_module('asvspoof2021_air_tpu_torch.cli.generate_score',"
+        " run_name='__main__', alter_sys=True)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "--scan_batches" in out.stdout and "--dtype" in out.stdout
+
+
+def test_host_entry_points_match_ctypes_signatures():
+    """Each extern "C" function of csrc/host/ has as many parameters as its
+    ctypes argtypes in ``_build.HOST_SIGNATURES``."""
+    found = {}
+    for src in sorted(_build.HOST_SRC.glob("*.cc")):
+        text = src.read_text()
+        body = text[text.index('extern "C" {'):]
+        for name, params in re.findall(r"\nlong (\w+)\(([^)]*)\)", body):
+            found[name] = [p.strip() for p in params.split(",")]
+    assert set(found) == set(_build.HOST_SIGNATURES) == {
+        "flac_stream_info", "flac_decode"}
+    for name, params in found.items():
+        argtypes, _restype = _build.HOST_SIGNATURES[name]
+        assert len(params) == len(argtypes), name
