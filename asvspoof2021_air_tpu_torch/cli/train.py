@@ -1,13 +1,18 @@
-"""Training CLI of the PyTorch/CUDA port: ECAPA-TDNN trained on the fly
-from raw waveforms.
+"""Training CLI of the PyTorch/CUDA port: ECAPA-TDNN from cached feature
+files or, ``--on_the_fly``, from raw waveforms.
 
+    python -m asvspoof2021_air_tpu_torch.cli.train -f <features> -o <out> \\
+        -m ecapa --add_loss ang_iso [--LA_aug --path_to_aug_features <aug>] \\
+        [--compute_dtype bfloat16] [--steps_per_call 8] [--device cuda]
     python -m asvspoof2021_air_tpu_torch.cli.train -d <database> -o <out> \\
-        -m ecapa --add_loss ang_iso --on_the_fly [--device cuda]
+        -m ecapa --add_loss ang_iso --on_the_fly
 
 The argparse front of the JAX package's ``cli/train.py`` for the flags the
 port trains with; ``--C`` and ``--model_scale`` narrow the model. Flags of
 the JAX CLI that the port does not cover are absent here, and
-``train/loop.check_supported`` refuses them in a ``--config`` file.
+``train/loop.check_supported`` refuses them in a ``--config`` file. As in
+the JAX CLI, ``--test_on_eval`` scores only an ``eval_set`` handed to
+``train()``; the CLI hands none.
 """
 
 from __future__ import annotations
@@ -25,11 +30,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-a", "--access_type", type=str, default="LA",
                    choices=["LA", "PA"])
     p.add_argument("-d", "--path_to_database", type=str, default="")
+    p.add_argument("-f", "--path_to_features", type=str, default="")
+    p.add_argument("--path_to_aug_features", type=str, default="")
     p.add_argument("-o", "--out_fold", type=str, required=True)
     p.add_argument("--ratio", type=float, default=0.5,
                    help="original:augmented mix in a training batch")
+    p.add_argument("--feat", type=str, default="LFCC",
+                   choices=["CQCC", "LFCC", "Melspec", "STFT"],
+                   help="the feature cache's subdirectory (the on-the-fly "
+                        "front-end is LFCC)")
     p.add_argument("--feat_len", type=int, default=750)
     p.add_argument("--feat_dim", type=int, default=60)
+    p.add_argument("--pad_chop", type=str2bool, nargs="?", const=True,
+                   default=True)
     p.add_argument("--padding", type=str, default="repeat",
                    choices=["zero", "repeat", "silence"])
     p.add_argument("--enc_dim", type=int, default=256)
@@ -52,10 +65,26 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--r_fake", type=float, default=0.2)
     p.add_argument("--alpha", type=float, default=20.0)
     p.add_argument("--early_stop_patience", type=int, default=500)
+    p.add_argument("--continue_training", action="store_true")
+    for flag in ("LA_aug", "DF_aug", "LAPA_aug", "DFPA_aug"):
+        p.add_argument(f"--{flag}", type=str2bool, nargs="?", const=True,
+                       default=False)
+    p.add_argument("--test_on_eval", action="store_true")
+    p.add_argument("--steps_per_call", type=int, default=1,
+                   help="optimizer steps per call (on the card, one CUDA "
+                        "graph of K steps)")
+    p.add_argument("--profile", action="store_true",
+                   help="trace the first ~20 steps into <out>/profile")
+    p.add_argument("--compute_dtype", type=str, default="float32",
+                   choices=["float32", "bfloat16"],
+                   help="model compute dtype (params always float32)")
     p.add_argument("--on_the_fly", type=str2bool, nargs="?", const=True,
                    default=False,
-                   help="train straight from raw audio (the port's only "
-                        "mode: LFCC on the card inside the step)")
+                   help="train straight from raw audio (-d): LFCC on the "
+                        "card inside the step")
+    p.add_argument("--auto_resume", type=str2bool, nargs="?", const=True,
+                   default=False,
+                   help="resume from the latest epoch checkpoint in out_fold")
     p.add_argument("--device", type=str, default="cuda",
                    choices=["cuda", "cpu"])
     p.add_argument("--config", type=str, default=None,

@@ -9,6 +9,10 @@ The port's own copy of the JAX package's ``data/pipeline.py``:
   *prepended* as the reference does;
 - ``SequentialIterator``: deterministic batches for scoring, the last one
   filled up with repeats of its last item and a ``valid`` mask;
+- ``RatioMixIterator``: training batches of feature files, mixing original
+  and augmented items at a fixed ratio, with the index streams and the
+  random crop drawing from one ``np.random.default_rng(seed)`` in the JAX
+  package's order, so both packages batch a corpus the same way;
 - ``WaveformIterator`` (with its index stream): long utterances are
   random-cropped to ``max_samples`` with draws from
   ``np.random.default_rng(seed)``, in the same order as the JAX package, so
@@ -143,27 +147,24 @@ class _IndexStream:
         return np.concatenate(out)
 
 
-class WaveformIterator:
-    """Batches of {"wave" (B, max_samples) f32, "length", "fname", "tag",
-    "label"}; an original:augmented ratio below 1 mixes the two parts of a
-    dataset whose first ``num_original`` items are the originals."""
+class _RatioMix:
+    """The index streams of a ratio-mixed epoch: ``int(batch_size *
+    ratio)`` items a batch from the first ``num_original`` items of the
+    dataset, the rest from the augmented tail (the
+    ``AugmentedFeatureDataset`` layout), or plain batching over the whole
+    range when ``num_original == len(dataset)``. An epoch is
+    ``ceil(num_original / ori_bs)`` steps, the reference's
+    ``len(trainOriDataLoader)``; the streams wrap around and reshuffle.
+    Both streams and the subclasses' random crops draw from one
+    ``np.random.default_rng(seed)``, in the JAX package's order."""
 
-    def __init__(
-        self,
-        dataset,
-        batch_size: int,
-        max_samples: int,
-        ratio: float = 1.0,
-        num_original: Optional[int] = None,
-        seed: int = 688,
-        steps_per_epoch: Optional[int] = None,
-        shuffle: bool = True,
-    ):
+    def __init__(self, dataset, batch_size: int, ratio: float,
+                 num_original: Optional[int], seed: int,
+                 steps_per_epoch: Optional[int], shuffle: bool = True):
         if not (0 < ratio <= 1):
             raise ValueError("ratio must be in (0, 1]")
         self.dataset = dataset
         self.batch_size = batch_size
-        self.max_samples = max_samples
         n = len(dataset)
         if num_original is None:
             num_original = getattr(dataset, "num_original", n)
@@ -184,6 +185,62 @@ class WaveformIterator:
         self.steps_per_epoch = steps_per_epoch or -(
             -self.num_original // max(self.ori_bs, 1)
         )
+
+    def epoch(self) -> Iterator[Dict[str, np.ndarray]]:
+        for _ in range(self.steps_per_epoch):
+            idx = self._ori.take(self.ori_bs)
+            if self._aug is not None:
+                idx = np.concatenate([idx, self._aug.take(self.aug_bs)])
+            yield self._collate(idx)
+
+
+class RatioMixIterator(_RatioMix):
+    """Training batches of feature-file items, ``collate``'s dicts; with
+    ``pad_chop=False``, the reference's variable-length collate."""
+
+    def __init__(
+        self,
+        dataset,
+        batch_size: int,
+        ratio: float = 0.5,
+        num_original: Optional[int] = None,
+        feat_len: int = 750,
+        padding: str = "repeat",
+        seed: int = 688,
+        steps_per_epoch: Optional[int] = None,
+        pad_chop: bool = True,
+    ):
+        super().__init__(dataset, batch_size, ratio, num_original, seed,
+                         steps_per_epoch)
+        self.feat_len = feat_len
+        self.padding = padding
+        self.pad_chop = pad_chop
+
+    def _collate(self, idx: np.ndarray) -> Dict[str, np.ndarray]:
+        samples = [self.dataset[int(i)] for i in idx]
+        return collate(samples, self.feat_len, self.padding, self.rng,
+                       self.pad_chop)
+
+
+class WaveformIterator(_RatioMix):
+    """Batches of {"wave" (B, max_samples) f32, "length", "fname", "tag",
+    "label"}; long utterances are random-cropped to ``max_samples``, short
+    ones zero-padded with their true length carried alongside."""
+
+    def __init__(
+        self,
+        dataset,
+        batch_size: int,
+        max_samples: int,
+        ratio: float = 1.0,
+        num_original: Optional[int] = None,
+        seed: int = 688,
+        steps_per_epoch: Optional[int] = None,
+        shuffle: bool = True,
+    ):
+        super().__init__(dataset, batch_size, ratio, num_original, seed,
+                         steps_per_epoch, shuffle)
+        self.max_samples = max_samples
 
     def _collate(self, idx: np.ndarray) -> Dict[str, np.ndarray]:
         waves = np.zeros((len(idx), self.max_samples), np.float32)
@@ -212,10 +269,3 @@ class WaveformIterator:
         if channels:
             batch["channel"] = np.array(channels)
         return batch
-
-    def epoch(self) -> Iterator[Dict[str, np.ndarray]]:
-        for _ in range(self.steps_per_epoch):
-            idx = self._ori.take(self.ori_bs)
-            if self._aug is not None:
-                idx = np.concatenate([idx, self._aug.take(self.aug_bs)])
-            yield self._collate(idx)

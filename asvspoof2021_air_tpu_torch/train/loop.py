@@ -1,17 +1,30 @@
-"""Epoch-level training loop for ECAPA-TDNN trained on the fly from raw
-waveforms.
+"""Epoch-level training loop for ECAPA-TDNN.
 
 Counterpart of the JAX package's ``train/loop.py`` (``TrainConfig``,
-``setup_training``, ``train``) for ``model="ecapa"`` with
-``on_the_fly=True``: ``RawAudioDataset`` -> ``WaveformIterator`` (both
-iterators behind a ``PrefetchIterator``) -> ``OnDeviceFrontend`` (LFCC,
-kernel B1 on the card) -> ECAPA in train mode (kernels B4a/B4b) -> the
-base loss and the add-loss -> both optimizers; per epoch the dev pass
-(dev EER as the min over both score signs, dev loss), epoch and ``best``
-checkpoints chosen by dev loss, ``train_meta.json`` and early stopping.
-Writes ``args.json``, ``train_loss.log`` (``epoch step loss`` per step) and
-``dev_loss.log`` (``epoch loss eer`` per epoch) as the JAX loop does, and
-returns the same summary dict.
+``build_datasets``, ``setup_training``, ``train``) for ``model="ecapa"``:
+
+- data: cached feature files (``ASVspoof2019FeatureDataset``, or
+  ``AugmentedFeatureDataset`` under ``LA_aug``/``DF_aug``/``LAPA_aug``/
+  ``DFPA_aug``) batched by ``RatioMixIterator``, or, ``on_the_fly``, raw
+  waveforms (``RawAudioDataset`` -> ``WaveformIterator`` ->
+  ``OnDeviceFrontend``, LFCC through kernel B1 on the card); both
+  iterators behind a ``PrefetchIterator``;
+- the step: ECAPA in train mode (kernels B4a/B4b) in f32 or bf16
+  (``compute_dtype``) -> the base loss and the add-loss -> both
+  optimizers; ``steps_per_call`` > 1 runs K steps per call, on the card as
+  one CUDA graph (``train/steps.make_multi_step``), the epoch's tail
+  shorter than K one step at a time;
+- per epoch the dev pass (dev EER as the min over both score signs, dev
+  loss), the eval-set EER with ``test_on_eval`` and an ``eval_set``, epoch
+  and ``best`` checkpoints chosen by dev loss, ``train_meta.json`` and
+  early stopping; ``continue_training`` restarts from ``best.pt`` and
+  ``auto_resume`` from the newest epoch checkpoint with its model-selection
+  history; ``profile`` traces the first ~20 steps into
+  ``<out_fold>/profile``.
+
+Writes ``args.json``, ``train_loss.log`` (``epoch step loss`` per step),
+``dev_loss.log`` (``epoch loss eer``) and ``test_loss.log`` (``epoch
+eer``) as the JAX loop does, and returns the same summary dict.
 
 Flags of the JAX loop that this port does not cover raise
 NotImplementedError (``check_supported``). ``C`` and ``model_scale`` are
@@ -21,6 +34,7 @@ always trains C=512, scale 8.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -33,18 +47,22 @@ import numpy as np
 import torch
 
 from asvspoof2021_air_tpu_torch._device import disable_tf32, resolve_device
-from asvspoof2021_air_tpu_torch.data.datasets import RawAudioDataset
-from asvspoof2021_air_tpu_torch.data.pipeline import WaveformIterator
+from asvspoof2021_air_tpu_torch.data.datasets import (
+    ASVspoof2019FeatureDataset, AugmentedFeatureDataset, RawAudioDataset)
+from asvspoof2021_air_tpu_torch.data.pipeline import (
+    RatioMixIterator, SequentialIterator, WaveformIterator)
 from asvspoof2021_air_tpu_torch.data.prefetch import PrefetchIterator
 from asvspoof2021_air_tpu_torch.losses.one_class import OCSoftmax
 from asvspoof2021_air_tpu_torch.metrics.eer import compute_eer
 from asvspoof2021_air_tpu_torch.models.ecapa import ECAPA_TDNN
-from asvspoof2021_air_tpu_torch.train.checkpoint import save_checkpoint
+from asvspoof2021_air_tpu_torch.train.checkpoint import (
+    restore_checkpoint, save_checkpoint)
 from asvspoof2021_air_tpu_torch.train.frontend import OnDeviceFrontend
 from asvspoof2021_air_tpu_torch.train.state import (
     create_train_state, step_decay_schedule)
 from asvspoof2021_air_tpu_torch.train.steps import (
-    StepConfig, make_eval_step, make_train_step)
+    StepConfig, make_eval_step, make_multi_step, make_train_step)
+from asvspoof2021_air_tpu_torch.utils.profiling import trace
 from asvspoof2021_air_tpu_torch.utils.seed import setup_seed
 
 
@@ -60,10 +78,13 @@ class TrainConfig:
     seed: int = 688
     access_type: str = "LA"
     path_to_database: str = ""
+    path_to_features: str = ""
+    path_to_aug_features: str = ""
     ratio: float = 0.5
     feat: str = "LFCC"
     feat_len: int = 750
     feat_dim: int = 60
+    pad_chop: bool = True
     padding: str = "repeat"
     enc_dim: int = 256
     model: str = "lcnn"
@@ -92,7 +113,7 @@ class TrainConfig:
     visualize: bool = False
     early_stop_patience: int = 500
     nclasses: int = 2
-    compute_dtype: str = "float32"
+    compute_dtype: str = "float32"   # "bfloat16": bf16 compute, f32 params
     on_the_fly: bool = False
     on_device_aug: bool = False
     dev_aug: bool = False
@@ -113,21 +134,13 @@ def check_supported(config: TrainConfig) -> None:
         (f"model={c.model!r} (the port trains 'ecapa')", c.model != "ecapa"),
         (f"add_loss={c.add_loss!r} (the port trains None or 'ang_iso')",
          c.add_loss not in (None, "ang_iso")),
-        ("on_the_fly=False (the feature-file datasets)", not c.on_the_fly),
-        (f"feat={c.feat!r} (the port's front-end is LFCC)", c.feat != "LFCC"),
-        ("LA_aug/DF_aug/LAPA_aug/DFPA_aug",
-         c.LA_aug or c.DF_aug or c.LAPA_aug or c.DFPA_aug),
-        ("ADV_AUG", c.ADV_AUG),
+        (f"feat={c.feat!r} on the fly (the port's front-end is LFCC)",
+         c.on_the_fly and c.feat != "LFCC"),
+        ("ADV_AUG (the channel classifiers)", c.ADV_AUG),
         ("on_device_aug/dev_aug/apply_ir (the channel augmenter)",
          c.on_device_aug or c.dev_aug or c.apply_ir),
         (f"ensemble={c.ensemble}", c.ensemble > 1),
-        (f"steps_per_call={c.steps_per_call}", c.steps_per_call > 1),
-        (f"compute_dtype={c.compute_dtype!r}", c.compute_dtype != "float32"),
-        ("auto_resume/continue_training", c.auto_resume
-         or c.continue_training),
         ("visualize", c.visualize),
-        ("test_on_eval", c.test_on_eval),
-        ("profile", c.profile),
     ) if hit]
     if bad:
         raise NotImplementedError("not covered by the port's training "
@@ -135,8 +148,11 @@ def check_supported(config: TrainConfig) -> None:
 
 
 def _prepare_out_fold(config: TrainConfig) -> None:
-    if config.test_only:
+    if config.test_only or config.continue_training:
         return
+    if config.auto_resume and os.path.isdir(
+            os.path.join(config.out_fold, "checkpoint")):
+        return      # resuming: keep the logs and checkpoints
     for d in (config.out_fold, os.path.join(config.out_fold, "checkpoint")):
         if os.path.exists(d):
             shutil.rmtree(d)
@@ -149,26 +165,41 @@ def _prepare_out_fold(config: TrainConfig) -> None:
 
 
 def build_datasets(config: TrainConfig):
-    return (RawAudioDataset(config.access_type, config.path_to_database,
-                            "train"),
-            RawAudioDataset(config.access_type, config.path_to_database,
-                            "dev"))
+    """(train, dev) datasets by the JAX loop's rules: raw audio on the fly,
+    else the feature cache, original + augmented under an aug flag."""
+    if config.on_the_fly:
+        return tuple(RawAudioDataset(config.access_type,
+                                     config.path_to_database, part)
+                     for part in ("train", "dev"))
+    if config.LA_aug or config.DF_aug or config.LAPA_aug or config.DFPA_aug:
+        variant = "LA" if (config.LA_aug or config.LAPA_aug) else "DF"
+        with_device = config.LAPA_aug or config.DFPA_aug
+        return tuple(AugmentedFeatureDataset(
+            config.path_to_features, config.path_to_aug_features, part,
+            config.feat, variant, with_device) for part in ("train", "dev"))
+    return tuple(ASVspoof2019FeatureDataset(
+        config.access_type, config.path_to_features, part, config.feat)
+        for part in ("train", "dev"))
 
 
 def setup_training(config: TrainConfig, steps_per_epoch: int, frontend=None,
                    device="cuda"):
     """(model, loss module, state, train step, eval step). The weights are
     drawn from a generator seeded with ``config.seed``: the model's first,
-    then the OC-Softmax center."""
+    then the OC-Softmax center. With ``steps_per_call`` > 1 on the card
+    the state is capturable, for the CUDA graph of K steps."""
     check_supported(config)
     dev = resolve_device(device)
-    disable_tf32()      # training computes in full f32
+    # the JAX setup_training's mapping: bf16 for "bfloat16", else f32
+    dtype = torch.bfloat16 if config.compute_dtype == "bfloat16" else None
+    if dtype is None:
+        disable_tf32()      # f32 training computes in full f32
     gen = setup_seed(config.seed)
     model = ECAPA_TDNN(
         C=config.C, model_scale=config.model_scale,
         n_out=1 if config.base_loss == "bce" else config.nclasses,
         n_feat=config.feat_dim, enc_dim=config.enc_dim, fused_pool=True,
-        generator=gen, device=dev)
+        generator=gen, device=dev, dtype=dtype)
     loss_mod = None
     if config.add_loss is not None:
         loss_mod = OCSoftmax(feat_dim=config.enc_dim, r_real=config.r_real,
@@ -176,8 +207,9 @@ def setup_training(config: TrainConfig, steps_per_epoch: int, frontend=None,
                              generator=gen, device=dev)
     sched = step_decay_schedule(config.lr, config.lr_decay, config.interval,
                                 steps_per_epoch)
-    state = create_train_state(model, loss_mod, sched, config.beta_1,
-                               config.beta_2, config.eps)
+    state = create_train_state(
+        model, loss_mod, sched, config.beta_1, config.beta_2, config.eps,
+        capturable=config.steps_per_call > 1 and dev.type == "cuda")
     step_cfg = StepConfig(add_loss=config.add_loss,
                           base_loss=config.base_loss,
                           weight_loss=config.weight_loss)
@@ -188,8 +220,67 @@ def setup_training(config: TrainConfig, steps_per_epoch: int, frontend=None,
 
 
 def _tensors(batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-    return {k: torch.from_numpy(batch[k]) for k in ("wave", "length",
-                                                     "label")}
+    return {k: torch.from_numpy(batch[k])
+            for k in ("feat", "wave", "length", "label") if k in batch}
+
+
+def _eer(scores: np.ndarray, labels: np.ndarray) -> float:
+    """EER as the min over both score signs."""
+    return min(compute_eer(scores[labels == 0], scores[labels == 1])[0],
+               compute_eer(-scores[labels == 0], -scores[labels == 1])[0])
+
+
+def _eval_set_eer(config: TrainConfig, eval_set, state, eval_step,
+                 frontend=None) -> float:
+    """The eval-set EER of ``state``, scored as the JAX loop's
+    ``test_on_eval`` scores it: on the fly, sequential waveform batches
+    with the wrapped tail trimmed by count; from features,
+    ``SequentialIterator`` batches with their ``valid`` mask."""
+    B = config.batch_size
+    scores, labels = [], []
+    if frontend is not None:
+        n = len(eval_set)
+        batches = WaveformIterator(eval_set, B, frontend.min_samples(),
+                                   ratio=1.0, shuffle=False,
+                                   steps_per_epoch=-(-n // B)).epoch()
+        for i, batch in enumerate(batches):
+            _m, score, _f = eval_step(state, _tensors(batch))
+            take = min(n - i * B, B)
+            scores.append(score.float().cpu().numpy()[:take])
+            labels.append(batch["label"][:take])
+    else:
+        for batch in SequentialIterator(eval_set, B, config.feat_len,
+                                        config.padding):
+            _m, score, _f = eval_step(state, _tensors(batch))
+            scores.append(score.float().cpu().numpy()[batch["valid"]])
+            labels.append(batch["label"][batch["valid"]])
+    return _eer(np.concatenate(scores), np.concatenate(labels))
+
+
+def _resume(config: TrainConfig, state, meta_path: str):
+    """(start epoch, best dev loss, early-stop count) after restoring
+    ``state`` as ``continue_training`` or ``auto_resume`` asks."""
+    start, prev_loss, early_stop = 0, 1e8, 0
+    if config.continue_training:
+        restore_checkpoint(os.path.join(config.out_fold, "best.pt"), state)
+    elif config.auto_resume:
+        ckpt_dir = os.path.join(config.out_fold, "checkpoint")
+        epochs = sorted(
+            (int(f[:-3]) for f in os.listdir(ckpt_dir)
+             if f.endswith(".pt") and f[:-3].isdigit()),
+            reverse=True) if os.path.isdir(ckpt_dir) else []
+        if epochs:
+            restore_checkpoint(os.path.join(ckpt_dir, f"{epochs[0]}.pt"),
+                               state)
+            start = epochs[0]
+            # the model-selection history, so the first epoch after the
+            # resume cannot overwrite best.pt with a worse dev loss
+            if os.path.exists(meta_path):
+                with open(meta_path) as f:
+                    meta = json.load(f)
+                prev_loss = meta.get("best_dev_loss", prev_loss)
+                early_stop = meta.get("early_stop", early_stop)
+    return start, prev_loss, early_stop
 
 
 def train(config: TrainConfig, train_set=None, dev_set=None, eval_set=None,
@@ -197,59 +288,112 @@ def train(config: TrainConfig, train_set=None, dev_set=None, eval_set=None,
     """Run the training loop; return the summary dict (and, with
     ``return_state``, the final :class:`TrainState` as well)."""
     check_supported(config)
+    K = max(1, config.steps_per_call)
+    if K > 1 and not config.on_the_fly and not config.pad_chop:
+        raise ValueError("steps_per_call > 1 needs batches of one shape: "
+                         "pad_chop=False collates each batch to its own "
+                         "length")
     dev = resolve_device(device)
     setup_seed(config.seed)
     _prepare_out_fold(config)
     if train_set is None or dev_set is None:
         train_set, dev_set = build_datasets(config)
     if len(train_set) == 0 or len(dev_set) == 0:
+        source = (config.path_to_database if config.on_the_fly
+                  else config.path_to_features)
         raise FileNotFoundError(
-            f"no data found under '{config.path_to_database}' (train: "
-            f"{len(train_set)}, dev: {len(dev_set)})")
+            f"no data found under '{source}' "
+            f"(train: {len(train_set)}, dev: {len(dev_set)}); expected "
+            f"<path>/{{train,dev}}/{config.feat}/*.npy — "
+            "run asvspoof2021_air_tpu.cli.preprocess first")
 
     monitor = config.add_loss or "base_loss"
-    frontend = OnDeviceFrontend(feat_len=config.feat_len,
-                                padding=config.padding, device=dev)
-    max_samples = frontend.min_samples()
-    train_iter = PrefetchIterator(WaveformIterator(
-        train_set, config.batch_size, max_samples, config.ratio,
-        seed=config.seed), depth=2)
-    dev_iter = PrefetchIterator(WaveformIterator(
-        dev_set, config.batch_size, max_samples, config.ratio,
-        seed=config.seed + 1), depth=2)
+    frontend = None
+    if config.on_the_fly:
+        frontend = OnDeviceFrontend(feat_len=config.feat_len,
+                                    padding=config.padding, device=dev)
+        max_samples = frontend.min_samples()
+        train_iter, dev_iter = (WaveformIterator(
+            data, config.batch_size, max_samples, config.ratio, seed=seed)
+            for data, seed in ((train_set, config.seed),
+                               (dev_set, config.seed + 1)))
+    else:
+        train_iter, dev_iter = (RatioMixIterator(
+            data, config.batch_size, config.ratio, feat_len=config.feat_len,
+            padding=config.padding, seed=seed, pad_chop=config.pad_chop)
+            for data, seed in ((train_set, config.seed),
+                               (dev_set, config.seed + 1)))
+    train_iter = PrefetchIterator(train_iter, depth=2)
+    dev_iter = PrefetchIterator(dev_iter, depth=2)
     _model, _loss, state, train_step, eval_step = setup_training(
         config, train_iter.steps_per_epoch, frontend=frontend, device=dev)
+    multi_step = make_multi_step(train_step, K) if K > 1 else None
 
-    prev_loss, early_stop = 1e8, 0
     meta_path = os.path.join(config.out_fold, "train_meta.json")
+    start_epoch, prev_loss, early_stop = _resume(config, state, meta_path)
     summary: Dict[str, Any] = {"epochs": 0}
-    for epoch in range(config.num_epochs):
+    for epoch in range(start_epoch, config.num_epochs):
         t0 = time.time()
         train_log = defaultdict(list)
-        with open(os.path.join(config.out_fold, "train_loss.log"), "a") as f:
-            for i, batch in enumerate(train_iter.epoch()):
-                metrics = train_step(state, _tensors(batch), None,
-                                     frontend.params)
-                for k, v in metrics.items():
-                    train_log[k].append(float(v))
-                f.write(f"{epoch}\t{i}\t{train_log[monitor][-1]}\n")
+        profiling = contextlib.ExitStack()
+        if config.profile and epoch == start_epoch:
+            profiling.enter_context(
+                trace(os.path.join(config.out_fold, "profile")))
+        i = 0
+
+        def record(metrics, n_inner: int) -> None:
+            # one device-to-host copy per metric per call, one open of the
+            # log per call
+            nonlocal i
+            host = {k: np.atleast_1d(v.detach().float().cpu().numpy())
+                    for k, v in metrics.items()}
+            with open(os.path.join(config.out_fold, "train_loss.log"),
+                      "a") as f:
+                for j in range(n_inner):
+                    for k, v in host.items():
+                        train_log[k].append(float(v[j]))
+                    f.write(f"{epoch}\t{i}\t{train_log[monitor][-1]}\n")
+                    i += 1
+            if i >= 20:
+                profiling.close()
+
+        pending = []
+        for batch in train_iter.epoch():
+            if K == 1:
+                record(train_step(state, _tensors(batch)), 1)
+                continue
+            pending.append(_tensors(batch))
+            if len(pending) < K:
+                continue
+            stacked = {k: torch.stack([b[k] for b in pending])
+                       for k in pending[0]}
+            pending = []
+            record(multi_step(state, stacked), K)
+        for batch in pending:       # the epoch's tail shorter than K
+            record(train_step(state, batch), 1)
+        profiling.close()
 
         # ---- validation ----
         dev_log = defaultdict(list)
         scores, labels = [], []
         for batch in dev_iter.epoch():
-            metrics, score, _feats = eval_step(state, _tensors(batch),
-                                               frontend.params)
+            metrics, score, _feats = eval_step(state, _tensors(batch))
             for k, v in metrics.items():
                 dev_log[k].append(float(v))
             scores.append(score.float().cpu().numpy())
             labels.append(batch["label"])
-        scores, labels = np.concatenate(scores), np.concatenate(labels)
-        eer = min(compute_eer(scores[labels == 0], scores[labels == 1])[0],
-                  compute_eer(-scores[labels == 0], -scores[labels == 1])[0])
+        eer = _eer(np.concatenate(scores), np.concatenate(labels))
         val_loss = float(np.nanmean(dev_log[monitor]))
         with open(os.path.join(config.out_fold, "dev_loss.log"), "a") as f:
             f.write(f"{epoch}\t{val_loss}\t{eer}\n")
+
+        # ---- eval-set EER ----
+        if config.test_on_eval and eval_set is not None:
+            test_eer = _eval_set_eer(config, eval_set, state, eval_step,
+                                    frontend)
+            with open(os.path.join(config.out_fold, "test_loss.log"),
+                      "a") as f:
+                f.write(f"{epoch}\t{test_eer}\n")
 
         # ---- checkpoints and model selection ----
         save_checkpoint(os.path.join(config.out_fold, "checkpoint",

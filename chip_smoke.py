@@ -63,7 +63,30 @@ Phases, each fatal on failure:
    B4a and B4b over that run; then hold one step through B4a/B4b against
    the same step through their plain versions (loss, every gradient, BN
    statistics); print ms per step (CUDA events), utterances/s, a profile
-   of one step by kernel group and the device's busy share.
+   of one step by kernel group and the device's busy share;
+4b. drive bf16 training at full width as the JAX package runs it in
+   production: ``train`` with ``compute_dtype="bfloat16"`` and
+   ``steps_per_call=8`` (one CUDA graph of 8 steps, replayed) from a
+   synthetic ``LA_aug`` tree of LFCC ``.npy`` files (320 original and
+   160 augmented train files, ratio 0.5: 10 steps an epoch, a call of 8
+   and a tail of 2) with ``test_on_eval`` over an eval tree, 2 epochs;
+   check the losses (finite), that weights, BN statistics and the center
+   moved, the log's step numbers, one ``test_loss.log`` line per epoch,
+   and the B4a/B4b launch counts (warm-up + capture + tails; on the card
+   capture x replays + eager); then ``auto_resume`` to a third epoch
+   (step count carried over) and ``continue_training`` loading
+   ``best.pt``; 8 graph-replayed steps against 8 eager steps of the same
+   capturable step from one state (rtol 1e-6, cuDNN deterministic;
+   bitwise equality printed); one bf16 step through B4a/B4b against
+   their plain versions (phase 4's bars, the losses and BN statistics to
+   one bf16 ulp relative); the bf16 forward's embeddings against f32's
+   (cosine 0.9996); an on-the-fly bf16 run of 18 steps at K = 8, so that
+   B1 replays from a graph too, with ``profile`` on (a trace of its
+   first steps, the capture and a replay inside); print ms per step and
+   utterances/s by CUDA events for f32 K=1 (phase 4's), bf16 K=1 and
+   bf16 K=8 on the fly and from features, peak memory, and profiles of a
+   bf16 step and of one 8-step replay by kernel group with the device's
+   busy share.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is the device JSON. The script imports only the port, torch and
@@ -920,9 +943,11 @@ def main_path(torch, gpu: str, entries):
           f"{B / fwd_ms * 1e3:.1f} utt/s (CUDA events)")
 
 
-def write_feature_tree(root: str, n: int, seed: int, labeled: bool):
+def write_feature_tree(root: str, n: int, seed: int, labeled: bool,
+                       suffix: str = ""):
     """n LFCC-shaped feature files (1, T', 60) .npy with the reference
-    cache's names: T' = 750 mostly, some shorter (repeat-padded), some
+    cache's names (``suffix`` appended, such as an augmented copy's
+    ``_<channel>``): T' = 750 mostly, some shorter (repeat-padded), some
     longer (cropped). Returns the filenames in the dataset's order."""
     g = np.random.default_rng(seed)
     os.makedirs(root)
@@ -936,7 +961,7 @@ def write_feature_tree(root: str, n: int, seed: int, labeled: bool):
         if labeled:
             fname = f"LA_D_{1000000 + i}"
             base = (f"{i:06d}_{fname}_{'A0' + str(1 + i % 6) if label else '-'}"
-                    f"_{'spoof' if label else 'bonafide'}")
+                    f"_{'spoof' if label else 'bonafide'}{suffix}")
         else:
             fname = base = f"LA_E_{2000000 + i}"
             base = f"{i:06d}_{fname}"
@@ -1148,6 +1173,95 @@ def score_path(torch, gpu: str, entries):
 RUNNING = ("running_mean", "running_var")
 
 
+def step_vs_plain(torch, fresh_state, live, step, fbatch, tag: str):
+    """One training step from state ``live`` on ``fbatch`` through B4a/B4b
+    against the same step through their plain versions (phases 4, 4b)."""
+    runs = []
+    # The kernel step twice (its own spread), the plain step, and the
+    # plain step with its sums over T reversed (the spread of the same
+    # function in another summation order).
+    for ctx in (contextlib.nullcontext, contextlib.nullcontext, plain_b4,
+                lambda: plain_b4(reverse_t=True)):
+        st = fresh_state()
+        st.load_state_dict(live)
+        with ctx():
+            metrics = step(st, fbatch)
+        grads = {n: p.grad.clone() for n, p in st.model.named_parameters()}
+        grads["center"] = st.loss_module.center.grad.clone()
+        runs.append((metrics, grads, {
+            k: v.clone() for k, v in st.model.state_dict().items()
+            if k.endswith(RUNNING)}))
+    (m_k, g_k, s_k), (_, g_k2, _), (m_p, g_p, s_p), (_, g_r, _) = runs
+    # Loss: rtol 1e-4 (mu, e2 summed in another order, through
+    # train-mode BN over the batch and the softplus); in bf16 one bf16
+    # ulp, 2^-8, relative: [mu || sigma] is rounded to bf16 before bn5,
+    # so where (mu, e2) move by 1e-7 an element may move by an ulp (the
+    # logged CE moved by 1.2e-4 on an H100 80GB HBM3 at 700 W). Gradients:
+    # each tensor's error norm within max(1e-2, 4 x the plain step's own
+    # with its sums over T reversed) of its norm. B4's rounding
+    # differences of about 1e-7 grow through sigma = sqrt(e2 - mu^2),
+    # which cancels, and the backward of 34 train-mode BNs, into
+    # differences of 1e-4 to 3e-3 in every tensor, as large as the
+    # reversed plain step's and varying with the trained state; on an
+    # H100 80GB HBM3 at 700 W the largest single element reached
+    # 4.9e-3 of its tensor's largest, over bars of 1e-3 and then 5e-3
+    # of it. A kernel that is wired wrong misses by O(1); B4's own
+    # precision is held in phase 2b. The attention BN's bias shifts h2
+    # by one vector at every frame, which softmax over T cancels: its
+    # gradient is zero but for rounding, so both steps must keep it
+    # under 1e-4 of the model's largest gradient element (in f32; bf16
+    # rounds h2 after the shift, so there the bar is the plain step's
+    # own reading times 4, or 1e-4). Gradients that are exactly zero in
+    # the plain step (the Function's db2, the zeros given to fc7 and bn7)
+    # are exactly zero in the kernel step. BN statistics: atol 1e-5 and
+    # the losses' rtol.
+    rtol = 1e-4 if tag == "f32" else 2.0 ** -8
+    for k in m_k:
+        a, b = float(m_k[k]), float(m_p[k])
+        print(f"{tag} kernel vs plain step: {k} {a:.7f} vs {b:.7f} (rtol "
+              f"{rtol:.2e})")
+        check(abs(a - b) <= rtol * abs(b), f"{tag} step {k}: {a} vs {b}")
+    top = max(float(g.abs().max()) for g in g_p.values())
+    shift = "attention.2.bias"
+    noise_k = float(g_k[shift].abs().max()) / top
+    noise_p = float(g_p[shift].abs().max()) / top
+    noise_bar = max(1e-4, 4 * noise_p) if tag != "f32" else 1e-4
+    print(f"{tag} kernel vs plain step: {shift} gradient {noise_k:.3e} "
+          f"(plain {noise_p:.3e}) of the largest gradient element "
+          f"{top:.3e} (bar {noise_bar:.1e})")
+    check(max(noise_k, noise_p if tag == "f32" else 0) <= noise_bar,
+          f"{tag} {shift} gradient is not zero: {noise_k}, {noise_p}")
+    names = [n for n in g_p if n != shift and g_p[n].abs().max() > 0]
+
+    def norm_err(got, want):
+        """(largest |got - want| / |want| over the tensors, its name)."""
+        return max((float((got[n] - want[n]).norm() / want[n].norm()), n)
+                   for n in names)
+
+    worst, rev, spread = (norm_err(g_k, g_p), norm_err(g_r, g_p),
+                          norm_err(g_k2, g_k))
+    elem = max((max_err(g_k[n], g_p[n]) / float(g_p[n].abs().max()), n)
+               for n in names)
+    bar = max(1e-2, 4 * rev[0])
+    print(f"{tag} kernel vs plain step: largest gradient error norm "
+          f"{worst[0]:.3e} of its tensor's ({worst[1]}; bar {bar:.3e}), "
+          f"largest element {elem[0]:.3e} of its tensor's largest "
+          f"({elem[1]}); plain step with sums over T reversed "
+          f"{rev[0]:.3e} ({rev[1]}); two kernel steps {spread[0]:.3e} "
+          f"({spread[1]})")
+    check(worst[0] <= bar, f"{tag} step gradients disagree: {worst}")
+    for n in g_p:
+        if float(g_p[n].abs().max()) == 0:
+            check(bool((g_k[n] == 0).all()), f"{tag} gradient {n} not zero")
+    worst_stat = max((max_err(s_k[k], s_p[k]), k) for k in s_p)
+    print(f"{tag} kernel vs plain step: BN statistics largest difference "
+          f"{worst_stat[0]:.3e} ({worst_stat[1]}; rtol {rtol:.2e}, atol "
+          f"1e-5)")
+    for k in s_p:
+        check(torch.allclose(s_k[k], s_p[k], rtol=rtol, atol=1e-5),
+              f"{tag} step BN statistic {k} disagrees")
+
+
 def train_path(torch, gpu: str, entries):
     """Phase 4: the training path at full width through ``train``."""
     from asvspoof2021_air_tpu_torch.data.datasets import RawAudioDataset
@@ -1250,79 +1364,9 @@ def train_path(torch, gpu: str, entries):
                                                       "label")}
         with torch.no_grad():
             feats = fe(wave)
-        fbatch = {"feat": feats, "label": wave["label"]}
-        step = setup_training(cfg, n_steps, device=DEVICE)[3]
-        runs = []
-        # The kernel step twice (its own spread), the plain step, and the
-        # plain step with its sums over T reversed (the spread of the same
-        # function in another summation order).
-        for ctx in (contextlib.nullcontext, contextlib.nullcontext, plain_b4,
-                    lambda: plain_b4(reverse_t=True)):
-            st = fresh_state()
-            st.load_state_dict(live)
-            with ctx():
-                metrics = step(st, fbatch)
-            grads = {n: p.grad.clone() for n, p in
-                     st.model.named_parameters()}
-            grads["center"] = st.loss_module.center.grad.clone()
-            runs.append((metrics, grads, {
-                k: v.clone() for k, v in st.model.state_dict().items()
-                if k.endswith(RUNNING)}))
-        (m_k, g_k, s_k), (_, g_k2, _), (m_p, g_p, s_p), (_, g_r, _) = runs
-        # Loss: rtol 1e-4 (mu, e2 summed in another order, through
-        # train-mode BN over the batch and the softplus). Gradients: each
-        # tensor's error norm within max(1e-2, 4 x the plain step's own
-        # with its sums over T reversed) of its norm. B4's rounding
-        # differences of about 1e-7 grow through sigma = sqrt(e2 - mu^2),
-        # which cancels, and the backward of 34 train-mode BNs, into
-        # differences of 1e-4 to 3e-3 in every tensor, as large as the
-        # reversed plain step's and varying with the trained state; on an
-        # H100 80GB HBM3 at 700 W the largest single element reached
-        # 4.9e-3 of its tensor's largest, over bars of 1e-3 and then 5e-3
-        # of it. A kernel that is wired wrong misses by O(1); B4's own
-        # precision is held in phase 2b. The attention BN's bias shifts h2
-        # by one vector at every frame, which softmax over T cancels: its
-        # gradient is zero but for rounding, so both steps must keep it
-        # under 1e-4 of the model's largest gradient element. Gradients
-        # that are exactly zero in the plain step (the Function's db2, the
-        # zeros given to fc7 and bn7) are exactly zero in the kernel step.
-        # BN statistics: rtol 1e-4, atol 1e-5.
-        for k in m_k:
-            a, b = float(m_k[k]), float(m_p[k])
-            print(f"kernel vs plain step: {k} {a:.7f} vs {b:.7f}")
-            check(abs(a - b) <= 1e-4 * abs(b), f"step {k}: {a} vs {b}")
-        top = max(float(g.abs().max()) for g in g_p.values())
-        shift = "attention.2.bias"
-        noise = max(float(g_k[shift].abs().max()),
-                    float(g_p[shift].abs().max())) / top
-        print(f"kernel vs plain step: {shift} gradient {noise:.3e} of the "
-              f"largest gradient element {top:.3e} (bar 1e-4)")
-        check(noise <= 1e-4, f"{shift} gradient is not zero: {noise}")
-        names = [n for n in g_p if n != shift and g_p[n].abs().max() > 0]
-
-        def norm_err(got, want):
-            """(largest |got - want| / |want| over the tensors, its name)."""
-            return max((float((got[n] - want[n]).norm() / want[n].norm()), n)
-                       for n in names)
-
-        worst, rev, spread = (norm_err(g_k, g_p), norm_err(g_r, g_p),
-                              norm_err(g_k2, g_k))
-        elem = max((max_err(g_k[n], g_p[n]) / float(g_p[n].abs().max()), n)
-                   for n in names)
-        bar = max(1e-2, 4 * rev[0])
-        print(f"kernel vs plain step: largest gradient error norm "
-              f"{worst[0]:.3e} of its tensor's ({worst[1]}; bar {bar:.3e}), "
-              f"largest element {elem[0]:.3e} of its tensor's largest "
-              f"({elem[1]}); plain step with sums over T reversed "
-              f"{rev[0]:.3e} ({rev[1]}); two kernel steps {spread[0]:.3e} "
-              f"({spread[1]})")
-        check(worst[0] <= bar, f"step gradients disagree: {worst}")
-        for n in g_p:
-            if float(g_p[n].abs().max()) == 0:
-                check(bool((g_k[n] == 0).all()), f"gradient {n} not zero")
-        for k in s_p:
-            check(torch.allclose(s_k[k], s_p[k], rtol=1e-4, atol=1e-5),
-                  f"step BN statistic {k} disagrees")
+        step_vs_plain(torch, fresh_state, live,
+                      setup_training(cfg, n_steps, device=DEVICE)[3],
+                      {"feat": feats, "label": wave["label"]}, "f32")
 
         # Time and profile the full step (waveforms in, B1 included).
         full_step = setup_training(cfg, n_steps, frontend=fe,
@@ -1340,6 +1384,314 @@ def train_path(torch, gpu: str, entries):
           f"(B={B}, T={T}, C={C}, f32, TF32 off) {step_ms:.3f} ms = "
           f"{B / step_ms * 1e3:.1f} utt/s (CUDA events); peak memory "
           f"{peak:.2f} GiB")
+    return step_ms, peak
+
+
+class Repeat:
+    """A dataset's items ``n`` times over (item i is item i mod len)."""
+
+    def __init__(self, data, n: int):
+        self.data, self.n = data, n
+
+    def __len__(self):
+        return self.n * len(self.data)
+
+    def __getitem__(self, i):
+        return self.data[i % len(self.data)]
+
+
+def graph_launches(steps_per_epoch: int, k: int, epochs: int):
+    """(launches counted, launches run) of a kernel that runs once per
+    training step of ``train`` with ``steps_per_call`` k: the first call
+    runs its k steps eagerly, then captures them (k counted, none run);
+    each later call replays them (k run, none counted); the epoch tails
+    run eagerly."""
+    calls, tail = divmod(steps_per_epoch, k)
+    replays = calls * epochs - 1
+    return 2 * k + tail * epochs, k + k * replays + tail * epochs, replays
+
+
+def train_bf16_path(torch, gpu: str, entries, f32_ms: float):
+    """Phase 4b: bf16 training from cached, augmented LFCC feature files
+    with 8 steps per call as a CUDA graph, resume, the eval-set EER; an
+    on-the-fly bf16 run of the same kind; the graph against eager steps;
+    the bf16 step's kernels against their plain versions; times."""
+    import dataclasses
+
+    from asvspoof2021_air_tpu_torch.data.datasets import (
+        ASVspoof2019FeatureDataset, AugmentedFeatureDataset,
+        RawAudioDataset)
+    from asvspoof2021_air_tpu_torch.data.pipeline import (
+        RatioMixIterator, WaveformIterator)
+    from asvspoof2021_air_tpu_torch.models.ecapa import ECAPA_TDNN
+    from asvspoof2021_air_tpu_torch.ops import attn_pool_vjp as vj
+    from asvspoof2021_air_tpu_torch.ops import lfcc_cuda as lc
+    from asvspoof2021_air_tpu_torch.train.checkpoint import (
+        restore_checkpoint)
+    from asvspoof2021_air_tpu_torch.train.frontend import OnDeviceFrontend
+    from asvspoof2021_air_tpu_torch.train.loop import (
+        TrainConfig, setup_training, train)
+    from asvspoof2021_air_tpu_torch.train.steps import make_multi_step
+
+    K, n_ori, n_aug, n_eval = 8, 5 * B, 5 * B // 2, B + B // 2 + 4
+    spe = -(-n_ori // (B // 2))           # ratio 0.5: 10 steps an epoch
+    channel = "amr[br=5k9]"
+    with tempfile.TemporaryDirectory() as tmp:
+        feats, aug = os.path.join(tmp, "feats"), os.path.join(tmp, "aug")
+        for root, part, n, seed, sfx in (
+                (feats, "train", n_ori, 20, ""), (feats, "dev", B, 21, ""),
+                (feats, "eval", n_eval, 22, ""),
+                (aug, "train", n_aug, 23, f"_{channel}"),
+                (aug, "dev", B, 24, f"_{channel}")):
+            write_feature_tree(os.path.join(root, part, "LFCC"), n, seed,
+                               True, sfx)
+        out = os.path.join(tmp, "run")
+        cfg = TrainConfig(
+            out_fold=out, path_to_features=feats, path_to_aug_features=aug,
+            LA_aug=True, ratio=0.5, model="ecapa", add_loss="ang_iso",
+            batch_size=B, feat_len=T, num_epochs=2, C=C,
+            compute_dtype="bfloat16", steps_per_call=K, test_on_eval=True,
+            auto_resume=True)
+        eval_set = ASVspoof2019FeatureDataset("LA", feats, "eval")
+        init = setup_training(cfg, spe, device=DEVICE)[2].state_dict()
+
+        # ---- the main path: train() bf16, K = 8, LA_aug features ----
+        torch.cuda.synchronize()
+        lc.launches = vj.fwd_launches = vj.bwd_launches = 0
+        t0 = time.perf_counter()
+        summary, state = train(cfg, eval_set=eval_set, device=DEVICE,
+                               return_state=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {"B1": lc.launches, "B4a": vj.fwd_launches,
+                  "B4b": vj.bwd_launches}
+        E = cfg.num_epochs
+        counted, run, replays = graph_launches(spe, K, E)
+        # dev batches (64 original, 64 augmented at ratio 0.5) and eval
+        # batches
+        evals = E * (2 + -(-len(eval_set) // B))
+        print(f"bf16 K={K} training path launches over {E * spe} steps "
+              f"({E} x ({spe // K} call of {K} + a tail of {spe % K}); "
+              f"one capture, {replays} replay(s)), {E} dev and {E} eval "
+              f"passes: {counts}; B4b counted {counted} (warm-up {K} + "
+              f"capture {K} + tails), run on the card {run} (= capture "
+              f"{K} x {replays} replays + {counted - K} eager)")
+        check(counts == {"B1": 0, "B4a": counted + evals, "B4b": counted},
+              f"bf16 K={K} launch counts {counts}, expected B4a "
+              f"{counted + evals}, B4b {counted}")
+        for k, v in counts.items():
+            entries[k]["launches_train_bf16"] = v
+        print(f"bf16 train summary: {summary}")
+        with open(os.path.join(out, "train_loss.log")) as f:
+            rows = [line.split() for line in f.readlines()[1:]]
+        losses = np.array([float(r[2]) for r in rows])
+        check([(int(r[0]), int(r[1])) for r in rows]
+              == [(e, i) for e in range(E) for i in range(spe)],
+              "train_loss.log steps")
+        check(bool(np.isfinite(losses).all()), f"non-finite loss: {losses}")
+        print(f"bf16 ang_iso loss per step: {np.round(losses, 5).tolist()}")
+        with open(os.path.join(out, "test_loss.log")) as f:
+            test_rows = f.readlines()[1:]
+        check(len(test_rows) == E, f"test_loss.log rows {test_rows}")
+        print(f"test_on_eval: {[r.strip() for r in test_rows]}")
+        live = state.state_dict()
+        moved = {k for k, v in live["model"].items()
+                 if not torch.equal(v, init["model"][k])}
+        stats = {k for k in live["model"] if k.endswith(RUNNING)}
+        check(stats <= moved, "bf16: BN statistics that did not move: "
+                              f"{sorted(stats - moved)}")
+        still = set(live["model"]) - moved
+        check(still == {"fc7.bias", "bn7.bias", "attention.3.bias"},
+              f"bf16: unexpected unchanged parameters: {sorted(still)}")
+        check(not torch.equal(live["loss_module"]["center"],
+                              init["loss_module"]["center"]),
+              "bf16: the center did not move")
+        print(f"bf16: moved {len(moved)} of {len(live['model'])} model "
+              f"tensors (all BN statistics), the center")
+
+        # ---- resume: auto_resume continues at epoch 3 from 2.pt;
+        # continue_training loads best.pt ----
+        summary3, state3 = train(dataclasses.replace(cfg, num_epochs=3),
+                                 eval_set=eval_set, device=DEVICE,
+                                 return_state=True)
+        with open(os.path.join(out, "train_loss.log")) as f:
+            rows = [line.split() for line in f.readlines()[1:]]
+        check(summary3["epochs"] == 3 and state3.step == 3 * spe
+              and [int(r[0]) for r in rows[-spe:]] == [2] * spe
+              and len(rows) == 3 * spe,
+              f"auto_resume: {summary3}, step {state3.step}, {len(rows)} "
+              f"rows")
+        print(f"auto_resume: epoch 3 of 3 from checkpoint/2.pt, step "
+              f"{2 * spe} -> {state3.step}; {summary3}")
+        _, cont = train(dataclasses.replace(
+            cfg, continue_training=True, auto_resume=False, num_epochs=0),
+            eval_set=eval_set, device=DEVICE, return_state=True)
+        best = restore_checkpoint(os.path.join(out, "best.pt"))
+        check(all(torch.equal(v.cpu(), best["model"][k]) for k, v in
+                  cont.model.state_dict().items())
+              and cont.step == best["step"],
+              "continue_training did not load best.pt")
+        print(f"continue_training: best.pt loaded (step {cont.step})")
+        live = state3.state_dict()
+        del state, state3, cont
+
+        # ---- K graph-replayed steps against K eager steps of the same
+        # capturable step, from one state, with cuDNN's deterministic
+        # algorithms (some of its default ones sum with atomics) ----
+        train_ds = AugmentedFeatureDataset(feats, aug, "train")
+        it = RatioMixIterator(train_ds, B, 0.5, feat_len=T, seed=7,
+                              steps_per_epoch=2 * K).epoch()
+        fb = [{k: torch.from_numpy(b[k]) for k in ("feat", "label")}
+              for b in it]
+        stack = lambda bs: {k: torch.stack([b[k] for b in bs])
+                            for k in bs[0]}
+        torch.backends.cudnn.deterministic = True
+        _, _, st, step, _ = setup_training(cfg, spe, device=DEVICE)
+        st.load_state_dict(live)
+        multi = make_multi_step(step, K)
+        multi(st, stack(fb[:K]))                  # eager K steps, capture
+        st.load_state_dict(live)
+        m_graph = multi(st, stack(fb[K:]))         # replay
+        after_graph = st.state_dict()
+        st.load_state_dict(live)
+        m_eager = [step(st, b) for b in fb[K:]]
+        after_eager = st.state_dict()
+        torch.backends.cudnn.deterministic = False
+        pairs = [(f"loss {k}", m_graph[k], torch.stack([m[k] for m in
+                                                        m_eager]))
+                 for k in m_graph]
+        pairs += [(f"model {k}", v, after_eager["model"][k])
+                  for k, v in after_graph["model"].items()]
+        pairs += [("center", after_graph["loss_module"]["center"],
+                   after_eager["loss_module"]["center"])]
+        pairs += [(f"Adam {n} {k}", v, after_eager["optimizer"][n][k])
+                  for n, st_ in after_graph["optimizer"].items()
+                  for k, v in st_.items()]
+        bitwise = sum(torch.equal(a, b) for _, a, b in pairs)
+        worst = max((float(((a.double() - b.double()).abs()
+                             / b.double().abs().clamp(min=1e-30)).max()),
+                     name) for name, a, b in pairs)
+        print(f"{K} graph-replayed steps vs {K} eager steps of the same "
+              f"capturable step: {bitwise} of {len(pairs)} tensors bitwise "
+              f"equal; largest relative difference {worst[0]:.3e} "
+              f"({worst[1]}) (bar rtol 1e-6, atol 1e-9)")
+        check(all(torch.allclose(a, b, rtol=1e-6, atol=1e-9)
+                  for _, a, b in pairs),
+              f"graph replay disagrees with eager steps: {worst}")
+        check(after_graph["step"] == after_eager["step"] == live["step"] + K,
+              "graph replay step count")
+        del st, multi
+
+        # ---- one bf16 step through B4a/B4b against their plain
+        # versions, and the bf16 forward against f32 ----
+        k1 = dataclasses.replace(cfg, steps_per_call=1)
+        fbatch = {"feat": fb[0]["feat"].to(DEVICE), "label": fb[0]["label"]}
+        step_vs_plain(torch, lambda: setup_training(k1, spe,
+                                                    device=DEVICE)[2],
+                      live, setup_training(k1, spe, device=DEVICE)[3],
+                      fbatch, "bf16")
+        embs = []
+        for dtype in (None, torch.bfloat16):
+            m = ECAPA_TDNN(C=C, fused_pool=True, dtype=dtype,
+                           device=DEVICE).eval()
+            m.load_state_dict(live["model"])
+            with torch.no_grad():
+                embs.append(m(fbatch["feat"])[0])
+        cos = torch.nn.functional.cosine_similarity(embs[1], embs[0], dim=1)
+        print(f"bf16 vs f32 eval forward of the trained weights: embedding "
+              f"cosine min {float(cos.min()):.6f} (bar 0.9996)")
+        check(bool((cos >= 0.9996).all()), f"bf16 embeddings: {cos.min()}")
+        del m, embs
+
+        # ---- on the fly, bf16, K = 8: B1 replays from the graph too ----
+        write_corpus(tmp, B, seed=8, part="train")
+        write_corpus(tmp, B, seed=9, part="dev")
+        n_otf = 18
+        otf = TrainConfig(
+            out_fold=os.path.join(tmp, "otf"), path_to_database=tmp,
+            on_the_fly=True, ratio=1.0, model="ecapa", add_loss="ang_iso",
+            batch_size=B, feat_len=T, num_epochs=1, C=C,
+            compute_dtype="bfloat16", steps_per_call=K, profile=True)
+        raw_train = Repeat(RawAudioDataset("LA", tmp, "train"), n_otf)
+        torch.cuda.synchronize()
+        lc.launches = vj.fwd_launches = vj.bwd_launches = 0
+        summary = train(otf, train_set=raw_train,
+                        dev_set=RawAudioDataset("LA", tmp, "dev"),
+                        device=DEVICE)
+        torch.cuda.synchronize()
+        counts = {"B1": lc.launches, "B4a": vj.fwd_launches,
+                  "B4b": vj.bwd_launches}
+        counted, run, replays = graph_launches(n_otf, K, 1)
+        print(f"on the fly, bf16, K={K}: {n_otf} steps (one capture, "
+              f"{replays} replay(s)) and one dev batch: launches {counts}; "
+              f"per kernel of the step counted {counted}, run {run}")
+        check(counts == {"B1": counted + 1, "B4a": counted + 1,
+                         "B4b": counted},
+              f"on-the-fly bf16 launch counts {counts}")
+        for k, v in counts.items():
+            entries[k]["launches_train_bf16_otf"] = v
+        with open(os.path.join(otf.out_fold, "train_loss.log")) as f:
+            losses = np.array([float(line.split()[2])
+                               for line in f.readlines()[1:]])
+        check(len(losses) == n_otf and bool(np.isfinite(losses).all()),
+              f"on-the-fly bf16 losses {losses}")
+        trace_path = os.path.join(otf.out_fold, "profile", "trace.json")
+        with open(trace_path) as f:
+            traced = [e.get("name", "") for e in json.load(f)["traceEvents"]
+                      if e.get("cat") == "kernel"]
+        check(any("softmax_stats_bwd" in n for n in traced),
+              "the profile of the first steps holds no B4b kernel")
+        print(f"on-the-fly bf16 summary: {summary}; profile of the first "
+              f"{min(20, n_otf)} steps (capture and replay inside): "
+              f"{len(traced)} kernel events, {os.path.getsize(trace_path)} "
+              f"bytes")
+
+        # ---- times: bf16 K = 1 and K = 8, on the fly and from features --
+        fe = OnDeviceFrontend(feat_len=T, device=DEVICE)
+        waves = [{k: torch.from_numpy(b[k]) for k in ("wave", "length",
+                                                      "label")}
+                 for b in WaveformIterator(raw_train, B, fe.min_samples(),
+                                           seed=5, steps_per_epoch=K).epoch()]
+        times = {}
+        for name, batches, frontend in (("on the fly", waves, fe),
+                                        ("from features", fb[:K], None)):
+            k1o = dataclasses.replace(k1, on_the_fly=frontend is not None)
+            _, _, st, step, _ = setup_training(k1o, spe, frontend=frontend,
+                                               device=DEVICE)
+            st.load_state_dict(live)
+            torch.cuda.reset_peak_memory_stats()
+            ms1 = time_ms(torch, lambda: step(st, batches[0]), iters=5)
+            peak1 = torch.cuda.max_memory_allocated() / 2 ** 30
+            if frontend is not None:
+                profile_device(torch, lambda: step(st, batches[0]), ms1,
+                               "bf16 training step")
+            del st
+            _, _, st, step, _ = setup_training(
+                dataclasses.replace(k1o, steps_per_call=K), spe,
+                frontend=frontend, device=DEVICE)
+            st.load_state_dict(live)
+            multi = make_multi_step(step, K)
+            stacked = stack(batches)
+            torch.cuda.reset_peak_memory_stats()
+            ms8 = time_ms(torch, lambda: multi(st, stacked), iters=3,
+                          warmup=2) / K
+            peak8 = torch.cuda.max_memory_allocated() / 2 ** 30
+            if frontend is not None:
+                profile_device(torch, lambda: multi(st, stacked), K * ms8,
+                               f"bf16 {K}-step graph replay")
+            del st, multi
+            times[name] = (ms1, peak1, ms8, peak8)
+    print(f"bf16 training path [{gpu}]: train() {E * spe} steps, {E} dev "
+          f"and {E} eval passes in {wall:.2f} s (host clock, .npy reading, "
+          f"checkpoints, first-call set-up and the capture included)")
+    for name, (ms1, peak1, ms8, peak8) in times.items():
+        print(f"training step {name} [{gpu}] (B={B}, T={T}, C={C}; CUDA "
+              f"events, host-to-device copies of the batches included): "
+              + (f"f32 K=1 {f32_ms:.3f} ms = {B / f32_ms * 1e3:.1f} utt/s; "
+                 if name == "on the fly" else "")
+              + f"bf16 K=1 {ms1:.3f} ms = {B / ms1 * 1e3:.1f} utt/s (peak "
+              f"{peak1:.2f} GiB); bf16 K={K} graph {ms8:.3f} ms/step = "
+              f"{B / ms8 * 1e3:.1f} utt/s (peak {peak8:.2f} GiB)")
 
 
 def main() -> int:
@@ -1368,15 +1720,16 @@ def main() -> int:
     vjp_checks(torch, gen, entries)
     main_path(torch, gpu, entries)
     score_path(torch, gpu, entries)
-    train_path(torch, gpu, entries)
+    f32_ms, _ = train_path(torch, gpu, entries)
+    train_bf16_path(torch, gpu, entries, f32_ms)
 
     kernels = []
     for key in ("B1", "B2", "B3", "B4a", "B4b"):
         e = entries[key]
         bound_ms, bound_by = bound(e["bytes"], e["flops"], e["kind"])
-        by_path = {p: e[f"launches_{p}"] for p in ("serve", "score",
-                                                   "train")
-                   if f"launches_{p}" in e}
+        by_path = {p: e[f"launches_{p}"] for p in (
+            "serve", "score", "train", "train_bf16", "train_bf16_otf")
+            if f"launches_{p}" in e}
         launches = sum(by_path.values())
         print(f"{e['name']} [{gpu}]: max_abs_err {e['max_abs_err']:.3e}, "
               f"{e['ms']:.4f} ms (plain {e['plain_ms']:.4f} ms, bound "

@@ -95,7 +95,10 @@ def test_jax_train_state_through_the_converter_scores_as_jax(
     args = json.load(open(tmp_path / "port" / "args.json"))
     assert (args["C"], args["model_scale"], args["add_loss"],
             args["r_fake"]) == (C, 8, "ang_iso", 0.3)
-    assert "path_to_features" not in args
+    # the feature path is a port field since the port trains from
+    # features; lambda_ (ADV_AUG's) is still dropped
+    assert args["path_to_features"] == "/nowhere"
+    assert "lambda_" not in args
     sd, loss_mod, pcfg = load_system(str(tmp_path / "port"), device="cpu")
     assert pcfg.feat_len == T and loss_mod.r_fake == 0.3
     assert torch.load(tmp_path / "port" / "best.pt",

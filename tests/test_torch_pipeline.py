@@ -100,3 +100,47 @@ def test_sequential_iterator_silence_padding_equals_jax():
         np.testing.assert_allclose(g["feat"], w["feat"], atol=5e-4)
         assert np.array_equal(g["valid"], w["valid"])
         assert np.array_equal(g["fname"], w["fname"])
+
+
+class _MixDataset(_Dataset):
+    """Original items then augmented ones (feat, fname, tag, label,
+    channel), lengths around feat_len = 40 so both the crop and the pad
+    run."""
+
+    def __init__(self, n_ori: int, n_aug: int):
+        lens = [40, 23, 61, 55, 12, 40, 47, 33]
+        super().__init__([
+            (feats(lens[i % len(lens)] + i // len(lens), 30 + i),
+             f"LA_T_{i:07d}", i % 3, i % 2, 0 if i < n_ori else 1 + i % 5)
+            for i in range(n_ori + n_aug)])
+        self.num_original = n_ori
+
+
+@pytest.mark.parametrize("padding", ["repeat", "zero", "silence"])
+@pytest.mark.parametrize("pad_chop", [True, False])
+@pytest.mark.parametrize("ratio,n_aug", [(0.5, 7), (1.0, 0)])
+def test_ratio_mix_iterator_equals_jax(ratio, n_aug, pad_chop, padding):
+    """Two epochs (both index streams wrap around and reshuffle) of batch
+    8 over 13 originals and, at ratio 0.5, an augmented tail of 7: the
+    steps per epoch and every batch equal the JAX iterator's exactly, but
+    the silence frame (atol 5e-4, the LFCC bar)."""
+    ds = _MixDataset(13, n_aug)
+    kw = dict(feat_len=40, padding=padding, seed=5, pad_chop=pad_chop)
+    got_it = pp.RatioMixIterator(ds, 8, ratio, **kw)
+    want_it = jp.RatioMixIterator(ds, 8, ratio, **kw)
+    assert got_it.steps_per_epoch == want_it.steps_per_epoch == (
+        4 if ratio == 0.5 else 2)
+    for _ in range(2):
+        got, want = list(got_it.epoch()), list(want_it.epoch())
+        assert len(got) == len(want) == got_it.steps_per_epoch
+        for g, w in zip(got, want):
+            assert sorted(g) == sorted(w)
+            for k in w:
+                assert g[k].dtype == w[k].dtype, k
+                if k == "feat" and padding == "silence":
+                    np.testing.assert_allclose(g[k], w[k], atol=5e-4)
+                else:
+                    assert np.array_equal(g[k], w[k]), k
+    if ratio == 0.5:
+        assert (got[0]["channel"][:4] == 0).all()
+        assert (got[0]["channel"][4:] > 0).all()
