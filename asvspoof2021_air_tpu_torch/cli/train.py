@@ -5,7 +5,11 @@ files or, ``--on_the_fly``, from raw waveforms.
         -m ecapa --add_loss ang_iso [--LA_aug --path_to_aug_features <aug>] \\
         [--compute_dtype bfloat16] [--steps_per_call 8] [--device cuda]
     python -m asvspoof2021_air_tpu_torch.cli.train -d <database> -o <out> \\
-        -m ecapa --add_loss ang_iso --on_the_fly
+        -m ecapa --add_loss ang_iso --on_the_fly \
+        [--on_device_aug [--apply_ir] [--dev_aug]]
+    python -m asvspoof2021_air_tpu_torch.cli.train -f <features> -o <out> \
+        -m ecapa --add_loss ang_iso --LA_aug --path_to_aug_features <aug> \
+        --ADV_AUG [--lambda_ 0.05] [--lr_d 1e-4]
 
 The argparse front of the JAX package's ``cli/train.py`` for the flags the
 port trains with; ``--C`` and ``--model_scale`` narrow the model. Flags of
@@ -66,9 +70,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--alpha", type=float, default=20.0)
     p.add_argument("--early_stop_patience", type=int, default=500)
     p.add_argument("--continue_training", action="store_true")
-    for flag in ("LA_aug", "DF_aug", "LAPA_aug", "DFPA_aug"):
+    for flag in ("ADV_AUG", "LA_aug", "DF_aug", "LAPA_aug", "DFPA_aug"):
         p.add_argument(f"--{flag}", type=str2bool, nargs="?", const=True,
                        default=False)
+    p.add_argument("--lambda_", type=float, default=0.05,
+                   help="the gradient-reversal scale of the ADV_AUG channel "
+                        "classifiers")
+    p.add_argument("--lr_d", type=float, default=0.0001,
+                   help="the ADV_AUG channel classifiers' learning rate")
     p.add_argument("--test_on_eval", action="store_true")
     p.add_argument("--steps_per_call", type=int, default=1,
                    help="optimizer steps per call (on the card, one CUDA "
@@ -82,6 +91,20 @@ def build_parser() -> argparse.ArgumentParser:
                    default=False,
                    help="train straight from raw audio (-d): LFCC on the "
                         "card inside the step")
+    p.add_argument("--on_device_aug", type=str2bool, nargs="?", const=True,
+                   default=False,
+                   help="a random channel per utterance each step, on the "
+                        "card before LFCC (on_the_fly); dev monitoring "
+                        "stays clean unless --dev_aug")
+    p.add_argument("--apply_ir", type=str2bool, nargs="?", const=True,
+                   default=False,
+                   help="also convolve a random impulse response "
+                        "(on_the_fly)")
+    p.add_argument("--dev_aug", type=str2bool, nargs="?", const=True,
+                   default=False,
+                   help="monitor the dev loss on a fixed-draw augmented dev "
+                        "view (on_the_fly + on_device_aug); scoring and "
+                        "test_on_eval stay clean")
     p.add_argument("--auto_resume", type=str2bool, nargs="?", const=True,
                    default=False,
                    help="resume from the latest epoch checkpoint in out_fold")

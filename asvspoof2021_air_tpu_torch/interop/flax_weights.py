@@ -16,9 +16,12 @@ state_dict.
 and shapes ``ECAPA_TDNN(...).init`` gives, so a full-width model can be
 built without JAX or a checkpoint.
 
+:func:`from_flax_classifier` does the same for the JAX
+``ChannelClassifier`` (``Dense_0``/``Dense_1`` -> ``classifier.0``/``.3``).
+
 :func:`from_flax_train_state` carries a whole JAX ``TrainState`` (ECAPA,
-the OC-Softmax center, the backbone's Adam moments and the step) into the
-port's checkpoint form (``train/state.py``), so both packages can start
+the OC-Softmax center, the ADV_AUG channel classifiers, every Adam's
+moments and the step) into the port's checkpoint form (``train/state.py``), so both packages can start
 from one mid-training state. It reads the state's arrays through numpy and
 imports nothing of JAX.
 """
@@ -147,6 +150,27 @@ def random_flax_variables(seed: int, C: int = 512, model_scale: int = 8,
     return {"params": params, "batch_stats": stats}
 
 
+def from_flax_classifier(params) -> Dict[str, torch.Tensor]:
+    """The JAX ``ChannelClassifier``'s params -> the port's
+    ``ChannelClassifier`` state_dict (the inverse of the JAX package's
+    ``interop/torch_port.port_channel_classifier``)."""
+    sd: Dict[str, torch.Tensor] = {}
+    _dense(sd, "classifier.0", params["Dense_0"])
+    _dense(sd, "classifier.3", params["Dense_1"])
+    return sd
+
+
+def _adam(opt_state, to_state_dict) -> Dict[str, Dict[str, torch.Tensor]]:
+    """An optax chain's ``ScaleByAdamState`` (count, mu, nu) ->
+    ``torch.optim.Adam``'s state ``{step, exp_avg, exp_avg_sq}`` per
+    parameter name, the trees mapped by ``to_state_dict``."""
+    adam = next(s for s in opt_state if hasattr(s, "mu") and hasattr(s, "nu"))
+    mu, nu = to_state_dict(adam.mu), to_state_dict(adam.nu)
+    count = float(np.asarray(adam.count))
+    return {name: {"step": torch.tensor(count), "exp_avg": mu[name],
+                   "exp_avg_sq": nu[name]} for name in mu}
+
+
 def _param_entries(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return {k: v for k, v in sd.items()
             if not k.endswith(("running_mean", "running_var"))}
@@ -161,21 +185,28 @@ def from_flax_train_state(state, model_scale: int = 8) -> Dict[str, Any]:
     - the backbone's ``ScaleByAdamState`` (count, mu, nu) ->
       ``optimizer``: per parameter name, ``torch.optim.Adam``'s state
       ``{step, exp_avg, exp_avg_sq}``;
+    - ``clf_params``/``clf2_params`` (ADV_AUG) -> ``classifier`` and
+      ``classifier2`` state_dicts, their Adam states -> ``clf_optimizer``
+      and ``clf2_optimizer``; None where the run has no such classifier;
     - ``step`` -> ``step``.
 
-    The center's SGD and the learning-rate schedule hold no state."""
+    The center's SGD and the learning-rate schedules hold no state."""
     bs = state.batch_stats
     model = from_flax_variables({"params": state.params, "batch_stats": bs},
                                 model_scale)
-    adam = next(s for s in state.opt_state
-                if hasattr(s, "mu") and hasattr(s, "nu"))
-    moment = lambda tree: _param_entries(from_flax_variables(
-        {"params": tree, "batch_stats": bs}, model_scale))
-    mu, nu = moment(adam.mu), moment(adam.nu)
-    count = float(np.asarray(adam.count))
-    optimizer = {name: {"step": torch.tensor(count), "exp_avg": mu[name],
-                        "exp_avg_sq": nu[name]} for name in mu}
+    optimizer = _adam(state.opt_state, lambda tree: _param_entries(
+        from_flax_variables({"params": tree, "batch_stats": bs},
+                            model_scale)))
     loss = (None if state.loss_params is None
             else {"center": _t(state.loss_params["center"])})
-    return {"step": int(np.asarray(state.step)), "model": model,
-            "loss_module": loss, "optimizer": optimizer}
+    out = {"step": int(np.asarray(state.step)), "model": model,
+           "loss_module": loss, "optimizer": optimizer}
+    for name, opt_name, params, opt in (
+            ("classifier", "clf_optimizer", state.clf_params,
+             state.clf_opt_state),
+            ("classifier2", "clf2_optimizer", state.clf2_params,
+             state.clf2_opt_state)):
+        have = params is not None
+        out[name] = from_flax_classifier(params) if have else None
+        out[opt_name] = _adam(opt, from_flax_classifier) if have else None
+    return out

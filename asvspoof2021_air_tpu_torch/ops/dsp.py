@@ -1,5 +1,7 @@
 """DSP primitives for the LFCC front-end: constant builders in numpy and
-framing, pre-emphasis and deltas on torch tensors.
+framing, pre-emphasis and deltas on torch tensors; the companding and
+quantization helpers (mu-law, A-law, integer codes) of the channel
+augmenter.
 
 The numpy builders are the port's own copy of the JAX package's
 ``ops/dsp.py`` constant builders (the tests hold them equal); every
@@ -138,3 +140,67 @@ def delta(x: torch.Tensor, lengths: Optional[torch.Tensor] = None
         keep = t[None, :, None] < last[:, None, None]
         nxt_x = torch.where(keep, nxt_x, x_last[:, None, :])
     return nxt_x - prv_x
+
+
+# ---------------------------------------------------------------------------
+# Companding and quantization utilities (the JAX package's ops/dsp.py:239-289)
+# ---------------------------------------------------------------------------
+
+def label_2_float(x, bits: int):
+    """Integer code -> float in [-1, 1]."""
+    return 2.0 * x / (2.0 ** bits - 1.0) - 1.0
+
+
+def float_2_label(x: torch.Tensor, bits: int) -> torch.Tensor:
+    """Float wav -> code in [0, 2^bits - 1] (a float), peak-normalizing the
+    whole tensor if |x| > 1 anywhere."""
+    peak = torch.max(torch.abs(x))
+    x = torch.where(peak > 1.0, x / peak, x)
+    x = (x + 1.0) * (2.0 ** bits - 1.0) / 2.0
+    return torch.clamp(x, 0.0, 2.0 ** bits - 1.0)
+
+
+def _f32(v: float) -> float:
+    """``v`` rounded to float32, as JAX computes its constants."""
+    return float(np.float32(v))
+
+
+def mulaw_encode(x: torch.Tensor, quantization_channels: int,
+                 scale_to_int: bool = True) -> torch.Tensor:
+    """mu-law companding of float waveforms in (-1, 1); with
+    ``scale_to_int`` the int32 code (truncated, as an int cast does)."""
+    mu = float(quantization_channels - 1)
+    x = x.float()
+    x_mu = torch.sign(x) * torch.log1p(mu * torch.abs(x)) / _f32(np.log1p(mu))
+    if scale_to_int:
+        x_mu = ((x_mu + 1) / 2 * mu + 0.5).to(torch.int32)
+    return x_mu
+
+
+def mulaw_decode(x_mu: torch.Tensor, quantization_channels: int,
+                 input_int: bool = True) -> torch.Tensor:
+    """Inverse mu-law."""
+    mu = float(quantization_channels - 1)
+    x_mu = x_mu.float()
+    x = (x_mu / mu) * 2 - 1.0 if input_int else x_mu
+    return torch.sign(x) * (torch.exp(torch.abs(x) * _f32(np.log1p(mu)))
+                            - 1.0) / mu
+
+
+def alaw_encode(x: torch.Tensor, A: float = 87.6) -> torch.Tensor:
+    """A-law companding (the G.711 A-law characteristic), float in/out."""
+    ax = torch.abs(x)
+    inv_log = _f32(1.0 / (1.0 + _f32(np.log(np.float32(A)))))
+    y = torch.where(ax < 1.0 / A, A * ax * inv_log,
+                    (1.0 + torch.log(A * torch.clamp(ax, min=1.0 / A)))
+                    * inv_log)
+    return torch.sign(x) * y
+
+
+def alaw_decode(y: torch.Tensor, A: float = 87.6) -> torch.Tensor:
+    """Inverse A-law companding, float in/out."""
+    ay = torch.abs(y)
+    log1pA = _f32(1.0 + _f32(np.log(np.float32(A))))
+    x = torch.where(ay < 1.0 / log1pA, ay * log1pA / A,
+                    torch.exp(ay * log1pA - 1.0) / A)
+    return torch.sign(y) * x

@@ -1,8 +1,9 @@
 """Checkpoints: the whole train state with ``torch.save``.
 
 Counterpart of the JAX package's ``train/checkpoint.py`` (Orbax there): the
-model, the loss module's center, the backbone's Adam state and the step,
-in the form of :meth:`TrainState.state_dict`. The training loop writes
+model, the loss module's center, the backbone's Adam state, the ADV_AUG
+channel classifiers with their Adam states, and the step, in the form of
+:meth:`TrainState.state_dict`. The training loop writes
 ``<out>/checkpoint/<epoch>.pt`` and ``<out>/best.pt``.
 """
 

@@ -1,19 +1,24 @@
-"""On-device front-end: LFCC with per-utterance lengths, then the
-reference's padding policy to ``feat_len`` frames.
+"""On-device front-end: the channel augmenter (optional), LFCC with
+per-utterance lengths, then the reference's padding policy to
+``feat_len`` frames.
 
 Counterpart of the JAX package's ``train/frontend.py`` ``OnDeviceFrontend``
-without its channel augmenter (ROADMAP Queue A): the call form
-``fe(batch, rng, params)`` of the train step, ``params`` (the augmenter's
-tables, so None here) and ``eval_view()``. Without an augmenter the call
-is deterministic and ``rng`` is not read.
+with the call form ``fe(batch, rng, params)`` of the train step:
 
+- with an ``augmenter`` (``ops/augment.ChannelAugmenter``) every
+  utterance draws a channel before LFCC, over the whole (B, L_max)
+  buffer, as in JAX; ``rng`` is the augmenter's draws (a dict from
+  ``ChannelAugmenter.draw``) or a ``torch.Generator`` to draw them from,
+  and ``params`` its tables (:attr:`params`); without one the call is
+  deterministic and ``rng`` is not read;
 - 'repeat':  frame t of a short utterance reads frame t mod T_valid;
 - 'zero':    frames at and past T_valid are zeroed;
 - 'silence': LFCC-of-silence frames are prepended and the valid frames
   shifted right, so output frame t reads valid frame t - (feat_len -
   T_valid).
 
-LFCC runs through kernel B1 (``ops/lfcc_cuda.py``) on the GPU.
+Evaluation runs clean: :meth:`eval_view` drops the augmenter. LFCC runs
+through kernel B1 (``ops/lfcc_cuda.py``) on the GPU.
 """
 
 from __future__ import annotations
@@ -34,14 +39,13 @@ class OnDeviceFrontend:
 
     def __init__(self, feat_len: int = 750, padding: str = "repeat",
                  config: LFCCConfig = LFCCConfig(), augmenter=None,
-                 device="cuda"):
+                 apply_ir: bool = False, device="cuda"):
         if padding not in ("repeat", "zero", "silence"):
             raise ValueError("padding should be zero, repeat, or silence")
-        if augmenter is not None:
-            raise NotImplementedError(
-                "the channel augmenter is not ported (ROADMAP Queue A)")
         self.feat_len = feat_len
         self.padding = padding
+        self.augmenter = augmenter
+        self.apply_ir = apply_ir
         self.device = resolve_device(device)
         self.extractor = CudaLFCC(config, device=self.device)
         self.hop = config.hop_length
@@ -56,12 +60,15 @@ class OnDeviceFrontend:
 
     @property
     def params(self):
-        """The augmenter's tables in JAX; the port has no augmenter."""
-        return None
+        """The augmenter's tables (None without an augmenter)."""
+        return None if self.augmenter is None else self.augmenter.tables
 
     def eval_view(self) -> "OnDeviceFrontend":
         """Augmenter-free copy sharing the extractor, for the eval step."""
-        return copy.copy(self)
+        view = copy.copy(self)
+        view.augmenter = None
+        view.apply_ir = False
+        return view
 
     def __call__(self, batch: Dict[str, torch.Tensor], rng=None,
                  params=None) -> torch.Tensor:
@@ -70,6 +77,12 @@ class OnDeviceFrontend:
         if lengths is None:
             lengths = torch.full((wave.shape[0],), wave.shape[1])
         lengths = lengths.to(self.device).long()
+        if self.augmenter is not None:
+            if rng is None:
+                raise ValueError("the channel augmenter needs rng: its draws "
+                                 "or a torch.Generator")
+            wave, _fam, _ir = self.augmenter(wave, rng, self.apply_ir,
+                                             params)
 
         feats = self.extractor(wave, lengths)             # (B, T_max, D)
         B, T_max, D = feats.shape

@@ -5,17 +5,21 @@ Counterpart of the JAX package's ``train/loop.py`` (``TrainConfig``,
 
 - data: cached feature files (``ASVspoof2019FeatureDataset``, or
   ``AugmentedFeatureDataset`` under ``LA_aug``/``DF_aug``/``LAPA_aug``/
-  ``DFPA_aug``) batched by ``RatioMixIterator``, or, ``on_the_fly``, raw
-  waveforms (``RawAudioDataset`` -> ``WaveformIterator`` ->
-  ``OnDeviceFrontend``, LFCC through kernel B1 on the card); both
-  iterators behind a ``PrefetchIterator``;
+  ``DFPA_aug``, with channel ids) batched by ``RatioMixIterator``, or,
+  ``on_the_fly``, raw waveforms (``RawAudioDataset`` -> ``WaveformIterator``
+  -> ``OnDeviceFrontend``, LFCC through kernel B1 on the card, after the
+  channel augmenter under ``on_device_aug``, with the synthetic IR bank
+  under ``apply_ir``); both iterators behind a ``PrefetchIterator``;
 - the step: ECAPA in train mode (kernels B4a/B4b) in f32 or bf16
-  (``compute_dtype``) -> the base loss and the add-loss -> both
-  optimizers; ``steps_per_call`` > 1 runs K steps per call, on the card as
-  one CUDA graph (``train/steps.make_multi_step``), the epoch's tail
-  shorter than K one step at a time;
+  (``compute_dtype``) -> the base loss and the add-loss (plus, under
+  ``ADV_AUG``, the channel classifiers' CE behind the GRL from the second
+  epoch on, and the classifiers' own phase) -> every optimizer;
+  ``steps_per_call`` > 1 runs K steps per call, on the card as one CUDA
+  graph (``train/steps.make_multi_step``), the epoch's tail shorter than
+  K one step at a time;
 - per epoch the dev pass (dev EER as the min over both score signs, dev
-  loss), the eval-set EER with ``test_on_eval`` and an ``eval_set``, epoch
+  loss; through the augmenter with fixed draws under ``dev_aug``), the
+  eval-set EER with ``test_on_eval`` and an ``eval_set``, epoch
   and ``best`` checkpoints chosen by dev loss, ``train_meta.json`` and
   early stopping; ``continue_training`` restarts from ``best.pt`` and
   ``auto_resume`` from the newest epoch checkpoint with its model-selection
@@ -27,9 +31,11 @@ Writes ``args.json``, ``train_loss.log`` (``epoch step loss`` per step),
 eer``) as the JAX loop does, and returns the same summary dict.
 
 Flags of the JAX loop that this port does not cover raise
-NotImplementedError (``check_supported``). ``C`` and ``model_scale`` are
-the port's own fields, so tests can train a narrow ECAPA; the JAX loop
-always trains C=512, scale 8.
+NotImplementedError (``check_supported``). ``ADV_AUG`` trains from
+augmented feature files only: on the fly the JAX loop's batches carry no
+channel ids, so its step fails there; the port refuses the pair. ``C``
+and ``model_scale`` are the port's own fields, so tests can train a
+narrow ECAPA; the JAX loop always trains C=512, scale 8.
 """
 
 from __future__ import annotations
@@ -47,6 +53,7 @@ import numpy as np
 import torch
 
 from asvspoof2021_air_tpu_torch._device import disable_tf32, resolve_device
+from asvspoof2021_air_tpu_torch.data import protocol as proto
 from asvspoof2021_air_tpu_torch.data.datasets import (
     ASVspoof2019FeatureDataset, AugmentedFeatureDataset, RawAudioDataset)
 from asvspoof2021_air_tpu_torch.data.pipeline import (
@@ -54,7 +61,10 @@ from asvspoof2021_air_tpu_torch.data.pipeline import (
 from asvspoof2021_air_tpu_torch.data.prefetch import PrefetchIterator
 from asvspoof2021_air_tpu_torch.losses.one_class import OCSoftmax
 from asvspoof2021_air_tpu_torch.metrics.eer import compute_eer
+from asvspoof2021_air_tpu_torch.models.classifier import ChannelClassifier
 from asvspoof2021_air_tpu_torch.models.ecapa import ECAPA_TDNN
+from asvspoof2021_air_tpu_torch.ops.augment import (
+    ChannelAugmenter, synthetic_ir_bank)
 from asvspoof2021_air_tpu_torch.train.checkpoint import (
     restore_checkpoint, save_checkpoint)
 from asvspoof2021_air_tpu_torch.train.frontend import OnDeviceFrontend
@@ -109,6 +119,8 @@ class TrainConfig:
     DF_aug: bool = False
     LAPA_aug: bool = False
     DFPA_aug: bool = False
+    lambda_: float = 0.05
+    lr_d: float = 1e-4
     test_on_eval: bool = False
     visualize: bool = False
     early_stop_patience: int = 500
@@ -126,19 +138,29 @@ class TrainConfig:
     model_scale: int = 8
 
 
+def _aug_flag(config: TrainConfig) -> bool:
+    return (config.LA_aug or config.DF_aug or config.LAPA_aug
+            or config.DFPA_aug)
+
+
 def check_supported(config: TrainConfig) -> None:
     """Raise NotImplementedError naming every flag of ``config`` that this
-    port does not train with (ROADMAP Queue A lists them)."""
+    port does not train with (ROADMAP Queue A lists them), and ValueError
+    for ADV_AUG without augmented feature files."""
     c = config
+    if c.ADV_AUG and not _aug_flag(c):
+        raise ValueError("ADV_AUG requires an augmentation flag")
+    if c.ADV_AUG and c.on_the_fly:
+        raise ValueError(
+            "ADV_AUG with on_the_fly: the classifiers train on the channel "
+            "ids of augmented feature files (LA_aug/DF_aug/LAPA_aug/"
+            "DFPA_aug), and waveform batches carry none")
     bad = [name for name, hit in (
         (f"model={c.model!r} (the port trains 'ecapa')", c.model != "ecapa"),
         (f"add_loss={c.add_loss!r} (the port trains None or 'ang_iso')",
          c.add_loss not in (None, "ang_iso")),
         (f"feat={c.feat!r} on the fly (the port's front-end is LFCC)",
          c.on_the_fly and c.feat != "LFCC"),
-        ("ADV_AUG (the channel classifiers)", c.ADV_AUG),
-        ("on_device_aug/dev_aug/apply_ir (the channel augmenter)",
-         c.on_device_aug or c.dev_aug or c.apply_ir),
         (f"ensemble={c.ensemble}", c.ensemble > 1),
         ("visualize", c.visualize),
     ) if hit]
@@ -171,7 +193,7 @@ def build_datasets(config: TrainConfig):
         return tuple(RawAudioDataset(config.access_type,
                                      config.path_to_database, part)
                      for part in ("train", "dev"))
-    if config.LA_aug or config.DF_aug or config.LAPA_aug or config.DFPA_aug:
+    if _aug_flag(config):
         variant = "LA" if (config.LA_aug or config.LAPA_aug) else "DF"
         with_device = config.LAPA_aug or config.DFPA_aug
         return tuple(AugmentedFeatureDataset(
@@ -186,8 +208,12 @@ def setup_training(config: TrainConfig, steps_per_epoch: int, frontend=None,
                    device="cuda"):
     """(model, loss module, state, train step, eval step). The weights are
     drawn from a generator seeded with ``config.seed``: the model's first,
-    then the OC-Softmax center. With ``steps_per_call`` > 1 on the card
-    the state is capturable, for the CUDA graph of K steps."""
+    then the OC-Softmax center, then the channel classifiers (ADV_AUG: one
+    over the LA or DF channels, a second over the devices for LAPA/DFPA).
+    With ``steps_per_call`` > 1 on the card the state is capturable, for
+    the CUDA graph of K steps. The eval step scores clean; its attribute
+    ``dev_eval_step`` is the dev pass's step, through the augmenter with
+    fixed draws under ``dev_aug`` with ``on_device_aug``, as in JAX."""
     check_supported(config)
     dev = resolve_device(device)
     # the JAX setup_training's mapping: bf16 for "bfloat16", else f32
@@ -205,23 +231,45 @@ def setup_training(config: TrainConfig, steps_per_epoch: int, frontend=None,
         loss_mod = OCSoftmax(feat_dim=config.enc_dim, r_real=config.r_real,
                              r_fake=config.r_fake, alpha=config.alpha,
                              generator=gen, device=dev)
+    clf = clf2 = None
+    dual = config.ADV_AUG and (config.LAPA_aug or config.DFPA_aug)
+    if config.ADV_AUG:
+        n_channels = len(proto.LA_CHANNELS if (config.LA_aug
+                                               or config.LAPA_aug)
+                         else proto.DF_CHANNELS)
+        clf = ChannelClassifier(config.enc_dim, n_channels, config.lambda_,
+                                generator=gen, device=dev)
+        if dual:
+            clf2 = ChannelClassifier(config.enc_dim, len(proto.DEVICES),
+                                     config.lambda_, generator=gen,
+                                     device=dev)
     sched = step_decay_schedule(config.lr, config.lr_decay, config.interval,
                                 steps_per_epoch)
+    sched_d = (step_decay_schedule(config.lr_d, config.lr_decay,
+                                   config.interval, steps_per_epoch)
+               if config.ADV_AUG else None)
     state = create_train_state(
         model, loss_mod, sched, config.beta_1, config.beta_2, config.eps,
-        capturable=config.steps_per_call > 1 and dev.type == "cuda")
+        capturable=config.steps_per_call > 1 and dev.type == "cuda",
+        classifier=clf, classifier2=clf2, schedule_d=sched_d)
     step_cfg = StepConfig(add_loss=config.add_loss,
                           base_loss=config.base_loss,
-                          weight_loss=config.weight_loss)
+                          weight_loss=config.weight_loss,
+                          adv_aug=config.ADV_AUG, dual_classifier=dual)
     eval_frontend = frontend.eval_view() if frontend is not None else None
+    eval_step = make_eval_step(step_cfg, eval_frontend, dev)
+    eval_step.dev_eval_step = (
+        make_eval_step(step_cfg, frontend, dev)
+        if config.dev_aug and config.on_device_aug and frontend is not None
+        else eval_step)
     return (model, loss_mod, state,
-            make_train_step(step_cfg, frontend, dev),
-            make_eval_step(step_cfg, eval_frontend, dev))
+            make_train_step(step_cfg, frontend, dev), eval_step)
 
 
 def _tensors(batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     return {k: torch.from_numpy(batch[k])
-            for k in ("feat", "wave", "length", "label") if k in batch}
+            for k in ("feat", "wave", "length", "label", "channel")
+            if k in batch}
 
 
 def _eer(scores: np.ndarray, labels: np.ndarray) -> float:
@@ -310,8 +358,15 @@ def train(config: TrainConfig, train_set=None, dev_set=None, eval_set=None,
     monitor = config.add_loss or "base_loss"
     frontend = None
     if config.on_the_fly:
+        augmenter = None
+        if config.on_device_aug:
+            augmenter = ChannelAugmenter(
+                ir_bank=synthetic_ir_bank() if config.apply_ir else None,
+                device=dev)
         frontend = OnDeviceFrontend(feat_len=config.feat_len,
-                                    padding=config.padding, device=dev)
+                                    padding=config.padding,
+                                    augmenter=augmenter,
+                                    apply_ir=config.apply_ir, device=dev)
         max_samples = frontend.min_samples()
         train_iter, dev_iter = (WaveformIterator(
             data, config.batch_size, max_samples, config.ratio, seed=seed)
@@ -331,8 +386,13 @@ def train(config: TrainConfig, train_set=None, dev_set=None, eval_set=None,
 
     meta_path = os.path.join(config.out_fold, "train_meta.json")
     start_epoch, prev_loss, early_stop = _resume(config, state, meta_path)
+    # the augmenter's base seed (the JAX loop's PRNGKey(seed ^ 0x5EED));
+    # each step draws from it and its own step count
+    rng = config.seed ^ 0x5EED
+    frontend_params = frontend.params if frontend is not None else None
     summary: Dict[str, Any] = {"epochs": 0}
     for epoch in range(start_epoch, config.num_epochs):
+        adv_gate = 1.0 if (config.ADV_AUG and epoch > 0) else 0.0
         t0 = time.time()
         train_log = defaultdict(list)
         profiling = contextlib.ExitStack()
@@ -360,7 +420,8 @@ def train(config: TrainConfig, train_set=None, dev_set=None, eval_set=None,
         pending = []
         for batch in train_iter.epoch():
             if K == 1:
-                record(train_step(state, _tensors(batch)), 1)
+                record(train_step(state, _tensors(batch), rng, adv_gate,
+                                  frontend_params), 1)
                 continue
             pending.append(_tensors(batch))
             if len(pending) < K:
@@ -368,16 +429,19 @@ def train(config: TrainConfig, train_set=None, dev_set=None, eval_set=None,
             stacked = {k: torch.stack([b[k] for b in pending])
                        for k in pending[0]}
             pending = []
-            record(multi_step(state, stacked), K)
+            record(multi_step(state, stacked, rng, adv_gate,
+                              frontend_params), K)
         for batch in pending:       # the epoch's tail shorter than K
-            record(train_step(state, batch), 1)
+            record(train_step(state, batch, rng, adv_gate, frontend_params),
+                   1)
         profiling.close()
 
-        # ---- validation ----
+        # ---- validation (through the augmenter under dev_aug) ----
         dev_log = defaultdict(list)
         scores, labels = [], []
         for batch in dev_iter.epoch():
-            metrics, score, _feats = eval_step(state, _tensors(batch))
+            metrics, score, _feats = eval_step.dev_eval_step(
+                state, _tensors(batch), frontend_params)
             for k, v in metrics.items():
                 dev_log[k].append(float(v))
             scores.append(score.float().cpu().numpy())

@@ -2,21 +2,35 @@
 
 Counterpart of the JAX package's ``train/steps.py`` ``make_train_step``,
 ``make_multi_step`` and ``make_eval_step`` for ``add_loss`` in {None,
-"ang_iso"} and ``base_loss`` in {"ce", "bce"}:
+"ang_iso"} and ``base_loss`` in {"ce", "bce"}, with or without ADV_AUG:
 
 - the base loss is always computed and logged; with an add-loss the
   backbone trains on the add-loss alone, times ``weight_loss``;
+- ADV_AUG (``adv_aug``, ``dual_classifier`` for LAPA/DFPA) adds
+  ``adv_gate * CE(classifier(GRL(feats)), channel)`` to the ang_iso loss
+  (both classifiers' CEs in dual mode), then trains the classifiers on the
+  same embeddings, detached, against their parameters from before the
+  step (``steps.py:139-159, 231-290`` of the JAX package; the reference
+  re-runs the forward for that phase, JAX and the port reuse it). The
+  classifiers run without dropout, as JAX calls them with ``train=False``;
 - a step is front-end (no gradient) -> model in train mode -> losses ->
-  backward -> both optimizers (``TrainState.apply_gradients``);
+  backward -> every optimizer (``TrainState.apply_gradients``);
 - the metrics are the JAX step's: ``base_loss``, the add-loss under its
-  name, and ``total_loss``, as 0-dim tensors;
+  name, ``adv_loss``/``adv_acc`` and ``clf_loss``/``clf_acc`` under
+  ADV_AUG, and ``total_loss``, as 0-dim tensors;
 - the eval step scores as the JAX one does: softmax[:, 0] of the logits
   for CE, the logit for BCE, the loss module's score (-cos) for ang_iso;
+  with an augmenting front-end (``dev_aug``) it draws the same channels
+  for every batch, as JAX's eval step passes one fixed key;
 - ``make_multi_step`` runs K steps per call, the JAX ``lax.scan`` over K
   stacked batches: on the card as one CUDA graph of K steps, replayed.
 
-The other losses, ``adv_aug`` and ``remat_policy`` raise
-NotImplementedError.
+The augmenter's draws at a training step are a function of the run's seed
+and the step alone (:func:`step_generator`), as the JAX step folds the
+step into its key: a step draws the same eagerly, in a graph's replay and
+after a resume.
+
+The other losses and ``remat_policy`` raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -24,6 +38,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable, Dict, List, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -36,9 +51,10 @@ class StepConfig:
     add_loss: Optional[str] = None        # None | "ang_iso"
     base_loss: str = "ce"                 # "ce" | "bce"
     weight_loss: float = 1.0
-    # The JAX StepConfig's switches for what the port does not train with
-    # yet (ROADMAP Queue A); set, they raise.
     adv_aug: bool = False
+    dual_classifier: bool = False         # codec + device classifiers
+    # The JAX StepConfig's switch that the port does not train with yet
+    # (ROADMAP Queue A); set, it raises.
     remat_policy: Optional[str] = None
 
 
@@ -49,9 +65,6 @@ def _check(config: StepConfig) -> None:
             "'ang_iso' (the other losses are ROADMAP Queue A)")
     if config.base_loss not in ("ce", "bce"):
         raise ValueError(f"base_loss {config.base_loss!r}")
-    if config.adv_aug:
-        raise NotImplementedError("adv_aug (the channel classifiers) is not "
-                                  "ported")
     if config.remat_policy is not None:
         raise NotImplementedError("remat_policy is not ported")
 
@@ -67,29 +80,80 @@ def base_loss_and_score(base_loss: str, logits: torch.Tensor,
     return F.cross_entropy(logits, labels), torch.softmax(logits, dim=1)[:, 0]
 
 
-def _features(batch, frontend, rng, frontend_params, device):
-    if "feat" in batch:
-        return batch["feat"].to(device)
-    return frontend(batch, rng, frontend_params)
+def step_generator(seed: int, step: int, device) -> torch.Generator:
+    """The generator of the augmenter's draws at training step ``step`` of a
+    run whose base seed is ``seed``: a fresh ``torch.Generator`` on
+    ``device`` seeded from (seed, step) alone. The draws are made eagerly,
+    outside any CUDA graph (a graph takes them as static inputs, like its
+    batches), so a replayed step draws bit for bit what the same step draws
+    eagerly."""
+    s = np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)[0]
+    return torch.Generator(device=device).manual_seed(int(s) >> 1)
+
+
+def _accuracy(logits: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    return (torch.argmax(logits, 1) == target).float().mean()
+
+
+def _channel_ce(state: TrainState, config: StepConfig, x: torch.Tensor,
+                channel: torch.Tensor):
+    """(CE of the classifier(s) on ``x`` against ``channel``, the first
+    classifier's accuracy): CE(c1, channel) or, dual, CE(c1, channel[:,
+    0]) + CE(c2, channel[:, 1])."""
+    if not config.dual_classifier:
+        c1 = state.classifier(x)
+        return F.cross_entropy(c1, channel), _accuracy(c1, channel)
+    c1, c2 = state.classifier(x), state.classifier2(x)
+    return (F.cross_entropy(c1, channel[:, 0])
+            + F.cross_entropy(c2, channel[:, 1]),
+            _accuracy(c1, channel[:, 0]))
+
+
+def _augmenter(frontend):
+    return getattr(frontend, "augmenter", None)
 
 
 def make_train_step(config: StepConfig, frontend: Optional[Callable] = None,
                     device="cuda") -> Callable:
-    """``step(state, batch, rng=None, frontend_params=None) -> metrics``.
+    """``step(state, batch, rng=None, adv_gate=0.0, frontend_params=None,
+    draws=None) -> metrics``.
 
-    ``batch`` holds 'feat' (B, T, F) or 'wave' (B, L) + 'length', and
-    'label' (B,), as tensors. ``frontend(batch, rng, params)`` turns a
-    waveform batch into features on ``device``. The step updates ``state``
-    in place (parameters, BN statistics, optimizer states, step)."""
+    ``batch`` holds 'feat' (B, T, F) or 'wave' (B, L) + 'length', 'label'
+    (B,) and, under ADV_AUG, 'channel' ((B,) or (B, 2)), as tensors.
+    ``frontend(batch, draws, params)`` turns a waveform batch into features
+    on ``device``. ``rng`` is the run's base seed (an int): with an
+    augmenting front-end the step draws from ``step_generator(rng,
+    state.step)`` unless ``draws`` are given. ``adv_gate`` multiplies the
+    adversarial term (0 in the first epoch, then 1). The step updates
+    ``state`` in place (parameters, BN statistics, optimizer states,
+    step). ``step.draw(rng, step, batch, out=None)`` gives the draws it
+    would make at ``step`` (None without an augmenter), written into
+    ``out``'s tensors where given."""
     _check(config)
     dev = resolve_device(device)
+    augmenter = _augmenter(frontend)
+
+    def draw(rng, step: int, batch: Dict[str, Any], out=None):
+        if augmenter is None or "feat" in batch:
+            return None
+        if rng is None:
+            raise ValueError("the channel augmenter draws from the run's "
+                             "seed: pass rng")
+        return augmenter.draw(batch["wave"].shape,
+                              step_generator(rng, step, dev), out)
 
     def train_step(state: TrainState, batch: Dict[str, Any], rng=None,
-                   frontend_params=None) -> Dict[str, torch.Tensor]:
+                   adv_gate: float = 0.0, frontend_params=None,
+                   draws=None) -> Dict[str, torch.Tensor]:
         state.model.train()
         labels = batch["label"].to(dev).long()
         with torch.no_grad():
-            x = _features(batch, frontend, rng, frontend_params, dev)
+            if "feat" in batch:
+                x = batch["feat"].to(dev)
+            else:
+                if draws is None:
+                    draws = draw(rng, state.step, batch)
+                x = frontend(batch, draws, frontend_params)
         state.zero_grad()
         feats, logits = state.model(x)
         base, _ = base_loss_and_score(config.base_loss, logits, labels)
@@ -100,21 +164,44 @@ def make_train_step(config: StepConfig, frontend: Optional[Callable] = None,
             add, _scores = state.loss_module(feats, labels)
             metrics[config.add_loss] = add.detach()
             total = add * config.weight_loss
-        total.backward()
+        if config.adv_aug:
+            channel = batch["channel"].to(dev).long()
+            if config.add_loss == "ang_iso":
+                adv, acc = _channel_ce(state, config, feats, channel)
+                metrics["adv_loss"], metrics["adv_acc"] = adv.detach(), acc
+                total = total + state.gate(adv_gate) * adv
+            # the classifier phase: the same embeddings, detached, against
+            # the classifiers' parameters from before this step
+            clf_loss, clf_acc = _channel_ce(state, config, feats.detach(),
+                                            channel)
+            metrics["clf_loss"], metrics["clf_acc"] = (clf_loss.detach(),
+                                                       clf_acc)
+        # the backbone's loss trains the model and the loss module only
+        # (JAX differentiates it w.r.t. params and loss_params); the
+        # adversarial term's gradient reaches the classifiers' parameters
+        # too, and is not accumulated there
+        total.backward(inputs=state.trained_parameters())
+        if config.adv_aug:
+            clf_loss.backward(inputs=[p for c in state.classifiers()
+                                      for p in c.parameters()])
         state.apply_gradients()
         metrics["total_loss"] = total.detach()
         return metrics
 
+    train_step.draw = draw
     return train_step
 
 
 def _run_steps(train_step: Callable, state: TrainState,
-               batches: Dict[str, torch.Tensor], n_steps: int,
-               frontend_params) -> Dict[str, torch.Tensor]:
+               batches: Dict[str, torch.Tensor], n_steps: int, rng,
+               adv_gate: float, frontend_params,
+               draws: Optional[List] = None) -> Dict[str, torch.Tensor]:
     """``n_steps`` calls of the step over stacked batches; the metrics
     stacked."""
-    ms = [train_step(state, {k: v[i] for k, v in batches.items()}, None,
-                     frontend_params) for i in range(n_steps)]
+    ms = [train_step(state, {k: v[i] for k, v in batches.items()}, rng,
+                     adv_gate, frontend_params,
+                     None if draws is None else draws[i])
+          for i in range(n_steps)]
     return {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
 
 
@@ -126,20 +213,33 @@ class _GraphedSteps:
         self.train_step, self.n_steps = train_step, n_steps
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.static: Dict[str, torch.Tensor] = {}
+        self.draws: Optional[List] = None
         self.out: Dict[str, torch.Tensor] = {}
         self.captured: List[int] = []
 
     @staticmethod
     def _pointers(state: TrainState) -> List[int]:
         ts = [*state.model.parameters(), *state.model.buffers()]
-        if state.loss_module is not None:
-            ts += list(state.loss_module.parameters())
+        for m in (state.loss_module, *state.classifiers()):
+            if m is not None:
+                ts += list(m.parameters())
         ts += [p.grad for p in ts if p.grad is not None]
-        ts += [v for st in state.optimizer.state.values()
-               for v in st.values()]
-        return [t.data_ptr() for t in ts] + [state.lr.data_ptr()]
+        ts += [v for opt in state.optimizers() for st in opt.state.values()
+               for v in st.values() if torch.is_tensor(v)]
+        ts += [state.lr, state.lr_d, state.adv_gate]
+        return [t.data_ptr() for t in ts]
+
+    def _draws(self, rng, step: int, batches, out=None):
+        """Each inner step's draws, made eagerly from (rng, step + i);
+        written into ``out``'s buffers where given."""
+        ds = [self.train_step.draw(rng, step + i,
+                                   {k: v[i] for k, v in batches.items()},
+                                   None if out is None else out[i])
+              for i in range(self.n_steps)]
+        return None if ds[0] is None else ds
 
     def __call__(self, state: TrainState, batches: Dict[str, torch.Tensor],
+                 rng=None, adv_gate: float = 0.0,
                  frontend_params=None) -> Dict[str, torch.Tensor]:
         if not state.capturable:
             raise ValueError("a CUDA graph of training steps needs a "
@@ -149,19 +249,24 @@ class _GraphedSteps:
         if self.graph is None:
             # The first call's K steps run eagerly on a side stream: real
             # steps of the run, which also warm up what the capture needs
-            # (Adam's state, the libraries' workspaces). Then the capture
-            # records the same K steps over static buffers, running none.
+            # (Adam's state, the libraries' workspaces, cuFFT's plans).
+            # Then the capture records the same K steps over static
+            # buffers (batches and the augmenter's draws), running none.
             self.static = {k: v.to(dev, copy=True) for k, v in
                            batches.items()}
             side = torch.cuda.Stream(dev)
             side.wait_stream(torch.cuda.current_stream(dev))
-            run = lambda: _run_steps(self.train_step, state, self.static,
-                                     self.n_steps, frontend_params)
             with torch.cuda.stream(side):
-                out = run()
+                out = _run_steps(self.train_step, state, self.static,
+                                 self.n_steps, rng, adv_gate,
+                                 frontend_params)
                 step, graph = state.step, torch.cuda.CUDAGraph()
+                self.draws = self._draws(rng, step, self.static)
                 with torch.cuda.graph(graph, stream=side):
-                    self.out = run()
+                    self.out = _run_steps(self.train_step, state,
+                                          self.static, self.n_steps, rng,
+                                          adv_gate, frontend_params,
+                                          self.draws)
                 state.step = step
             torch.cuda.current_stream(dev).wait_stream(side)
             self.graph, self.captured = graph, self._pointers(state)
@@ -176,34 +281,40 @@ class _GraphedSteps:
                              f"{want}, not {got}")
         for k, v in batches.items():
             self.static[k].copy_(v, non_blocking=True)
+        if self.draws is not None:
+            self._draws(rng, state.step, self.static, self.draws)
         state.set_rate()
+        state.gate(adv_gate)
         self.graph.replay()
         state.step += self.n_steps
         return {k: v.clone() for k, v in self.out.items()}
 
 
 def make_multi_step(train_step: Callable, n_steps: int) -> Callable:
-    """``multi_step(state, batches, frontend_params=None) -> metrics``:
-    ``n_steps`` steps of ``train_step`` over ``batches``, a dict of
-    tensors with a leading (n_steps, ...) axis; each metric comes back as
-    one (n_steps,) tensor. The JAX ``make_multi_step`` (a ``lax.scan``).
+    """``multi_step(state, batches, rng=None, adv_gate=0.0,
+    frontend_params=None) -> metrics``: ``n_steps`` steps of ``train_step``
+    over ``batches``, a dict of tensors with a leading (n_steps, ...) axis;
+    each metric comes back as one (n_steps,) tensor. The JAX
+    ``make_multi_step`` (a ``lax.scan``).
 
     On a CPU state it calls the step ``n_steps`` times. On the card the
     state must be capturable: the first call runs its steps eagerly, then
-    captures them as one CUDA graph (front-end, forward, backward, both
-    optimizers); every later call copies its batches into the graph's
-    static buffers, writes the learning rate (constant within a call) and
+    captures them as one CUDA graph (front-end and augmenter, forward,
+    backward, every optimizer); every later call copies its batches and
+    the augmenter's draws for its steps into the graph's static buffers,
+    writes the learning rates and the gate (constant within a call) and
     replays. The batches must keep their shapes. A kernel launched inside
     the graph counts its launch once, at the capture. A failed capture
     raises; nothing falls back to eager steps."""
     graphed = _GraphedSteps(train_step, n_steps)
 
     def multi_step(state: TrainState, batches: Dict[str, torch.Tensor],
+                   rng=None, adv_gate: float = 0.0,
                    frontend_params=None) -> Dict[str, torch.Tensor]:
         if next(state.model.parameters()).is_cuda:
-            return graphed(state, batches, frontend_params)
-        return _run_steps(train_step, state, batches, n_steps,
-                          frontend_params)
+            return graphed(state, batches, rng, adv_gate, frontend_params)
+        return _run_steps(train_step, state, batches, n_steps, rng,
+                          adv_gate, frontend_params)
 
     return multi_step
 
@@ -211,16 +322,28 @@ def make_multi_step(train_step: Callable, n_steps: int) -> Callable:
 def make_eval_step(config: StepConfig, frontend: Optional[Callable] = None,
                    device="cuda") -> Callable:
     """``step(state, batch, frontend_params=None) -> (metrics, score,
-    feats)`` with the model in eval mode and no gradient."""
+    feats)`` with the model in eval mode and no gradient. An augmenting
+    front-end draws once per batch shape from a generator seeded 0 and
+    reuses the draws for every batch, as the JAX eval step passes
+    ``PRNGKey(0)`` to its front-end."""
     _check(config)
     dev = resolve_device(device)
+    augmenter = _augmenter(frontend)
+    fixed: Dict[Any, Any] = {}
 
     def eval_step(state: TrainState, batch: Dict[str, Any],
                   frontend_params=None):
         state.model.eval()
         labels = batch["label"].to(dev).long()
         with torch.no_grad():
-            x = _features(batch, frontend, None, frontend_params, dev)
+            if "feat" in batch:
+                x = batch["feat"].to(dev)
+            else:
+                shape = tuple(batch["wave"].shape)
+                if augmenter is not None and shape not in fixed:
+                    fixed[shape] = augmenter.draw(
+                        shape, torch.Generator(device=dev).manual_seed(0))
+                x = frontend(batch, fixed.get(shape), frontend_params)
             feats, logits = state.model(x)
             base, score = base_loss_and_score(config.base_loss, logits,
                                               labels)

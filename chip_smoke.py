@@ -86,7 +86,29 @@ Phases, each fatal on failure:
    utterances/s by CUDA events for f32 K=1 (phase 4's), bf16 K=1 and
    bf16 K=8 on the fly and from features, peak memory, and profiles of a
    bf16 step and of one 8-step replay by kernel group with the device's
-   busy share.
+   busy share;
+4c. drive channel-robust training at full width: ``train`` with
+   ``ADV_AUG`` (the GRL channel classifier over the 60 LA channels) in
+   bf16 with ``steps_per_call=8`` from a synthetic ``LA_aug`` tree whose
+   augmented files carry 59 channels, 2 epochs of 10 steps, so that the
+   adversarial gate flips from 0 to 1 between two replays of one graph;
+   check the launch counts, the losses, that the classifier moved in
+   epoch 0, that ``auto_resume`` restores it; 8 replayed steps against 8
+   eager steps at gate 0 and at gate 1 (rtol 1e-6; ``adv_loss``,
+   ``clf_loss``, ``clf_acc`` finite, and the total loss ang_iso + gate x
+   adv_loss in the replay); one ADV bf16 step through B4a/B4b against
+   their plain versions at gate 1 (phase 4's bars); then ADV_AUG in f32
+   at one step a call with two classifiers (channels and devices) from a
+   ``LAPA_aug`` tree; then on the fly, bf16, K = 8, with the channel
+   augmenter (``on_device_aug``, ``apply_ir``, ``dev_aug``), 18 steps;
+   the augmenter on the card against the same augmenter on the CPU with
+   the same draws at (64, 119840) (1e-5; the G.711 families' samples
+   99.9% within 1e-5 and the rest one code step away); 8 replayed steps
+   against 8 eager ones with the augmenter on; print ms per step and
+   utt/s by CUDA events on the fly with and without the augmenter and
+   from features with and without ADV_AUG (bf16, K = 8), the augmenter's
+   own ms at (64, 119840), peak memory, and a profile of one replay with
+   the augmenter.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is the device JSON. The script imports only the port, torch and
@@ -187,6 +209,7 @@ KERNEL_GROUPS = (
                       "attentive_pool_kernel")),
     # cuDNN's convolutions run implicit-GEMM kernels ("..._xmma_wgrad_
     # implicit_gemm_..."), so they are matched before cuBLAS's GEMMs.
+    ("FFT (cuFFT)", ("fft",)),
     ("conv (cuDNN)", ("conv", "cudnn", "implicit", "wgrad", "dgrad",
                       "fprop")),
     ("matmul (cuBLAS)", ("gemm", "nvjet", "xmma", "cutlass", "cublas")),
@@ -944,11 +967,12 @@ def main_path(torch, gpu: str, entries):
 
 
 def write_feature_tree(root: str, n: int, seed: int, labeled: bool,
-                       suffix: str = ""):
+                       suffix=""):
     """n LFCC-shaped feature files (1, T', 60) .npy with the reference
     cache's names (``suffix`` appended, such as an augmented copy's
-    ``_<channel>``): T' = 750 mostly, some shorter (repeat-padded), some
-    longer (cropped). Returns the filenames in the dataset's order."""
+    ``_<channel>``; a function of the file's index for one per file): T' =
+    750 mostly, some shorter (repeat-padded), some longer (cropped).
+    Returns the filenames in the dataset's order."""
     g = np.random.default_rng(seed)
     os.makedirs(root)
     names = []
@@ -960,8 +984,9 @@ def write_feature_tree(root: str, n: int, seed: int, labeled: bool,
             x[..., :20] += 0.5
         if labeled:
             fname = f"LA_D_{1000000 + i}"
+            sfx = suffix(i) if callable(suffix) else suffix
             base = (f"{i:06d}_{fname}_{'A0' + str(1 + i % 6) if label else '-'}"
-                    f"_{'spoof' if label else 'bonafide'}{suffix}")
+                    f"_{'spoof' if label else 'bonafide'}{sfx}")
         else:
             fname = base = f"LA_E_{2000000 + i}"
             base = f"{i:06d}_{fname}"
@@ -1175,7 +1200,8 @@ RUNNING = ("running_mean", "running_var")
 
 def step_vs_plain(torch, fresh_state, live, step, fbatch, tag: str):
     """One training step from state ``live`` on ``fbatch`` through B4a/B4b
-    against the same step through their plain versions (phases 4, 4b)."""
+    against the same step through their plain versions (phases 4, 4b,
+    4c)."""
     runs = []
     # The kernel step twice (its own spread), the plain step, and the
     # plain step with its sums over T reversed (the spread of the same
@@ -1191,7 +1217,7 @@ def step_vs_plain(torch, fresh_state, live, step, fbatch, tag: str):
         runs.append((metrics, grads, {
             k: v.clone() for k, v in st.model.state_dict().items()
             if k.endswith(RUNNING)}))
-    (m_k, g_k, s_k), (_, g_k2, _), (m_p, g_p, s_p), (_, g_r, _) = runs
+    (m_k, g_k, s_k), (_, g_k2, _), (m_p, g_p, s_p), (_, g_r, s_r) = runs
     # Loss: rtol 1e-4 (mu, e2 summed in another order, through
     # train-mode BN over the batch and the softplus); in bf16 one bf16
     # ulp, 2^-8, relative: [mu || sigma] is rounded to bf16 before bn5,
@@ -1214,10 +1240,18 @@ def step_vs_plain(torch, fresh_state, live, step, fbatch, tag: str):
     # own reading times 4, or 1e-4). Gradients that are exactly zero in
     # the plain step (the Function's db2, the zeros given to fc7 and bn7)
     # are exactly zero in the kernel step. BN statistics: atol 1e-5 and
-    # the losses' rtol.
+    # the losses' rtol, or, where larger, what one ulp of the compute
+    # type at each of the statistic's inputs moves it by (bn_ulp_bars).
     rtol = 1e-4 if tag == "f32" else 2.0 ** -8
     for k in m_k:
         a, b = float(m_k[k]), float(m_p[k])
+        if k.endswith("_acc"):
+            # a channel classifier's accuracy over the batch (phase 4c):
+            # an argmax among ReLU outputs may flip on one utterance
+            print(f"{tag} kernel vs plain step: {k} {a:.5f} vs {b:.5f} "
+                  f"(bar one utterance, {1 / B:.5f})")
+            check(abs(a - b) <= 1 / B + 1e-7, f"{tag} step {k}: {a} vs {b}")
+            continue
         print(f"{tag} kernel vs plain step: {k} {a:.7f} vs {b:.7f} (rtol "
               f"{rtol:.2e})")
         check(abs(a - b) <= rtol * abs(b), f"{tag} step {k}: {a} vs {b}")
@@ -1253,13 +1287,87 @@ def step_vs_plain(torch, fresh_state, live, step, fbatch, tag: str):
     for n in g_p:
         if float(g_p[n].abs().max()) == 0:
             check(bool((g_k[n] == 0).all()), f"{tag} gradient {n} not zero")
+    ulp_bars = bn_ulp_bars(torch, st.model, live["model"], s_p,
+                           2.0 ** -23 if tag == "f32" else 2.0 ** -7)
     worst_stat = max((max_err(s_k[k], s_p[k]), k) for k in s_p)
+    worst_rev = max((max_err(s_r[k], s_p[k]), k) for k in s_p)
     print(f"{tag} kernel vs plain step: BN statistics largest difference "
           f"{worst_stat[0]:.3e} ({worst_stat[1]}; rtol {rtol:.2e}, atol "
-          f"1e-5)")
+          f"1e-5, or one input ulp); plain step with sums over T reversed "
+          f"{worst_rev[0]:.3e} ({worst_rev[1]})")
     for k in s_p:
-        check(torch.allclose(s_k[k], s_p[k], rtol=rtol, atol=1e-5),
+        bar = torch.maximum(rtol * s_p[k].abs() + 1e-5, ulp_bars[k])
+        diff = (s_k[k] - s_p[k]).abs()
+        if not torch.allclose(s_k[k], s_p[k], rtol=rtol, atol=1e-5):
+            print(f"{tag} BN statistic {k}: kernel vs plain "
+                  f"{float(diff.max()):.3e} past rtol/atol, within "
+                  f"{float(ulp_bars[k].max()):.3e} (one input ulp)"
+                  if bool((diff <= bar).all()) else
+                  f"{tag} BN statistic {k}: kernel vs plain "
+                  f"{float(diff.max()):.3e}, bar {float(bar.max()):.3e}")
+        check(bool((diff <= bar).all()),
               f"{tag} step BN statistic {k} disagrees")
+
+
+def bn_ulp_bars(torch, model, before, after, eps: float):
+    """For each running statistic in ``after`` (a model's BN buffers after
+    one train-mode step from ``before``), how far it moves when each input
+    of the batch statistic moves by one ulp of its type, ``eps`` |x| (bf16:
+    2^-7; f32: 2^-23). The batch statistics follow from the update rule
+    r' = m r + (1 - m) b: with ms = var + mu^2 and rms = sqrt(ms), the
+    mean moves by at most eps rms and the variance by 2 eps (ms + |mu|
+    rms); a running statistic by (1 - m) times that. In bf16 a logit that
+    moves by one ulp (the sums over T in another order suffice) moves
+    bn7's batch mean by ulp / B, past 2^-8 of a mean near zero (on an H100
+    80GB HBM3 at 700 W, bn7's running mean 0.0074014 plain, 0.0072549
+    reversed and through B4a)."""
+    modules = dict(model.named_modules())
+    bars = {}
+    for k in after:
+        name = k.rsplit(".", 1)[0]
+        m = modules[name].momentum
+        mu, var = ((after[f"{name}.{s}"] - m * before[f"{name}.{s}"]) / (1 - m)
+                   for s in RUNNING)
+        ms = var.clamp(min=0) + mu * mu
+        rms = ms.sqrt()
+        d = eps * rms if k.endswith("running_mean") else \
+            2 * eps * (ms + mu.abs() * rms)
+        bars[k] = (1 - m) * d
+    return bars
+
+
+def check_replay(torch, m_graph, after_graph, m_eager, after_eager,
+                 start: int, k: int, what: str) -> None:
+    """K graph-replayed steps against K eager steps from one state: the
+    metrics and every tensor of the two states after them (model, center,
+    classifiers, every Adam state), rtol 1e-6, atol 1e-9 (phases 4b,
+    4c)."""
+    pairs = [(f"metric {n}", m_graph[n], torch.stack([m[n] for m in
+                                                      m_eager]))
+             for n in m_graph]
+    for part, got in after_graph.items():
+        want = after_eager[part]
+        if part == "step" or got is None:
+            continue
+        for n, v in got.items():
+            if isinstance(v, dict):         # an Adam state per parameter
+                pairs += [(f"{part} {n} {key}", t, want[n][key])
+                          for key, t in v.items()]
+            else:
+                pairs.append((f"{part} {n}", v, want[n]))
+    bitwise = sum(torch.equal(a, b) for _, a, b in pairs)
+    worst = max((float(((a.double() - b.double()).abs()
+                         / b.double().abs().clamp(min=1e-30)).max()),
+                 name) for name, a, b in pairs)
+    print(f"{k} graph-replayed steps vs {k} eager steps of {what}: "
+          f"{bitwise} of {len(pairs)} tensors bitwise equal; largest "
+          f"relative difference {worst[0]:.3e} ({worst[1]}) (bar rtol "
+          f"1e-6, atol 1e-9)")
+    check(all(torch.allclose(a, b, rtol=1e-6, atol=1e-9)
+              for _, a, b in pairs),
+          f"graph replay disagrees with eager steps ({what}): {worst}")
+    check(after_graph["step"] == after_eager["step"] == start + k,
+          f"graph replay step count ({what})")
 
 
 def train_path(torch, gpu: str, entries):
@@ -1557,29 +1665,8 @@ def train_bf16_path(torch, gpu: str, entries, f32_ms: float):
         m_eager = [step(st, b) for b in fb[K:]]
         after_eager = st.state_dict()
         torch.backends.cudnn.deterministic = False
-        pairs = [(f"loss {k}", m_graph[k], torch.stack([m[k] for m in
-                                                        m_eager]))
-                 for k in m_graph]
-        pairs += [(f"model {k}", v, after_eager["model"][k])
-                  for k, v in after_graph["model"].items()]
-        pairs += [("center", after_graph["loss_module"]["center"],
-                   after_eager["loss_module"]["center"])]
-        pairs += [(f"Adam {n} {k}", v, after_eager["optimizer"][n][k])
-                  for n, st_ in after_graph["optimizer"].items()
-                  for k, v in st_.items()]
-        bitwise = sum(torch.equal(a, b) for _, a, b in pairs)
-        worst = max((float(((a.double() - b.double()).abs()
-                             / b.double().abs().clamp(min=1e-30)).max()),
-                     name) for name, a, b in pairs)
-        print(f"{K} graph-replayed steps vs {K} eager steps of the same "
-              f"capturable step: {bitwise} of {len(pairs)} tensors bitwise "
-              f"equal; largest relative difference {worst[0]:.3e} "
-              f"({worst[1]}) (bar rtol 1e-6, atol 1e-9)")
-        check(all(torch.allclose(a, b, rtol=1e-6, atol=1e-9)
-                  for _, a, b in pairs),
-              f"graph replay disagrees with eager steps: {worst}")
-        check(after_graph["step"] == after_eager["step"] == live["step"] + K,
-              "graph replay step count")
+        check_replay(torch, m_graph, after_graph, m_eager, after_eager,
+                     live["step"], K, "the same capturable step")
         del st, multi
 
         # ---- one bf16 step through B4a/B4b against their plain
@@ -1694,6 +1781,381 @@ def train_bf16_path(torch, gpu: str, entries, f32_ms: float):
               f"{B / ms8 * 1e3:.1f} utt/s (peak {peak8:.2f} GiB)")
 
 
+def _codes(torch, x, law: str):
+    """The 8-bit code nearest to each sample of a G.711 law's output, in
+    float64."""
+    from asvspoof2021_air_tpu_torch.ops import dsp
+
+    x = x.double().clamp(-1, 1)
+    if law == "u":
+        y = torch.sign(x) * torch.log1p(255 * x.abs()) / np.log1p(255)
+        return torch.floor((y + 1) / 2 * 255 + 0.5)
+    return torch.round(dsp.alaw_encode(x) * 127)
+
+
+def augmenter_vs_cpu(torch, augmenter, cpu_augmenter, wave, draws) -> float:
+    """The augmenter on the card against the same augmenter on the CPU
+    with the same draws: the family and IR indices equal; per utterance,
+    1e-5, or for a G.711 family 99.9% of the samples within 1e-5 and
+    every other one code step away (an FFT's rounding can move a sample
+    across a code boundary). u-law's boundary between codes 127 and 128
+    is 0 itself, so a silent stretch (the zero padding of a short
+    utterance, filtered to FFT rounding noise) takes the sign of that
+    noise: such samples are counted apart from the 99.9%, and held to the
+    one code step. Returns the largest difference."""
+    got, fam, ir = augmenter(wave, draws, apply_ir=True)
+    want, fam_c, ir_c = cpu_augmenter(
+        wave.cpu(), {k: v.cpu() for k, v in draws.items()}, apply_ir=True)
+    check(torch.equal(fam.cpu(), fam_c) and torch.equal(ir.cpu(), ir_c),
+          "augmenter: family or IR indices differ between card and CPU")
+    got = got.cpu()
+    worst, worst_linear, flips, silent = 0.0, 0.0, 0, 0
+    for i, f in enumerate(fam_c.long().tolist()):
+        law = augmenter.families[f].law
+        diff = (got[i] - want[i]).abs()
+        worst = max(worst, float(diff.max()))
+        if law is None:
+            worst_linear = max(worst_linear, float(diff.max()))
+            check(float(diff.max()) <= 1e-5,
+                  f"augmenter utterance {i} ({augmenter.families[f].name}) "
+                  f"differs by {float(diff.max())}")
+            continue
+        far = diff > 1e-5
+        c_got, c_want = _codes(torch, got[i], law), _codes(torch, want[i], law)
+        step = (c_got - c_want).abs()
+        zero = (far & (torch.minimum(c_got, c_want) == 127)
+                & (torch.maximum(c_got, c_want) == 128)) if law == "u" \
+            else torch.zeros_like(far)
+        flips += int((far & ~zero).sum())
+        silent += int(zero.sum())
+        check(float((far & ~zero).float().mean()) <= 1e-3
+              and bool((step[far] <= 1).all()),
+              f"augmenter utterance {i} ({augmenter.families[f].name}): "
+              f"{int(far.sum())} samples past 1e-5 ({int(zero.sum())} of "
+              f"them across u-law's zero), code steps "
+              f"{step[far].max() if far.any() else 0}")
+    names = sorted({augmenter.families[f].name
+                    for f in fam_c.long().tolist()})
+    print(f"augmenter on the card vs the CPU, same draws, "
+          f"{tuple(wave.shape)}, families drawn {names}: largest difference "
+          f"{worst:.3e} ({worst_linear:.3e} without G.711; bar 1e-5), "
+          f"{flips} G.711 samples one code step apart, and {silent} u-law "
+          f"samples of silence on the two sides of zero")
+    return worst
+
+
+def train_adv_path(torch, gpu: str, entries):
+    """Phase 4c: channel-robust training at full width. ADV_AUG in bf16 at
+    K = 8 from an LA_aug tree (the gate flipping between replays), in f32
+    at K = 1 with two classifiers from a LAPA_aug tree, and the channel
+    augmenter on the fly in bf16 at K = 8; the graphs against eager steps,
+    the ADV step's kernels against their plain versions, the augmenter on
+    the card against the CPU; times."""
+    import dataclasses
+
+    from asvspoof2021_air_tpu_torch.data import protocol as proto
+    from asvspoof2021_air_tpu_torch.data.datasets import (
+        AugmentedFeatureDataset, RawAudioDataset)
+    from asvspoof2021_air_tpu_torch.data.pipeline import (
+        RatioMixIterator, WaveformIterator)
+    from asvspoof2021_air_tpu_torch.ops import attn_pool_vjp as vj
+    from asvspoof2021_air_tpu_torch.ops import lfcc_cuda as lc
+    from asvspoof2021_air_tpu_torch.ops.augment import (
+        ChannelAugmenter, synthetic_ir_bank)
+    from asvspoof2021_air_tpu_torch.train.checkpoint import (
+        restore_checkpoint)
+    from asvspoof2021_air_tpu_torch.train.frontend import OnDeviceFrontend
+    from asvspoof2021_air_tpu_torch.train.loop import (
+        TrainConfig, setup_training, train)
+    from asvspoof2021_air_tpu_torch.train.steps import make_multi_step
+
+    K, n_ori, n_aug, E = 8, 5 * B, 5 * B // 2, 2
+    spe = -(-n_ori // (B // 2))           # ratio 0.5: 10 steps an epoch
+    channels, devices = proto.LA_CHANNELS[1:], proto.DEVICES[:-1]
+    channel = lambda i: f"_{channels[i % len(channels)]}"
+    both = lambda i: f"{channel(i)}_{devices[i % len(devices)]}"
+    stack = lambda bs: {k: torch.stack([b[k] for b in bs]) for k in bs[0]}
+
+    def zero():
+        lc.launches = vj.fwd_launches = vj.bwd_launches = 0
+
+    counts = lambda: {"B1": lc.launches, "B4a": vj.fwd_launches,
+                      "B4b": vj.bwd_launches}
+    times = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        feats, aug, aug_pa = (os.path.join(tmp, d)
+                              for d in ("feats", "aug", "aug_pa"))
+        for root, part, n, seed, sfx in (
+                (feats, "train", n_ori, 40, ""), (feats, "dev", B, 41, ""),
+                (aug, "train", n_aug, 42, channel),
+                (aug, "dev", B, 43, channel),
+                (aug_pa, "train", n_aug, 44, both),
+                (aug_pa, "dev", B, 45, both)):
+            write_feature_tree(os.path.join(root, part, "LFCC"), n, seed,
+                               True, sfx)
+
+        # ---- the main path: train() ADV_AUG, bf16, K = 8, LA_aug ----
+        cfg = TrainConfig(
+            out_fold=os.path.join(tmp, "adv"), path_to_features=feats,
+            path_to_aug_features=aug, LA_aug=True, ADV_AUG=True, ratio=0.5,
+            model="ecapa", add_loss="ang_iso", batch_size=B, feat_len=T,
+            num_epochs=E, C=C, compute_dtype="bfloat16", steps_per_call=K,
+            auto_resume=True)
+        init = setup_training(cfg, spe, device=DEVICE)[2].state_dict()
+        torch.cuda.synchronize()
+        zero()
+        t0 = time.perf_counter()
+        summary, state = train(cfg, device=DEVICE, return_state=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = counts()
+        counted, run, replays = graph_launches(spe, K, E)
+        evals = E * 2                     # 64 original + 64 augmented dev
+        print(f"ADV_AUG bf16 K={K} training path launches over {E * spe} "
+              f"steps (one capture, {replays} replay(s); the gate 0 in "
+              f"epoch 0, 1 in epoch 1) and {E} dev passes: {got}; B4b "
+              f"counted {counted}, run on the card {run}")
+        check(got == {"B1": 0, "B4a": counted + evals, "B4b": counted},
+              f"ADV_AUG launch counts {got}, expected B4a "
+              f"{counted + evals}, B4b {counted}")
+        for k, v in got.items():
+            entries[k]["launches_train_adv"] = v
+        print(f"ADV_AUG train summary: {summary}")
+        with open(os.path.join(cfg.out_fold, "train_loss.log")) as f:
+            rows = [line.split() for line in f.readlines()[1:]]
+        losses = np.array([float(r[2]) for r in rows])
+        check(len(rows) == E * spe and bool(np.isfinite(losses).all()),
+              f"ADV_AUG train_loss.log: {len(rows)} rows, {losses}")
+        ep1 = restore_checkpoint(os.path.join(cfg.out_fold, "checkpoint",
+                                              "1.pt"))
+        check(all(not torch.equal(v, init["classifier"][k].cpu())
+                  for k, v in ep1["classifier"].items()),
+              "the channel classifier did not move in epoch 0")
+        live = state.state_dict()
+        print(f"ADV_AUG: the classifier over {len(proto.LA_CHANNELS)} LA "
+              f"channels moved in epoch 0 (every tensor); ang_iso loss per "
+              f"step: {np.round(losses, 5).tolist()}")
+        # auto_resume with no epoch left restores the classifier
+        _, again = train(cfg, device=DEVICE, return_state=True)
+        back = again.state_dict()
+        check(back["step"] == live["step"]
+              and all(torch.equal(v, live["classifier"][k])
+                      for k, v in back["classifier"].items())
+              and all(torch.equal(t, live["clf_optimizer"][n][k])
+                      for n, st_ in back["clf_optimizer"].items()
+                      for k, t in st_.items()),
+              "auto_resume did not restore the classifier and its Adam")
+        print(f"auto_resume: the classifier and its Adam state restored "
+              f"from checkpoint/{E}.pt (step {back['step']})")
+        del state, again
+
+        # ---- 8 replayed steps vs 8 eager steps at gate 0 and gate 1 ----
+        train_ds = AugmentedFeatureDataset(feats, aug, "train")
+        it = RatioMixIterator(train_ds, B, 0.5, feat_len=T, seed=7,
+                              steps_per_epoch=3 * K).epoch()
+        fb = [{k: torch.from_numpy(b[k]) for k in ("feat", "label",
+                                                    "channel")}
+              for b in it]
+        torch.backends.cudnn.deterministic = True
+        _, _, st, step, _ = setup_training(cfg, spe, device=DEVICE)
+        st.load_state_dict(live)
+        multi = make_multi_step(step, K)
+        multi(st, stack(fb[:K]))          # eager K steps, capture at gate 0
+        for gate, part in ((0.0, fb[K:2 * K]), (1.0, fb[2 * K:])):
+            st.load_state_dict(live)
+            m_graph = multi(st, stack(part), None, gate)
+            after_graph = st.state_dict()
+            st.load_state_dict(live)
+            m_eager = [step(st, b, None, gate) for b in part]
+            after_eager = st.state_dict()
+            check_replay(torch, m_graph, after_graph, m_eager, after_eager,
+                         live["step"], K, f"the ADV_AUG step at gate {gate}")
+            for k in ("adv_loss", "clf_loss", "clf_acc", "adv_acc"):
+                check(bool(torch.isfinite(m_graph[k]).all()),
+                      f"replayed {k} {m_graph[k]}")
+            check(torch.allclose(m_graph["total_loss"], m_graph["ang_iso"]
+                                 + gate * m_graph["adv_loss"], rtol=1e-6),
+                  f"the replay at gate {gate} did not add gate x adv_loss")
+            print(f"replay at gate {gate}: adv_loss "
+                  f"{np.round(m_graph['adv_loss'].cpu().numpy(), 4).tolist()}"
+                  f", clf_loss "
+                  f"{np.round(m_graph['clf_loss'].cpu().numpy(), 4).tolist()}"
+                  f", clf_acc {m_graph['clf_acc'].cpu().numpy().tolist()}, "
+                  f"total = ang_iso + {gate} x adv_loss")
+        torch.backends.cudnn.deterministic = False
+        del st, multi
+
+        # ---- one ADV bf16 step (gate 1) through B4a/B4b vs plain ----
+        k1 = dataclasses.replace(cfg, steps_per_call=1)
+        fbatch = {"feat": fb[0]["feat"].to(DEVICE), "label": fb[0]["label"],
+                  "channel": fb[0]["channel"]}
+        step1 = setup_training(k1, spe, device=DEVICE)[3]
+        step_vs_plain(torch, lambda: setup_training(k1, spe,
+                                                    device=DEVICE)[2],
+                      live, lambda s, b: step1(s, b, None, 1.0), fbatch,
+                      "bf16 ADV_AUG")
+
+        # ---- ADV_AUG, f32, K = 1, two classifiers (LAPA_aug) ----
+        dual = TrainConfig(
+            out_fold=os.path.join(tmp, "adv_pa"), path_to_features=feats,
+            path_to_aug_features=aug_pa, LAPA_aug=True, ADV_AUG=True,
+            ratio=0.5, model="ecapa", add_loss="ang_iso", batch_size=B,
+            feat_len=T, num_epochs=E, C=C)
+        init = setup_training(dual, spe, device=DEVICE)[2].state_dict()
+        torch.cuda.synchronize()
+        zero()
+        summary, state = train(dual, device=DEVICE, return_state=True)
+        torch.cuda.synchronize()
+        got = counts()
+        check(got == {"B1": 0, "B4a": E * spe + evals, "B4b": E * spe},
+              f"dual-classifier launch counts {got}")
+        for k, v in got.items():
+            entries[k]["launches_train_adv_dual"] = v
+        end = state.state_dict()
+        for name, n in (("classifier", len(proto.LA_CHANNELS)),
+                        ("classifier2", len(proto.DEVICES))):
+            check(all(not torch.equal(v, init[name][k])
+                      for k, v in end[name].items())
+                  and end[name]["classifier.3.bias"].numel() == n,
+                  f"{name} did not train over {n} classes")
+        with open(os.path.join(dual.out_fold, "train_loss.log")) as f:
+            losses = np.array([float(r.split()[2])
+                               for r in f.readlines()[1:]])
+        check(len(losses) == E * spe and bool(np.isfinite(losses).all()),
+              f"dual-classifier losses {losses}")
+        print(f"ADV_AUG f32 K=1, LAPA_aug: {E * spe} steps, launches {got}; "
+              f"both classifiers ({len(proto.LA_CHANNELS)} channels, "
+              f"{len(proto.DEVICES)} devices) moved; {summary}")
+        del state
+
+        # ---- from features, bf16, K = 8: times with and without ADV ----
+        for name, c in (("ADV_AUG", cfg),
+                        ("no ADV_AUG", dataclasses.replace(cfg,
+                                                           ADV_AUG=False))):
+            _, _, st, step, _ = setup_training(c, spe, device=DEVICE)
+            st.load_state_dict(live)
+            multi = make_multi_step(step, K)
+            stacked = stack(fb[:K])
+            torch.cuda.reset_peak_memory_stats()
+            ms = time_ms(torch, lambda: multi(st, stacked, None, 1.0),
+                         iters=3, warmup=2) / K
+            times[f"from features, {name}"] = (
+                ms, torch.cuda.max_memory_allocated() / 2 ** 30)
+            del st, multi
+
+        # ---- on the fly, bf16, K = 8, with the channel augmenter ----
+        write_corpus(tmp, B, seed=46, part="train")
+        write_corpus(tmp, B, seed=47, part="dev")
+        n_otf = 18
+        otf = TrainConfig(
+            out_fold=os.path.join(tmp, "otf"), path_to_database=tmp,
+            on_the_fly=True, ratio=1.0, model="ecapa", add_loss="ang_iso",
+            batch_size=B, feat_len=T, num_epochs=1, C=C,
+            compute_dtype="bfloat16", steps_per_call=K, on_device_aug=True,
+            apply_ir=True, dev_aug=True)
+        raw_train = Repeat(RawAudioDataset("LA", tmp, "train"), n_otf)
+        torch.cuda.synchronize()
+        zero()
+        summary, state = train(otf, train_set=raw_train,
+                               dev_set=RawAudioDataset("LA", tmp, "dev"),
+                               device=DEVICE, return_state=True)
+        torch.cuda.synchronize()
+        got = counts()
+        counted, run, replays = graph_launches(n_otf, K, 1)
+        print(f"on the fly, bf16, K={K}, channel augmenter with IRs: "
+              f"{n_otf} steps (one capture, {replays} replay(s)) and one "
+              f"augmented dev batch: launches {got}; per kernel of the "
+              f"step counted {counted}, run {run}; {summary}")
+        check(got == {"B1": counted + 1, "B4a": counted + 1,
+                      "B4b": counted},
+              f"on-the-fly augmenter launch counts {got}")
+        for k, v in got.items():
+            entries[k]["launches_train_aug_otf"] = v
+        with open(os.path.join(otf.out_fold, "train_loss.log")) as f:
+            losses = np.array([float(r.split()[2])
+                               for r in f.readlines()[1:]])
+        check(len(losses) == n_otf and bool(np.isfinite(losses).all()),
+              f"on-the-fly augmenter losses {losses}")
+        live = state.state_dict()
+        del state
+
+        augmenter = ChannelAugmenter(ir_bank=synthetic_ir_bank(),
+                                     device=DEVICE)
+        cpu_augmenter = ChannelAugmenter(ir_bank=synthetic_ir_bank(),
+                                         device="cpu")
+        fe = OnDeviceFrontend(feat_len=T, augmenter=augmenter,
+                              apply_ir=True, device=DEVICE)
+        waves = [{k: torch.from_numpy(b[k]) for k in ("wave", "length",
+                                                      "label")}
+                 for b in WaveformIterator(raw_train, B, fe.min_samples(),
+                                           seed=5,
+                                           steps_per_epoch=2 * K).epoch()]
+        wave = waves[0]["wave"].to(DEVICE)
+        draws = augmenter.draw(wave.shape, torch.Generator(
+            device=DEVICE).manual_seed(11))
+        aug_err = augmenter_vs_cpu(torch, augmenter, cpu_augmenter, wave,
+                                   draws)
+        gen = torch.Generator(device=DEVICE)
+        torch.cuda.reset_peak_memory_stats()
+        aug_ms = time_ms(torch, lambda: augmenter(wave, draws,
+                                                  apply_ir=True))
+        aug_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        draw_ms = time_ms(torch, lambda: augmenter.draw(
+            wave.shape, gen.manual_seed(12)))
+
+        # 8 replayed steps vs 8 eager ones, with the augmenter on
+        rng = otf.seed ^ 0x5EED
+        torch.cuda.synchronize()
+        torch.backends.cudnn.deterministic = True
+        _, _, st, step, _ = setup_training(otf, n_otf, frontend=fe,
+                                           device=DEVICE)
+        st.load_state_dict(live)
+        multi = make_multi_step(step, K)
+        multi(st, stack(waves[:K]), rng, 0.0, fe.params)
+        st.load_state_dict(live)
+        m_graph = multi(st, stack(waves[K:]), rng, 0.0, fe.params)
+        after_graph = st.state_dict()
+        st.load_state_dict(live)
+        m_eager = [step(st, b, rng, 0.0, fe.params) for b in waves[K:]]
+        after_eager = st.state_dict()
+        torch.backends.cudnn.deterministic = False
+        check_replay(torch, m_graph, after_graph, m_eager, after_eager,
+                     live["step"], K, "the step with the channel augmenter")
+        del st, multi
+
+        # times on the fly with and without the augmenter
+        clean = OnDeviceFrontend(feat_len=T, device=DEVICE)
+        stacked = stack(waves[:K])
+        for name, frontend in (("on the fly, augmenter", fe),
+                               ("on the fly, no augmenter", clean)):
+            _, _, st, step, _ = setup_training(otf, n_otf,
+                                               frontend=frontend,
+                                               device=DEVICE)
+            st.load_state_dict(live)
+            multi = make_multi_step(step, K)
+            run_k = lambda: multi(st, stacked, rng, 0.0, frontend.params)
+            torch.cuda.reset_peak_memory_stats()
+            ms = time_ms(torch, run_k, iters=3, warmup=2) / K
+            times[name] = (ms, torch.cuda.max_memory_allocated() / 2 ** 30)
+            if frontend is fe:
+                profile_device(torch, run_k, K * ms,
+                               f"bf16 {K}-step graph replay with the channel "
+                               f"augmenter")
+            del st, multi
+    print(f"ADV_AUG training path [{gpu}]: train() {E * spe} steps and {E} "
+          f"dev passes in {wall:.2f} s (host clock, .npy reading, "
+          f"checkpoints, first-call set-up and the capture included)")
+    print(f"channel augmenter [{gpu}] at {tuple(wave.shape)} with IRs "
+          f"(n_fft {augmenter.n_fft}): {aug_ms:.3f} ms (CUDA events; peak "
+          f"{aug_peak:.2f} GiB), its draws {draw_ms:.3f} ms; card vs CPU "
+          f"{aug_err:.3e}")
+    for name, (ms, peak) in times.items():
+        print(f"training step {name} [{gpu}] (bf16, K={K} graph, B={B}, "
+              f"T={T}, C={C}; CUDA events, host-to-device copies of the "
+              f"batches included): {ms:.3f} ms/step = {B / ms * 1e3:.1f} "
+              f"utt/s (peak {peak:.2f} GiB)")
+
+
 def main() -> int:
     try:
         import torch
@@ -1722,13 +2184,15 @@ def main() -> int:
     score_path(torch, gpu, entries)
     f32_ms, _ = train_path(torch, gpu, entries)
     train_bf16_path(torch, gpu, entries, f32_ms)
+    train_adv_path(torch, gpu, entries)
 
     kernels = []
     for key in ("B1", "B2", "B3", "B4a", "B4b"):
         e = entries[key]
         bound_ms, bound_by = bound(e["bytes"], e["flops"], e["kind"])
         by_path = {p: e[f"launches_{p}"] for p in (
-            "serve", "score", "train", "train_bf16", "train_bf16_otf")
+            "serve", "score", "train", "train_bf16", "train_bf16_otf",
+            "train_adv", "train_adv_dual", "train_aug_otf")
             if f"launches_{p}" in e}
         launches = sum(by_path.values())
         print(f"{e['name']} [{gpu}]: max_abs_err {e['max_abs_err']:.3e}, "

@@ -96,9 +96,9 @@ def test_jax_train_state_through_the_converter_scores_as_jax(
     assert (args["C"], args["model_scale"], args["add_loss"],
             args["r_fake"]) == (C, 8, "ang_iso", 0.3)
     # the feature path is a port field since the port trains from
-    # features; lambda_ (ADV_AUG's) is still dropped
+    # features; lambda_ and lr_d since it trains ADV_AUG
     assert args["path_to_features"] == "/nowhere"
-    assert "lambda_" not in args
+    assert (args["lambda_"], args["lr_d"]) == (cfg.lambda_, cfg.lr_d)
     sd, loss_mod, pcfg = load_system(str(tmp_path / "port"), device="cpu")
     assert pcfg.feat_len == T and loss_mod.r_fake == 0.3
     assert torch.load(tmp_path / "port" / "best.pt",

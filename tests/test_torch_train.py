@@ -396,8 +396,8 @@ def test_cli_trains_on_the_cpu(tmp_path, capsys):
 
 def test_cli_loads_a_jax_config_file_and_refuses_fused_off(tmp_path):
     """A JAX ``args.json`` loads: the fields the port does not read
-    (lambda_, rawnet_args, ...) are dropped and the rest kept; one that
-    turns fused_pool or fused_bn off is refused."""
+    (rawnet_args, ...) are dropped and the rest kept, ADV_AUG's lambda_
+    among them; one that turns fused_pool or fused_bn off is refused."""
     jcfg = dataclasses.asdict(jloop.TrainConfig(
         model="ecapa", add_loss="ang_iso", on_the_fly=True, lr=3e-4,
         lambda_=0.1, path_to_features="/feats"))
@@ -407,7 +407,7 @@ def test_cli_loads_a_jax_config_file_and_refuses_fused_off(tmp_path):
     cfg = config_from_args(cli_parse_args(out))
     assert (cfg.model, cfg.add_loss, cfg.on_the_fly, cfg.lr) == (
         "ecapa", "ang_iso", True, 3e-4)
-    assert not hasattr(cfg, "lambda_") and not hasattr(cfg, "fused_pool")
+    assert cfg.lambda_ == 0.1 and not hasattr(cfg, "fused_pool")
     for key in ("fused_pool", "fused_bn"):
         path.write_text(json.dumps({**jcfg, key: "off"}))
         with pytest.raises(NotImplementedError, match=key):
@@ -417,14 +417,13 @@ def test_cli_loads_a_jax_config_file_and_refuses_fused_off(tmp_path):
 def test_unsupported_flags_raise(tmp_path):
     """The flags the port still refuses, each named in the error; the ones
     it trains with (bf16, K steps per call, feature files with or without
-    an aug flag, resume, test_on_eval, profile) are held by
-    tests/test_torch_train_loop.py and tests/test_torch_train_bf16.py."""
+    an aug flag, resume, test_on_eval, profile, ADV_AUG and the channel
+    augmenter) are held by tests/test_torch_train_loop.py,
+    tests/test_torch_train_bf16.py and tests/test_torch_adv_aug.py."""
     base = dict(out_fold=str(tmp_path / "o"), model="ecapa", on_the_fly=True)
     for extra, name in (({"model": "lcnn"}, "model"),
-                        ({"ADV_AUG": True, "LA_aug": True}, "ADV_AUG"),
                         ({"ensemble": 2}, "ensemble"),
                         ({"visualize": True}, "visualize"),
-                        ({"on_device_aug": True}, "on_device_aug"),
                         ({"add_loss": "p2sgrad"}, "add_loss")):
         with pytest.raises(NotImplementedError, match=name):
             train(TrainConfig(**{**base, **extra}), device="cpu")

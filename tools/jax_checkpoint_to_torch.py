@@ -10,10 +10,12 @@ installed: it imports the JAX package, which the port never does. It
 reads the run's ``args.json``, rebuilds the train state as the JAX
 ``cli/generate_score.load_system`` does (``setup_training``, then
 ``restore_checkpoint`` of ``<model_dir>/best`` or ``checkpoint/<N>``),
-maps it with the port's ``interop/flax_weights.from_flax_train_state`` and
+maps it with the port's ``interop/flax_weights.from_flax_train_state`` (an
+ADV_AUG run's channel classifiers and their Adam states included) and
 writes ``<out>/best.pt`` (the port's checkpoint dict) and ``<out>/args.json``
-with the keys of the port's ``TrainConfig`` (the others dropped, as the
-port's training CLI drops them; ``C`` read from the weights). The port's
+with the keys of the port's ``TrainConfig`` (``lambda_`` and ``lr_d``
+among them; the others dropped, as the port's training CLI drops them;
+``C`` read from the weights). The port's
 ``cli.generate_score`` then scores that folder.
 """
 
