@@ -1,5 +1,5 @@
-"""Scoring CLI of the PyTorch/CUDA port: a trained ECAPA run's checkpoint
--> score file for one of the 8 tasks.
+"""Scoring CLI of the PyTorch/CUDA port: a trained run's checkpoint (ECAPA,
+ResNet18 or LCNN, with any add-loss) -> score file for one of the 8 tasks.
 
     python -m asvspoof2021_air_tpu_torch.cli.generate_score \\
         --model_folder <runs> -n <run> -t {LA,DF,19dev,...} \\
@@ -10,14 +10,15 @@ The port's counterpart of the JAX package's ``cli/generate_score.py``,
 with its flags. The system is rebuilt from the run folder the port's
 training loop writes (or ``tools/jax_checkpoint_to_torch.py`` converts):
 ``args.json`` and ``best.pt``, or ``checkpoint/<N>.pt`` for
-``--checkpoint N``. It scores through the ECAPA serving graph (kernels B2
-and B3 on the card) in f32 unless ``--dtype bfloat16``. The '19*' tasks
-write under ``./scores``, as the JAX CLI does; the challenge tasks under
-``--score_dir``.
+``--checkpoint N``. It scores ECAPA through its serving graph (kernels B2
+and B3 on the card) and ResNet or LCNN through their eval-mode modules, in
+f32 unless ``--dtype bfloat16``, by the run's add-loss's rule or ``-l``'s
+(every rule of the JAX CLI). The '19*' tasks write under ``./scores``, as
+the JAX CLI does; the challenge tasks under ``--score_dir``.
 
-Ensemble runs (``ensemble > 1``) and the scoring rules of the losses the
-port lacks raise NotImplementedError; :func:`write_fused_score_file` (the
-members' fusion) is here for the ensembles when they come.
+Ensemble runs (``ensemble > 1``) and the families not ported yet raise
+NotImplementedError; :func:`write_fused_score_file` (the members' fusion)
+is here for the ensembles when they come.
 """
 
 from __future__ import annotations
@@ -30,14 +31,14 @@ import numpy as np
 import torch
 
 from asvspoof2021_air_tpu_torch._device import resolve_device
-from asvspoof2021_air_tpu_torch.losses.one_class import OCSoftmax
+from asvspoof2021_air_tpu_torch.losses.registry import build_loss
 from asvspoof2021_air_tpu_torch.metrics.evaluate import read_score_file
+from asvspoof2021_air_tpu_torch.models.registry import MODEL_REGISTRY
 from asvspoof2021_air_tpu_torch.scoring import TASKS, test_on_asvspoof2021
 from asvspoof2021_air_tpu_torch.train.checkpoint import restore_checkpoint
 from asvspoof2021_air_tpu_torch.train.loop import TrainConfig
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-PORTED_RULES = (None, "softmax", "ocsoftmax", "ang_iso")
 
 
 def load_system(model_dir: str, checkpoint: str = "best", device="cuda"):
@@ -54,25 +55,21 @@ def load_system(model_dir: str, checkpoint: str = "best", device="cuda"):
             f"ensemble={config.ensemble}: ensembles come with the port of "
             "multi-GPU and ensembles (ROADMAP Queue A, the ensembles "
             "item)")
-    if config.model != "ecapa":
+    if config.model not in MODEL_REGISTRY:
         raise NotImplementedError(
-            f"model={config.model!r}: the port scores ECAPA; the other "
-            "families come with ROADMAP Queue A, the model families "
-            "item")
-    if config.add_loss not in (None, "None", "ocsoftmax", "ang_iso"):
-        raise NotImplementedError(
-            f"add_loss={config.add_loss!r}: the other losses come with "
-            "ROADMAP Queue A, the losses item")
+            f"model={config.model!r}: the port scores "
+            f"{sorted(MODEL_REGISTRY)}; the other families come with ROADMAP "
+            "Queue A, the model families item")
     path = os.path.join(model_dir, checkpoint)
     if not path.endswith(".pt"):
         path += ".pt"
     data = restore_checkpoint(path)
     loss_mod = None
     if data.get("loss_module") is not None:
-        center = data["loss_module"]["center"]
-        loss_mod = OCSoftmax(feat_dim=center.shape[1], r_real=config.r_real,
-                             r_fake=config.r_fake, alpha=config.alpha,
-                             device=dev)
+        loss_mod = build_loss(config.add_loss, enc_dim=config.enc_dim,
+                              r_real=config.r_real, r_fake=config.r_fake,
+                              alpha=config.alpha, nclasses=config.nclasses,
+                              device=dev)
         loss_mod.load_state_dict(data["loss_module"])
     return data["model"], loss_mod, config
 
@@ -137,10 +134,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> str:
     args = build_parser().parse_args(argv)
-    if args.loss not in PORTED_RULES:
-        raise NotImplementedError(
-            f"-l {args.loss}: its scoring rule comes with the port of the "
-            "other losses (ROADMAP Queue A, the losses item)")
     out_dir = "./scores" if "19" in args.task else args.score_dir
     model_dir = os.path.join(args.model_folder, args.model_name)
     ckpt = args.checkpoint
@@ -168,7 +161,8 @@ def main(argv=None) -> str:
         loss_module=loss_mod, batch_size=args.batch_size, feature=cfg.feat,
         feat_len=cfg.feat_len, padding=cfg.padding,
         scan_batches=args.scan_batches, dtype=DTYPES[args.dtype],
-        model_scale=cfg.model_scale, device=args.device)
+        model_scale=cfg.model_scale, model=cfg.model, feat_dim=cfg.feat_dim,
+        device=args.device)
     print(f"wrote {out}")
     return out
 

@@ -1,8 +1,10 @@
-"""Training CLI of the PyTorch/CUDA port: ECAPA-TDNN from cached feature
-files or, ``--on_the_fly``, from raw waveforms.
+"""Training CLI of the PyTorch/CUDA port: LCNN (the default, as in the JAX
+CLI), ResNet18 or ECAPA-TDNN, from cached feature files or,
+``--on_the_fly``, from raw waveforms.
 
     python -m asvspoof2021_air_tpu_torch.cli.train -f <features> -o <out> \\
-        -m ecapa --add_loss ang_iso [--LA_aug --path_to_aug_features <aug>] \\
+        [-m lcnn|resnet|ecapa] [--add_loss isolate|iso_sq|ang_iso|p2sgrad] \\
+        [--LA_aug --path_to_aug_features <aug>] \\
         [--compute_dtype bfloat16] [--steps_per_call 8] [--device cuda]
     python -m asvspoof2021_air_tpu_torch.cli.train -d <database> -o <out> \\
         -m ecapa --add_loss ang_iso --on_the_fly \
@@ -12,11 +14,15 @@ files or, ``--on_the_fly``, from raw waveforms.
         --ADV_AUG [--lambda_ 0.05] [--lr_d 1e-4]
 
 The argparse front of the JAX package's ``cli/train.py`` for the flags the
-port trains with; ``--C`` and ``--model_scale`` narrow the model. Flags of
-the JAX CLI that the port does not cover are absent here, and
+port trains with; ``--C`` and ``--model_scale`` narrow ECAPA. ``-m`` takes
+the JAX CLI's choices: the families not ported yet (cnn, res2net, rawnet)
+raise NotImplementedError naming ROADMAP Queue A. Other flags of the JAX
+CLI that the port does not cover are absent here, and
 ``train/loop.check_supported`` refuses them in a ``--config`` file. As in
-the JAX CLI, ``--test_on_eval`` scores only an ``eval_set`` handed to
-``train()``; the CLI hands none.
+the JAX CLI, ``--add_loss ocsoftmax`` from a ``--config`` file is
+``ang_iso`` and an add-loss that does not train (amsoftmax) is refused, and
+``--test_on_eval`` scores only an ``eval_set`` handed to ``train()``; the
+CLI hands none.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ import argparse
 import json
 
 from asvspoof2021_air_tpu_torch.train.loop import TrainConfig, train
+from asvspoof2021_air_tpu_torch.train.steps import TRAINED_LOSSES
 from asvspoof2021_air_tpu_torch.utils.seed import str2bool
 
 
@@ -50,7 +57,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--padding", type=str, default="repeat",
                    choices=["zero", "repeat", "silence"])
     p.add_argument("--enc_dim", type=int, default=256)
-    p.add_argument("-m", "--model", default="ecapa", choices=["ecapa"])
+    p.add_argument("-m", "--model", default="lcnn",
+                   choices=["cnn", "resnet", "lcnn", "res2net", "ecapa",
+                            "rawnet"])
     p.add_argument("--C", type=int, default=512)
     p.add_argument("--model_scale", type=int, default=8)
     p.add_argument("--num_epochs", type=int, default=200)
@@ -63,7 +72,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--eps", type=float, default=1e-8)
     p.add_argument("--base_loss", type=str, default="ce", choices=["ce", "bce"])
     p.add_argument("--add_loss", type=str, default=None,
-                   choices=[None, "ang_iso"])
+                   choices=list(TRAINED_LOSSES))
     p.add_argument("--weight_loss", type=float, default=1.0)
     p.add_argument("--r_real", type=float, default=0.9)
     p.add_argument("--r_fake", type=float, default=0.2)
@@ -127,8 +136,14 @@ def config_from_args(args: argparse.Namespace) -> TrainConfig:
             "and the recompute VJP")
     fields = set(TrainConfig.__dataclass_fields__)
     kwargs = {k: v for k, v in vars(args).items() if k in fields}
-    if kwargs.get("add_loss") == "ocsoftmax":   # a --config file's alias
+    add_loss = kwargs.get("add_loss")
+    if add_loss == "ocsoftmax":   # a --config file's alias
         kwargs["add_loss"] = "ang_iso"
+    elif add_loss not in TRAINED_LOSSES:
+        raise SystemExit(
+            f"--add_loss '{add_loss}' is not trainable; choose from "
+            "isolate|iso_sq|ang_iso|p2sgrad (ocsoftmax is an alias of "
+            "ang_iso)")
     return TrainConfig(**kwargs)
 
 

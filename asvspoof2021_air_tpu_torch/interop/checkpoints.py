@@ -8,8 +8,10 @@
   ``ECAPA_TDNN.load_state_dict`` as it is (torch ``BatchNorm``'s
   ``num_batches_tracked`` counters, which the port's BatchNorm does not
   keep, are dropped).
-- :func:`ecapa_from_state_dict`: the eval-mode ``ECAPA_TDNN`` those weights
-  describe, its widths read from the weights.
+- :func:`ecapa_from_state_dict`, :func:`resnet_from_state_dict` and
+  :func:`lcnn_from_state_dict`: the eval-mode model those weights
+  describe, its widths read from the weights (LCNN's input frequency dim
+  is given: the head's width fixes only its product with ``feat_len``).
 
 A JAX ``TrainState`` checkpoint is converted where JAX is installed, by
 ``tools/jax_checkpoint_to_torch.py``, into the port's ``best.pt`` and
@@ -18,11 +20,14 @@ A JAX ``TrainState`` checkpoint is converted where JAX is installed, by
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
+from asvspoof2021_air_tpu_torch._device import resolve_device
 from asvspoof2021_air_tpu_torch.models.ecapa import ECAPA_TDNN
+from asvspoof2021_air_tpu_torch.models.lcnn import LCNN
+from asvspoof2021_air_tpu_torch.models.resnet import RESNET_CONFIGS, ResNet
 
 
 def load_torch_checkpoint(path: str) -> Dict[str, torch.Tensor]:
@@ -47,5 +52,43 @@ def ecapa_from_state_dict(sd: Dict[str, torch.Tensor], device="cuda"
                        n_out=sd["fc7.weight"].shape[0],
                        n_feat=sd["conv1.weight"].shape[1],
                        enc_dim=sd["fc6.weight"].shape[0], device=device)
+    model.load_state_dict(sd)
+    return model.eval()
+
+
+def resnet_from_state_dict(sd: Dict[str, torch.Tensor],
+                           dtype: Optional[torch.dtype] = None,
+                           device="cuda") -> ResNet:
+    """An eval-mode ``ResNet`` on ``device`` (compute ``dtype``) holding
+    ``sd`` (strict names): its type from the blocks per stage and the
+    bottleneck's ``conv3``, num_nodes, enc_dim and the classes from the
+    weights' shapes."""
+    device = resolve_device(device)
+    blocks = [len({k.split(".")[1] for k in sd if k.startswith(f"layer{i}.")})
+              for i in range(1, 5)]
+    bottleneck = "layer1.0.conv3.weight" in sd
+    kind = next(name for name, (layers, block) in RESNET_CONFIGS.items()
+                if layers == blocks
+                and (block.expansion == 4) == bottleneck)
+    model = ResNet(num_nodes=sd["conv5.weight"].shape[2],
+                   enc_dim=sd["fc.weight"].shape[0], resnet_type=kind,
+                   nclasses=sd["fc_mu.weight"].shape[0], dtype=dtype,
+                   device=device)
+    model.load_state_dict(sd)
+    return model.eval()
+
+
+def lcnn_from_state_dict(sd: Dict[str, torch.Tensor], num_nodes: int = 60,
+                         dtype: Optional[torch.dtype] = None,
+                         device="cuda") -> LCNN:
+    """An eval-mode ``LCNN`` on ``device`` (compute ``dtype``) holding
+    ``sd`` (strict names) for ``num_nodes``-dim features: enc_dim, the
+    classes and the head's ``feat_len`` (16 x its width in frames) from
+    the weights' shapes."""
+    device = resolve_device(device)
+    width = sd["out.1.weight"].shape[1] // (32 * (num_nodes // 16))
+    model = LCNN(num_nodes=num_nodes, enc_dim=sd["out.3.weight"].shape[0],
+                 nclasses=sd["fc_mu.weight"].shape[0], feat_len=16 * width,
+                 dtype=dtype, device=device)
     model.load_state_dict(sd)
     return model.eval()

@@ -1,27 +1,34 @@
-"""ECAPA weights between the JAX package's flax variable tree and the port's
-state_dict.
+"""Model weights between the JAX package's flax variable trees and the
+port's state_dicts, for ECAPA-TDNN, ResNet and LCNN.
 
 :func:`from_flax_variables` is the inverse of the JAX package's
-``interop/torch_port.port_ecapa``: it turns ``{"params", "batch_stats"}``
-(numpy arrays, flax names) into the port's state_dict (reference names):
+``interop/torch_port.port_ecapa``, ``port_resnet`` and ``port_lcnn``: it
+turns ``{"params", "batch_stats"}`` (numpy arrays, flax names) into the
+port's state_dict (reference names):
 
 - Conv kernel (K, I, O)        -> Conv1d weight (O, I, K)
+- Conv kernel (KH, KW, I, O)   -> Conv2d weight (O, I, KH, KW)
 - Dense kernel (I, O)          -> Linear weight (O, I), or a 1x1 Conv1d
                                   weight (O, I, 1) inside the SE module
 - mfa_kernel (3C, 1536)        -> layer4.weight (1536, 3C, 1)
 - attn_kernel (4608, 128)      -> attention.0.weight (128, 4608, 1)
+- att_weights (H, 1)           -> attention.att_weights (1, H) (ResNet)
+- LCNN's Dense_0 (H W 32, 160), rows in NHWC order (h, w, c)
+                               -> out.1.weight (160, 32 H W), columns in
+                                  NCHW order (c, h, w)
 - BatchNorm scale/bias + mean/var -> weight/bias/running_mean/running_var
+  (an affine-free BN has only the statistics)
 
 :func:`random_flax_variables` makes a seeded tree with exactly the names
-and shapes ``ECAPA_TDNN(...).init`` gives, so a full-width model can be
+and shapes the JAX model's ``init`` gives, so a full-width model can be
 built without JAX or a checkpoint.
 
 :func:`from_flax_classifier` does the same for the JAX
 ``ChannelClassifier`` (``Dense_0``/``Dense_1`` -> ``classifier.0``/``.3``).
 
 :func:`from_flax_train_state` carries a whole JAX ``TrainState`` (ECAPA,
-the OC-Softmax center, the ADV_AUG channel classifiers, every Adam's
-moments and the step) into the port's checkpoint form (``train/state.py``), so both packages can start
+the loss module's parameters, the ADV_AUG channel classifiers, every
+Adam's moments and the step) into the port's checkpoint form (``train/state.py``), so both packages can start
 from one mid-training state. It reads the state's arrays through numpy and
 imports nothing of JAX.
 """
@@ -32,6 +39,9 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
+
+from asvspoof2021_air_tpu_torch.models.registry import (
+    MODEL_REGISTRY, resnet_nodes)
 
 
 def _t(a) -> torch.Tensor:
@@ -49,17 +59,40 @@ def _dense(sd, name, p, as_conv1x1=False):
     sd[name + ".bias"] = _t(p["bias"])
 
 
+def _conv2d(sd, name, p):
+    sd[name + ".weight"] = _t(np.transpose(p["kernel"], (3, 2, 0, 1)))
+    if "bias" in p:
+        sd[name + ".bias"] = _t(p["bias"])
+
+
 def _bn(sd, name, p, s):
-    sd[name + ".weight"] = _t(p["scale"])
-    sd[name + ".bias"] = _t(p["bias"])
+    """A BatchNorm's entries; ``p`` None for an affine-free one."""
+    if p is not None:
+        sd[name + ".weight"] = _t(p["scale"])
+        sd[name + ".bias"] = _t(p["bias"])
     sd[name + ".running_mean"] = _t(s["mean"])
     sd[name + ".running_var"] = _t(s["var"])
 
 
-def from_flax_variables(variables, model_scale: int = 8
+def _check_model(model: str) -> None:
+    if model not in MODEL_REGISTRY:
+        raise NotImplementedError(
+            f"model {model!r}: the port holds {sorted(MODEL_REGISTRY)}; the "
+            "other families are ROADMAP Queue A")
+
+
+def from_flax_variables(variables, model_scale: int = 8,
+                        model: str = "ecapa", num_nodes: int = 60
                         ) -> Dict[str, torch.Tensor]:
-    """The JAX ``ECAPA_TDNN`` variables -> the port's ``ECAPA_TDNN``
-    state_dict (f32 CPU tensors)."""
+    """The JAX model's variables -> the port's state_dict (f32 CPU
+    tensors) of ``model``: ``ECAPA_TDNN`` (``model_scale``), ``ResNet``
+    ("18") or ``LCNN`` (``num_nodes``, the input's frequency dim, fixes the
+    head's permutation)."""
+    _check_model(model)
+    if model == "resnet":
+        return _resnet_from_flax(variables)
+    if model == "lcnn":
+        return _lcnn_from_flax(variables, num_nodes)
     p, s = variables["params"], variables["batch_stats"]
     sd: Dict[str, torch.Tensor] = {}
     _conv(sd, "conv1", p["Conv_0"])
@@ -93,14 +126,72 @@ def from_flax_variables(variables, model_scale: int = 8
     return sd
 
 
+# ResNet18's flax blocks PreActBlock_0..7: (input channels, planes,
+# stride); a block whose shape changes has a projection, flax's Conv_0
+RESNET18_BLOCKS = tuple((cin, planes, stride) for cin, planes, stride in (
+    (16, 64, 1), (64, 64, 1), (64, 128, 2), (128, 128, 1), (128, 256, 2),
+    (256, 256, 1), (256, 512, 2), (512, 512, 1)))
+
+
+def _resnet_from_flax(variables) -> Dict[str, torch.Tensor]:
+    p, s = variables["params"], variables["batch_stats"]
+    sd: Dict[str, torch.Tensor] = {}
+    _conv2d(sd, "conv1", p["Conv_0"])
+    _bn(sd, "bn1", p["BatchNorm_0"], s["BatchNorm_0"])
+    for i, (cin, planes, stride) in enumerate(RESNET18_BLOCKS):
+        t, bp, bs = f"layer{i // 2 + 1}.{i % 2}", p[f"PreActBlock_{i}"], \
+            s[f"PreActBlock_{i}"]
+        _bn(sd, t + ".bn1", bp["BatchNorm_0"], bs["BatchNorm_0"])
+        _bn(sd, t + ".bn2", bp["BatchNorm_1"], bs["BatchNorm_1"])
+        proj = stride != 1 or cin != planes
+        if proj:
+            _conv2d(sd, t + ".shortcut.0", bp["Conv_0"])
+        _conv2d(sd, t + ".conv1", bp[f"Conv_{int(proj)}"])
+        _conv2d(sd, t + ".conv2", bp[f"Conv_{int(proj) + 1}"])
+    _conv2d(sd, "conv5", p["Conv_1"])
+    _bn(sd, "bn5", p["BatchNorm_1"], s["BatchNorm_1"])
+    sd["attention.att_weights"] = _t(
+        np.asarray(p["SelfAttentionPooling_0"]["att_weights"]).T)
+    _dense(sd, "fc", p["Dense_0"])
+    _dense(sd, "fc_mu", p["Dense_1"])
+    return sd
+
+
+LCNN_BNS = ("conv2.2", "conv3.3", "conv4.2", "conv6.2", "conv7.2",
+            "conv8.2")
+
+
+def _lcnn_from_flax(variables, num_nodes: int) -> Dict[str, torch.Tensor]:
+    p, s = variables["params"], variables["batch_stats"]
+    sd: Dict[str, torch.Tensor] = {}
+    for i in range(9):
+        _conv2d(sd, f"conv{i + 1}.0", p[f"Conv_{i}"])
+    for i, name in enumerate(LCNN_BNS):
+        _bn(sd, name, None, s[f"BatchNorm_{i}"])
+    k = np.asarray(p["Dense_0"]["kernel"])           # (H W 32, 160)
+    H = num_nodes // 16
+    W = k.shape[0] // (32 * H)
+    sd["out.1.weight"] = _t(k.reshape(H, W, 32, -1).transpose(3, 2, 0, 1)
+                            .reshape(k.shape[1], -1))
+    sd["out.1.bias"] = _t(p["Dense_0"]["bias"])
+    _dense(sd, "out.3", p["Dense_1"])
+    _dense(sd, "fc_mu", p["Dense_2"])
+    return sd
+
+
 def random_flax_variables(seed: int, C: int = 512, model_scale: int = 8,
                           n_feat: int = 60, enc_dim: int = 256,
-                          n_out: int = 2, stat_noise: float = 0.05):
-    """Seeded numpy ECAPA variables in the flax tree's names and shapes.
+                          n_out: int = 2, stat_noise: float = 0.05,
+                          model: str = "ecapa", feat_len: int = 750):
+    """Seeded numpy variables of the JAX ``model`` in the flax tree's names
+    and shapes (ECAPA: ``C``, ``model_scale``; ResNet18 and LCNN at their
+    fixed widths; LCNN's head sized for ``feat_len``; ``n_feat`` the input's
+    frequency dim).
 
     Kernels are lecun-normal (std 1/sqrt(fan_in)), biases small; BatchNorm
     scales, biases and running statistics are perturbed by ``stat_noise``
     so the inference affine is not the identity."""
+    _check_model(model)
     g = np.random.default_rng(seed)
     width = C // model_scale
 
@@ -114,11 +205,17 @@ def random_flax_variables(seed: int, C: int = 512, model_scale: int = 8,
     def conv(*shape):
         return {"kernel": kernel(*shape), "bias": vec(shape[-1])}
 
-    def bn(n):
-        return ({"scale": vec(n, 1.0), "bias": vec(n)},
-                {"mean": vec(n),
-                 "var": (1.0 + stat_noise * g.random(n)).astype(np.float32)})
+    def bn_stats(n):
+        return {"mean": vec(n),
+                "var": (1.0 + stat_noise * g.random(n)).astype(np.float32)}
 
+    def bn(n):
+        return {"scale": vec(n, 1.0), "bias": vec(n)}, bn_stats(n)
+
+    if model == "resnet":
+        return _random_resnet(kernel, conv, bn, enc_dim, n_out, n_feat)
+    if model == "lcnn":
+        return _random_lcnn(conv, bn_stats, enc_dim, n_out, n_feat, feat_len)
     params: Dict = {"Conv_0": conv(5, n_feat, C)}
     stats: Dict = {}
     params["BatchNorm_0"], stats["BatchNorm_0"] = bn(C)
@@ -150,6 +247,48 @@ def random_flax_variables(seed: int, C: int = 512, model_scale: int = 8,
     return {"params": params, "batch_stats": stats}
 
 
+def _random_resnet(kernel, conv, bn, enc_dim, n_out, n_feat):
+    nodes = resnet_nodes(n_feat)
+    params: Dict = {"Conv_0": {"kernel": kernel(9, 3, 1, 16)}}
+    stats: Dict = {}
+    params["BatchNorm_0"], stats["BatchNorm_0"] = bn(16)
+    for i, (cin, planes, stride) in enumerate(RESNET18_BLOCKS):
+        bp: Dict = {}
+        bs: Dict = {}
+        bp["BatchNorm_0"], bs["BatchNorm_0"] = bn(cin)
+        bp["BatchNorm_1"], bs["BatchNorm_1"] = bn(planes)
+        convs = [(3, 3, cin, planes), (3, 3, planes, planes)]
+        if stride != 1 or cin != planes:
+            convs.insert(0, (1, 1, cin, planes))
+        for j, shape in enumerate(convs):
+            bp[f"Conv_{j}"] = {"kernel": kernel(*shape)}
+        params[f"PreActBlock_{i}"], stats[f"PreActBlock_{i}"] = bp, bs
+    params["Conv_1"] = {"kernel": kernel(nodes, 3, 512, 256)}
+    params["BatchNorm_1"], stats["BatchNorm_1"] = bn(256)
+    params["SelfAttentionPooling_0"] = {"att_weights": kernel(256, 1)}
+    params["Dense_0"] = conv(512, enc_dim)
+    params["Dense_1"] = conv(enc_dim, n_out)
+    return {"params": params, "batch_stats": stats}
+
+
+def _random_lcnn(conv, bn_stats, enc_dim, n_out, n_feat, feat_len):
+    params: Dict = {}
+    cin = 1
+    for i, (cout, k) in enumerate(((64, 5), (64, 1), (96, 3), (96, 1),
+                                   (128, 3), (128, 1), (64, 3), (64, 1),
+                                   (64, 3))):
+        params[f"Conv_{i}"] = conv(k, k, cin, cout)
+        cin = cout // 2
+    bn_widths = (32, 48, 48, 64, 32, 32)
+    batch_stats = {f"BatchNorm_{i}": bn_stats(n)
+                   for i, n in enumerate(bn_widths)}
+    flat = 32 * (n_feat // 16) * (feat_len // 16)
+    params["Dense_0"] = conv(flat, 160)
+    params["Dense_1"] = conv(80, enc_dim)
+    params["Dense_2"] = conv(enc_dim, n_out)
+    return {"params": params, "batch_stats": batch_stats}
+
+
 def from_flax_classifier(params) -> Dict[str, torch.Tensor]:
     """The JAX ``ChannelClassifier``'s params -> the port's
     ``ChannelClassifier`` state_dict (the inverse of the JAX package's
@@ -176,12 +315,16 @@ def _param_entries(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
             if not k.endswith(("running_mean", "running_var"))}
 
 
-def from_flax_train_state(state, model_scale: int = 8) -> Dict[str, Any]:
-    """The JAX ``TrainState`` of an ECAPA run -> the port's checkpoint
-    dict (``TrainState.load_state_dict``):
+def from_flax_train_state(state, model_scale: int = 8, model: str = "ecapa",
+                          num_nodes: int = 60) -> Dict[str, Any]:
+    """The JAX ``TrainState`` of a run of ``model`` -> the port's
+    checkpoint dict (``TrainState.load_state_dict``):
 
     - params and batch_stats -> ``model`` (the port's state_dict);
-    - ``loss_params["center"]`` -> ``loss_module`` ``{"center"}``, or None;
+    - ``loss_params`` -> ``loss_module``, the loss module's state_dict
+      under the same names and layouts (``center`` of OC-Softmax, Isolate
+      and IsolateSquare, ``weight`` of P2SGrad, ``centers`` of AMSoftmax),
+      or None;
     - the backbone's ``ScaleByAdamState`` (count, mu, nu) ->
       ``optimizer``: per parameter name, ``torch.optim.Adam``'s state
       ``{step, exp_avg, exp_avg_sq}``;
@@ -190,16 +333,15 @@ def from_flax_train_state(state, model_scale: int = 8) -> Dict[str, Any]:
       and ``clf2_optimizer``; None where the run has no such classifier;
     - ``step`` -> ``step``.
 
-    The center's SGD and the learning-rate schedules hold no state."""
+    The loss module's SGD and the learning-rate schedules hold no state."""
     bs = state.batch_stats
-    model = from_flax_variables({"params": state.params, "batch_stats": bs},
-                                model_scale)
-    optimizer = _adam(state.opt_state, lambda tree: _param_entries(
-        from_flax_variables({"params": tree, "batch_stats": bs},
-                            model_scale)))
+    to_sd = lambda tree: from_flax_variables(
+        {"params": tree, "batch_stats": bs}, model_scale, model, num_nodes)
+    optimizer = _adam(state.opt_state,
+                      lambda tree: _param_entries(to_sd(tree)))
     loss = (None if state.loss_params is None
-            else {"center": _t(state.loss_params["center"])})
-    out = {"step": int(np.asarray(state.step)), "model": model,
+            else {k: _t(v) for k, v in state.loss_params.items()})
+    out = {"step": int(np.asarray(state.step)), "model": to_sd(state.params),
            "loss_module": loss, "optimizer": optimizer}
     for name, opt_name, params, opt in (
             ("classifier", "clf_optimizer", state.clf_params,

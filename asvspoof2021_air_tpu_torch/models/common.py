@@ -1,13 +1,19 @@
-"""Shared model building blocks: BatchNorm (eval and train mode), the SE
-module, flax's convolution and dense semantics under a compute dtype, and
-flax's default initializer.
+"""Shared model building blocks: BatchNorm (eval and train mode, with or
+without its affine, ReLU before or after it), the SE module, max-feature-map,
+self-attentive statistics pooling, flax's convolution and dense semantics
+under a compute dtype, and flax's initializers.
 
-Counterparts of the JAX package's ``models/common.py`` ``BatchNorm`` and
-``SEModule1D``. Train mode follows the JAX ``BatchNorm`` and flax's
-``nn.BatchNorm``, not ``torch.nn.BatchNorm1d``: batch statistics in f32
-over every axis but the channel, variance max(0, E[x^2] - E[x]^2), and the
-running statistics updated as ``0.9 ra + 0.1 batch`` with the *biased*
+Counterparts of the JAX package's ``models/common.py`` ``BatchNorm``,
+``batch_norm``, ``relu_bn``, ``bn_relu``, ``SEModule1D``, ``MaxFeatureMap``,
+``SelfAttentionPooling``, ``to_2d_input``, ``conv_kaiming_init`` and
+``linear_kaiming_init``. Train mode follows the JAX ``BatchNorm`` and
+flax's ``nn.BatchNorm``, not ``torch.nn.BatchNorm1d``: batch statistics in
+f32 over every axis but the channel, variance max(0, E[x^2] - E[x]^2), and
+the running statistics updated as ``0.9 ra + 0.1 batch`` with the *biased*
 variance (``torch.nn.BatchNorm1d`` updates with the unbiased one).
+
+The 2-D models are NCHW with H the frequency axis (the JAX models are NHWC):
+the channel is dim 1 everywhere.
 
 A compute ``dtype`` (None or ``torch.bfloat16``) has flax's meaning, with
 the parameters kept in f32: :func:`conv` and :func:`dense` cast input,
@@ -27,7 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from asvspoof2021_air_tpu_torch.ops.bn_relu_vjp import (
-    channel_layout, relu_bn_train)
+    bn_relu_train, bn_train, channel_layout, relu_bn_train)
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.9      # flax: the retained fraction of the running statistics
@@ -44,9 +50,27 @@ def conv1d(x: torch.Tensor, weight: torch.Tensor,
     return y if bias is None else y + bias.to(dt)[:, None]
 
 
-def conv(m: nn.Conv1d, x: torch.Tensor,
+def conv2d(x: torch.Tensor, weight: torch.Tensor,
+           bias: Optional[torch.Tensor], dtype: Optional[torch.dtype],
+           stride=1, padding=0) -> torch.Tensor:
+    """flax ``nn.Conv`` over NCHW, as :func:`conv1d`: ``padding`` an int,
+    a pair, or ``"SAME"`` (odd kernels at stride 1: k // 2 each side)."""
+    if padding == "SAME":
+        kh, kw = weight.shape[2:]
+        if stride not in (1, (1, 1)) or not (kh % 2 and kw % 2):
+            raise ValueError("'SAME' is ported for odd kernels at stride 1")
+        padding = (kh // 2, kw // 2)
+    dt = dtype or torch.promote_types(x.dtype, weight.dtype)
+    y = F.conv2d(x.to(dt), weight.to(dt), None, stride, padding)
+    return y if bias is None else y + bias.to(dt)[:, None, None]
+
+
+def conv(m: nn.Module, x: torch.Tensor,
          dtype: Optional[torch.dtype]) -> torch.Tensor:
-    """:func:`conv1d` with the parameters and geometry of ``m``."""
+    """:func:`conv1d` or :func:`conv2d` with the parameters and geometry of
+    ``m`` (an ``nn.Conv1d`` or ``nn.Conv2d``)."""
+    if isinstance(m, nn.Conv2d):
+        return conv2d(x, m.weight, m.bias, dtype, m.stride, m.padding)
     return conv1d(x, m.weight, m.bias, dtype, m.padding[0], m.dilation[0])
 
 
@@ -57,21 +81,40 @@ def dense(m: nn.Linear, x: torch.Tensor,
     return F.linear(x.to(dt), m.weight.to(dt)) + m.bias.to(dt)
 
 
-class BatchNorm1d(nn.Module):
-    """BatchNorm over channel dim ``dim`` (default 1, for (B, C) and
-    (B, C, T)), computed in f32 and returned in ``dtype``, or with ``dtype``
+class BatchNorm(nn.Module):
+    """BatchNorm over channel dim ``dim`` (default 1: (B, C), (B, C, T) and
+    NCHW), computed in f32 and returned in ``dtype``, or with ``dtype``
     None in x's type promoted to at least f32 (as the JAX BatchNorm returns
     it). Eval mode normalizes with the running statistics: ``(x - mean) *
     (rsqrt(var + eps) * weight) + bias``. State names match
-    ``torch.nn.BatchNorm1d`` (weight, bias, running_mean, running_var)."""
+    ``torch.nn.BatchNorm1d`` (weight, bias, running_mean, running_var);
+    ``use_scale=False`` / ``use_bias=False`` drop the weight / the bias (the
+    reference's ``BatchNorm2d(affine=False)`` keeps only the running
+    statistics), which then act as ones / zeros. ``recompute`` routes the
+    train-mode forward through ``ops/bn_relu_vjp.bn_train`` (the JAX
+    BatchNorm's ``recompute``): the same values, lighter residuals, other
+    rounding in the backward. Each model sets it as its JAX counterpart
+    does: LCNN's BNs recompute; ECAPA's BNs outside a fused ReLU -> BN
+    pair (bn5, bn7, the SE modules') take autograd's VJP, as JAX's
+    autodiff does there, and its bf16 trajectory against JAX's depends on
+    that rounding order (with ``bn_train`` the bf16 loss four steps on is
+    2.5% from JAX's, past tests/test_torch_train_bf16.py's 2% bar)."""
 
     def __init__(self, num_features: int, eps: float = BN_EPS,
                  momentum: float = BN_MOMENTUM,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, use_scale: bool = True,
+                 use_bias: bool = True, recompute: bool = False):
         super().__init__()
         self.eps, self.momentum, self.dtype = eps, momentum, dtype
-        self.weight = nn.Parameter(torch.ones(num_features))
-        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.recompute = recompute
+        for name, use, fill in (("weight", use_scale, 1.0),
+                                ("bias", use_bias, 0.0)):
+            if use:
+                setattr(self, name,
+                        nn.Parameter(torch.full((num_features,), fill)))
+            else:
+                self.register_buffer(name, torch.full((num_features,), fill),
+                                     persistent=False)
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
 
@@ -84,15 +127,25 @@ class BatchNorm1d(nn.Module):
             self.running_mean.copy_(m * self.running_mean + (1 - m) * mu)
             self.running_var.copy_(m * self.running_var + (1 - m) * var)
 
+    def _eval(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The running-statistics normalization of x, in f32."""
+        _dims, shape = channel_layout(x, dim)
+        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
+        return ((x.float() - self.running_mean.view(shape)) * mul.view(shape)
+                + self.bias.view(shape))
+
     def forward(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+        if not self.training:
+            return self._out(self._eval(x, dim), x)
+        if self.recompute:
+            y, mu, var = bn_train(x, self.weight, self.bias, self.eps, dim)
+            self._update(mu.detach(), var.detach())
+            return self._out(y, x)
         dims, shape = channel_layout(x, dim)
         xf = x.float()
-        if self.training:
-            mu = xf.mean(dims)
-            var = torch.clamp((xf * xf).mean(dims) - mu * mu, min=0.0)
-            self._update(mu.detach(), var.detach())
-        else:
-            mu, var = self.running_mean, self.running_var
+        mu = xf.mean(dims)
+        var = torch.clamp((xf * xf).mean(dims) - mu * mu, min=0.0)
+        self._update(mu.detach(), var.detach())
         mul = torch.rsqrt(var + self.eps) * self.weight
         y = (xf - mu.view(shape)) * mul.view(shape) + self.bias.view(shape)
         return self._out(y, x)
@@ -105,6 +158,19 @@ class BatchNorm1d(nn.Module):
         y, mu, var = relu_bn_train(x, self.weight, self.bias, self.eps, dim)
         self._update(mu.detach(), var.detach())
         return self._out(y, x)
+
+    def bn_relu(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+        """``relu(self(x))``, the pre-activation order (the JAX
+        ``bn_relu``); in train mode through ``ops/bn_relu_vjp.bn_relu_train``
+        (the JAX model's ``fused_bn``)."""
+        if not self.training:
+            return self._out(torch.relu(self._eval(x, dim)), x)
+        y, mu, var = bn_relu_train(x, self.weight, self.bias, self.eps, dim)
+        self._update(mu.detach(), var.detach())
+        return self._out(y, x)
+
+
+BatchNorm1d = BatchNorm     # the name ECAPA's modules use
 
 
 class Logistic(torch.autograd.Function):
@@ -155,30 +221,102 @@ class SEModule1D(nn.Module):
         return x * Logistic.apply(conv(c2, y, self.dtype))
 
 
+class MaxFeatureMap(nn.Module):
+    """Max-feature-map over channel dim ``dim``: the elementwise max of the
+    first and second halves (the JAX ``MaxFeatureMap`` on its last axis)."""
+
+    def __init__(self, dim: int = 1):
+        super().__init__()
+        self.dim = dim
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.shape[self.dim] % 2:
+            raise ValueError("MaxFeatureMap needs an even channel count")
+        a, b = torch.chunk(x, 2, dim=self.dim)
+        return torch.maximum(a, b)
+
+
+class SelfAttentionPooling(nn.Module):
+    """Attentive statistics over time of x (B, T, H) in f32: per-frame
+    logits x @ att_weights^T, softmax over T of their tanh, the weighted
+    sum and the unbiased (ddof 1) std of the weighted frames, [mean || std]
+    (B, 2H). In train mode 1e-5 times ``noise`` (B, T, H), standard-normal
+    draws, is added to the weighted frames before the std, as the JAX
+    module adds its ``noise`` stream's draws; eval mode adds none.
+    ``att_weights`` is (1, H), the reference's layout."""
+
+    def __init__(self, hidden_size: int):
+        super().__init__()
+        self.att_weights = nn.Parameter(torch.zeros(1, hidden_size))
+
+    def forward(self, x: torch.Tensor,
+                noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        logits = (x @ self.att_weights.t())[..., 0]
+        attn = torch.softmax(torch.tanh(logits), dim=1)
+        weighted = x * attn[..., None]
+        mean = weighted.sum(dim=1)
+        if noise is not None:
+            weighted = weighted + 1e-5 * noise
+        std = torch.std(weighted, dim=1, correction=1)
+        return torch.cat([mean, std], dim=1)
+
+
+def to_2d_input(x: torch.Tensor) -> torch.Tensor:
+    """(B, T, F) features -> (B, 1, F, T) NCHW with H the frequency axis
+    (the reference's 2-D layout; the JAX models' (B, F, T, 1) NHWC)."""
+    if x.dim() == 4:
+        return x
+    return x.transpose(1, 2)[:, None]
+
+
 def lecun_normal_(weight: torch.Tensor,
                   generator: Optional[torch.Generator] = None) -> None:
     """flax's ``lecun_normal``: a normal truncated to +-2 standard
     deviations, scaled to variance 1 / fan_in. ``fan_in`` is the input
     width times the kernel taps, ``weight[0].numel()`` in torch's (out, in,
-    k) and (out, in) layouts."""
+    k...) and (out, in) layouts."""
     std = math.sqrt(1.0 / weight[0].numel()) / 0.87962566103423978
     with torch.no_grad():
         nn.init.trunc_normal_(weight, 0.0, 1.0, -2.0, 2.0, generator=generator)
         weight.mul_(std)
 
 
+def conv_kaiming_(weight: torch.Tensor,
+                  generator: Optional[torch.Generator] = None) -> None:
+    """The JAX ``conv_kaiming_init``, ``variance_scaling(2.0, "fan_out",
+    "truncated_normal")``: fan_out is the output width times the kernel
+    taps, ``numel / in`` in torch's (out, in, kh, kw) layout."""
+    fan_out = weight.numel() // weight.shape[1]
+    std = math.sqrt(2.0 / fan_out) / 0.87962566103423978
+    with torch.no_grad():
+        nn.init.trunc_normal_(weight, 0.0, 1.0, -2.0, 2.0, generator=generator)
+        weight.mul_(std)
+
+
+def linear_kaiming_(weight: torch.Tensor,
+                    generator: Optional[torch.Generator] = None) -> None:
+    """The JAX ``linear_kaiming_init``, ``variance_scaling(2.0, "fan_in",
+    "uniform")``: U(-b, b) with b = sqrt(6 / fan_in), fan_in =
+    ``weight[0].numel()``."""
+    bound = math.sqrt(6.0 / weight[0].numel())
+    with torch.no_grad():
+        weight.copy_((torch.rand(weight.shape, generator=generator) * 2 - 1)
+                     * bound)
+
+
 def init_flax_like_(module: nn.Module,
                     generator: Optional[torch.Generator] = None) -> None:
-    """Re-initialize ``module`` as flax initializes the JAX model:
-    lecun-normal kernels and zero biases for every conv and linear layer,
-    scale 1, bias 0, mean 0 and var 1 for every BatchNorm. Equal in law to
-    the JAX init, not bit for bit (the two generators differ)."""
+    """Re-initialize ``module`` as flax initializes the JAX model by
+    default: lecun-normal kernels and zero biases for every conv and
+    linear layer, scale 1, bias 0, mean 0 and var 1 for every BatchNorm.
+    Equal in law to the JAX init, not bit for bit (the two generators
+    differ)."""
     for m in module.modules():
-        if isinstance(m, (nn.Conv1d, nn.Linear)):
+        if isinstance(m, (nn.Conv1d, nn.Conv2d, nn.Linear)):
             lecun_normal_(m.weight, generator)
             if m.bias is not None:
                 nn.init.zeros_(m.bias)
-        elif isinstance(m, BatchNorm1d):
+        elif isinstance(m, BatchNorm):
             for t, v in ((m.weight, 1.0), (m.bias, 0.0),
                          (m.running_mean, 0.0), (m.running_var, 1.0)):
                 nn.init.constant_(t, v)

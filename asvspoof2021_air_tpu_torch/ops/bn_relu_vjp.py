@@ -1,24 +1,28 @@
-"""Recompute-VJP ReLU -> train-mode BatchNorm.
+"""Recompute-VJP train-mode BatchNorm: ReLU -> BN, BN -> ReLU and BN alone.
 
-Counterpart of the JAX package's ``ops/bn_relu_vjp.py`` ``relu_bn_train``
-(a ``jax.custom_vjp`` in plain jnp, no Pallas kernel). One ReLU + BN pair
-is a :class:`torch.autograd.Function` whose only residuals are the pre-ReLU
-input and the per-channel batch statistics (mu, var); the backward rebuilds
-the normalized activation and the ReLU mask from the input, which the
-convolution before it keeps anyway.
+Counterparts of the JAX package's ``ops/bn_relu_vjp.py`` ``relu_bn_train``
+(ECAPA's ``bn(relu(x))``), ``bn_relu_train`` (the pre-activation
+``relu(bn(x))`` of the ResNet blocks) and ``bn_train`` (every other
+train-mode BN), each a ``jax.custom_vjp`` in plain jnp, no Pallas kernel.
+All three are one :class:`torch.autograd.Function` in three modes, whose
+only residuals are the input and the per-channel batch statistics
+(mu, var); the backward rebuilds the normalized activation and the ReLU
+mask from the input, which the layer before it keeps anyway.
 
 Forward, per channel over every other axis (N reduced elements),
-r = relu(x) in f32:
+r = relu(x) (``relu_bn``) or x, in f32:
     mu = E[r],  var = max(0, E[r^2] - mu^2),  y = (r - mu) rsqrt(var + eps) g + b
-Backward, xhat = (r - mu) rsqrt(var + eps):
+    (``bn_relu``: y = relu(y))
+Backward, xhat = (r - mu) rsqrt(var + eps), gy masked where
+z = xhat g + b <= 0 for ``bn_relu``:
     db = sum gy,  dg = sum gy xhat,  dxhat = gy g
     dr = rsqrt(var + eps) (dxhat - mean(dxhat) - xhat mean(dxhat xhat))
          + gmu / N + 2 gvar (r - mu) / N
-    dx = dr [x > 0]
+    dx = dr [x > 0] (``relu_bn``), else dr
 The (mu, var) outputs feed the running-statistics update; their
 cotangents are zero there, and the rule adds their analytic terms so it
-stays a correct VJP anyway. ``bn_relu_train``, ``bn_train`` and
-``bn_leaky_relu_train`` serve other model families and are not ported yet.
+stays a correct VJP anyway. ``bn_leaky_relu_train`` (ConvNet's) comes with
+the ConvNet family (ROADMAP Queue A).
 """
 
 from __future__ import annotations
@@ -38,32 +42,39 @@ def channel_layout(x: torch.Tensor, dim: int):
     return dims, shape
 
 
-class ReluBNTrain(torch.autograd.Function):
-    """(y, mu, var) = batchnorm_train(relu(x)) over channel dim ``dim``;
-    y in f32."""
+class BNTrainVJP(torch.autograd.Function):
+    """(y, mu, var) of train-mode BN over channel dim ``dim``, y in f32,
+    in ``mode`` ``"relu_bn"`` (bn(relu(x))), ``"bn_relu"`` (relu(bn(x)))
+    or ``"bn"``; residuals (x, mu, var) and the affine."""
 
     @staticmethod
-    def forward(ctx, x, scale, bias, eps: float, dim: int):
+    def forward(ctx, x, scale, bias, eps: float, dim: int, mode: str):
         dims, shape = channel_layout(x, dim)
-        r = torch.relu(x).float()
+        r = (torch.relu(x) if mode == "relu_bn" else x).float()
         mu = r.mean(dims)
         var = torch.clamp((r * r).mean(dims) - mu * mu, min=0.0)
         inv = torch.rsqrt(var + eps)
         y = (r - mu.view(shape)) * (inv * scale).view(shape) + bias.view(shape)
-        ctx.save_for_backward(x, mu, var, scale)
-        ctx.eps, ctx.dim = eps, dim
+        if mode == "bn_relu":
+            y = torch.relu(y)
+        ctx.save_for_backward(x, mu, var, scale, bias)
+        ctx.eps, ctx.dim, ctx.mode = eps, dim, mode
         return y, mu, var
 
     @staticmethod
     def backward(ctx, gy, gmu, gvar):
-        x, mu, var, scale = ctx.saved_tensors
+        x, mu, var, scale, bias = ctx.saved_tensors
         dims, shape = channel_layout(x, ctx.dim)
         n = x.numel() // x.shape[ctx.dim]
-        r = torch.relu(x).float()
+        zero = torch.zeros((), device=x.device)
+        r = (torch.relu(x) if ctx.mode == "relu_bn" else x).float()
         inv = torch.rsqrt(var + ctx.eps).view(shape)
         centered = r - mu.view(shape)
         xhat = centered * inv
         g = gy.float()
+        if ctx.mode == "bn_relu":
+            g = torch.where(xhat * scale.view(shape) + bias.view(shape) > 0,
+                            g, zero)
         dbeta = g.sum(dims)
         dgamma = (g * xhat).sum(dims)
         dxhat = g * scale.view(shape)
@@ -71,8 +82,9 @@ class ReluBNTrain(torch.autograd.Function):
         m2 = (dxhat * xhat).mean(dims).view(shape)
         dr = inv * (dxhat - m1 - xhat * m2)
         dr = dr + gmu.view(shape) / n + (2.0 / n) * gvar.view(shape) * centered
-        dx = torch.where(x > 0, dr, torch.zeros((), device=x.device)).to(x.dtype)
-        return dx, dgamma, dbeta, None, None
+        if ctx.mode == "relu_bn":
+            dr = torch.where(x > 0, dr, zero)
+        return dr.to(x.dtype), dgamma, dbeta, None, None, None
 
 
 def relu_bn_train(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -80,4 +92,20 @@ def relu_bn_train(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """y32, mu, var = batchnorm_train(relu(x)) with recompute residuals;
     ``dim`` is the channel dimension (1 for (B, C, T), -1 channels-last)."""
-    return ReluBNTrain.apply(x, scale, bias, eps, dim)
+    return BNTrainVJP.apply(x, scale, bias, eps, dim, "relu_bn")
+
+
+def bn_relu_train(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                  eps: float, dim: int = 1
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """y32, mu, var = relu(batchnorm_train(x)) with recompute residuals;
+    ``dim`` is the channel dimension (1 for NCHW)."""
+    return BNTrainVJP.apply(x, scale, bias, eps, dim, "bn_relu")
+
+
+def bn_train(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+             eps: float, dim: int = 1
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """y32, mu, var = batchnorm_train(x) with recompute residuals; ``dim``
+    is the channel dimension (1 for NCHW)."""
+    return BNTrainVJP.apply(x, scale, bias, eps, dim, "bn")

@@ -1,18 +1,22 @@
-"""Batched scoring: feature files or raw audio -> ECAPA serving graph ->
-reference-format score file.
+"""Batched scoring: feature files or raw audio -> a model (the ECAPA
+serving graph, ResNet or LCNN) -> reference-format score file.
 
 Counterpart of the JAX package's ``scoring.py``: the 8-task router
 (``build_task_dataset``), the feature-file scorer (``make_score_fn``,
 ``score_to_file``, ``test_on_asvspoof2021``), the per-loss ``score_rule``
 and the cache-free ``score_raw_to_file`` (waveforms -> LFCC on the card ->
 ECAPA). A score file holds ``fname -score [bonafide|spoof]`` lines, where
-the score is -softmax(logits)[:, 0] by default and the loss module's score
-(-cos) for OC-Softmax, so an OC-Softmax file stores +cos (bona fide near
+the score is the JAX ``score_rule``'s: -softmax(logits)[:, 0] by default,
+the loss module's score (-cos) for OC-Softmax and P2SGrad,
+softmax(cosine logits)[:, 0] for AMSoftmax and the distance to the center
+for the Isolate losses, so an OC-Softmax file stores +cos (bona fide near
 +1).
 
-Both scorers run the serving graph (``ServingECAPA``: kernels B2 and B3 on
-the card) in f32 by default, as the JAX scorer runs ``model.apply`` in f32;
-``dtype=torch.bfloat16`` is the bf16 serving tier.
+Both scorers run ECAPA through its serving graph (``ServingECAPA``:
+kernels B2 and B3 on the card) and ResNet or LCNN through their eval-mode
+modules (``model="resnet"``/``"lcnn"``), in f32 by default, as the JAX
+scorer runs ``model.apply`` in f32; ``dtype=torch.bfloat16`` is the bf16
+tier.
 """
 
 from __future__ import annotations
@@ -28,6 +32,9 @@ from asvspoof2021_air_tpu_torch.data.datasets import (
     ASVspoof2019FeatureDataset, AugmentedFeatureDataset, EvalFeatureDataset)
 from asvspoof2021_air_tpu_torch.data.pipeline import (
     SequentialIterator, WaveformIterator)
+from asvspoof2021_air_tpu_torch.interop.checkpoints import (
+    lcnn_from_state_dict, resnet_from_state_dict)
+from asvspoof2021_air_tpu_torch.models.registry import MODEL_REGISTRY
 from asvspoof2021_air_tpu_torch.serving.ecapa_serving import ServingECAPA
 from asvspoof2021_air_tpu_torch.serving.stream import make_scanned_infer
 
@@ -58,37 +65,66 @@ def build_task_dataset(task: str, paths: Dict[str, str],
 
 def score_rule(add_loss: Optional[str], emb: torch.Tensor,
                logits: torch.Tensor, loss_module=None) -> torch.Tensor:
-    """Per-loss score: the OC-Softmax score output for ocsoftmax/ang_iso,
-    else -softmax(logits)[:, 0]."""
-    if add_loss in ("ocsoftmax", "ang_iso"):
-        labels = torch.zeros((emb.shape[0],), dtype=torch.long,
-                             device=emb.device)
+    """Per-loss score: the loss module's score output for ocsoftmax,
+    ang_iso and p2sgrad; softmax over AMSoftmax's cosine logits, column 0;
+    the distance to the loss module's center for isolate and iso_sq; else
+    -softmax(logits)[:, 0]."""
+    labels = torch.zeros((emb.shape[0],), dtype=torch.long,
+                         device=emb.device)
+    if add_loss in ("ocsoftmax", "ang_iso", "p2sgrad"):
         _loss, score = loss_module(emb, labels)
         return score
-    if add_loss in ("p2sgrad", "amsoftmax", "isolate", "iso_sq"):
-        raise NotImplementedError(
-            f"the {add_loss} scoring rule comes with the port of the other "
-            "losses (ROADMAP Queue A, the losses item)")
+    if add_loss == "amsoftmax":
+        outputs, _margin = loss_module(emb, labels)
+        return torch.softmax(outputs, dim=1)[:, 0]
+    if add_loss in ("isolate", "iso_sq"):
+        return torch.linalg.vector_norm(emb - loss_module.center, dim=1)
     return -torch.softmax(logits, dim=1)[:, 0]
+
+
+def build_scoring_model(state_dict, model: str = "ecapa", *,
+                        dtype: torch.dtype = torch.float32,
+                        model_scale: int = 8, feat_dim: int = 60,
+                        device="cuda") -> Callable:
+    """feats (B, T, F) -> (embedding, logits) on ``device`` in ``dtype``:
+    ECAPA's serving graph (kernels B2 and B3 on the card), or the eval-mode
+    ResNet or LCNN (``feat_dim``-dim features) holding ``state_dict``."""
+    dev = resolve_device(device)
+    if model == "ecapa":
+        return ServingECAPA(state_dict, dtype=dtype, model_scale=model_scale,
+                            device=dev)
+    compute = None if dtype == torch.float32 else dtype
+    if model == "resnet":
+        net = resnet_from_state_dict(state_dict, compute, dev)
+    elif model == "lcnn":
+        net = lcnn_from_state_dict(state_dict, feat_dim, compute, dev)
+    else:
+        raise NotImplementedError(
+            f"model {model!r}: the port scores {sorted(MODEL_REGISTRY)}; the "
+            "other families come with ROADMAP Queue A, the model families "
+            "item")
+    return net
 
 
 def make_score_fn(state_dict, loss_module=None,
                   add_loss: Optional[str] = None, *,
                   dtype: torch.dtype = torch.float32, model_scale: int = 8,
+                  model: str = "ecapa", feat_dim: int = 60,
                   device="cuda") -> Callable:
     """Batched scorer: feats (B, T, F) (numpy or tensor) -> raw score (B,)
-    f32 on ``device``, through the ECAPA serving graph built once from
-    ``state_dict`` and the per-loss scoring rule. The function's
-    ``device`` attribute names its device."""
+    f32 on ``device``, through ``model`` built once from ``state_dict``
+    (:func:`build_scoring_model`) and the per-loss scoring rule. The
+    function's ``device`` attribute names its device."""
     dev = resolve_device(device)
-    model = ServingECAPA(state_dict, dtype=dtype, model_scale=model_scale,
-                         device=dev)
+    net = build_scoring_model(state_dict, model, dtype=dtype,
+                              model_scale=model_scale, feat_dim=feat_dim,
+                              device=dev)
     if loss_module is not None:
         loss_module = loss_module.to(dev).eval()
 
     @torch.no_grad()
     def score_fn(feats) -> torch.Tensor:
-        emb, logits = model(torch.as_tensor(feats).to(dev))
+        emb, logits = net(torch.as_tensor(feats).to(dev))
         return score_rule(add_loss, emb, logits, loss_module).float()
 
     score_fn.device = dev
@@ -153,9 +189,12 @@ def test_on_asvspoof2021(
     scan_batches: int = 1,
     dtype: torch.dtype = torch.float32,
     model_scale: int = 8,
+    model: str = "ecapa",
+    feat_dim: int = 60,
     device="cuda",
 ) -> str:
-    """Score one task and return the score file's path: the '19*' tasks
+    """Score one task with ``model`` and return the score file's path: the
+    '19*' tasks
     write ``<out>/<model_name>_<task>_score.txt`` (labeled), the challenge
     tasks ``<out>/<model_name>_<task>/score.txt`` (unlabeled)."""
     dataset = build_task_dataset(task, paths, feature)
@@ -165,7 +204,8 @@ def test_on_asvspoof2021(
         out = os.path.join(output_score_path, f"{model_name}_{task}",
                            "score.txt")
     score_fn = make_score_fn(state_dict, loss_module, add_loss, dtype=dtype,
-                             model_scale=model_scale, device=device)
+                             model_scale=model_scale, model=model,
+                             feat_dim=feat_dim, device=device)
     return score_to_file(score_fn, dataset, out, "19" in task, batch_size,
                          feat_len, padding, scan_batches=scan_batches)
 
@@ -181,15 +221,17 @@ def score_raw_to_file(
     batch_size: int = 64,
     dtype: torch.dtype = torch.float32,
     model_scale: int = 8,
+    model: str = "ecapa",
     device="cuda",
 ) -> str:
     """Score every utterance of ``dataset`` through ``frontend`` (an
     :class:`~asvspoof2021_air_tpu_torch.train.frontend.OnDeviceFrontend`)
-    and the ECAPA serving graph built from ``state_dict``; write the score
-    file and return its path."""
+    and ``model`` built from ``state_dict`` (:func:`build_scoring_model`:
+    the ECAPA serving graph, or ResNet or LCNN); write the score file and
+    return its path."""
     dev = resolve_device(device)
-    model = ServingECAPA(state_dict, dtype=dtype, model_scale=model_scale,
-                         device=dev)
+    net = build_scoring_model(state_dict, model, dtype=dtype,
+                              model_scale=model_scale, device=dev)
     if loss_module is not None:
         loss_module = loss_module.to(dev).eval()
     n = len(dataset)
@@ -202,7 +244,7 @@ def score_raw_to_file(
         for batch in it.epoch():
             feats = frontend({"wave": torch.from_numpy(batch["wave"]),
                               "length": torch.from_numpy(batch["length"])})
-            emb, logits = model(feats)
+            emb, logits = net(feats)
             scores = score_rule(add_loss, emb, logits, loss_module)
             scores = scores.float().cpu().numpy()
             for j in range(len(scores)):

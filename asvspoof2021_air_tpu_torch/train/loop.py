@@ -1,7 +1,9 @@
-"""Epoch-level training loop for ECAPA-TDNN.
+"""Epoch-level training loop for ECAPA-TDNN, ResNet18 and LCNN.
 
 Counterpart of the JAX package's ``train/loop.py`` (``TrainConfig``,
-``build_datasets``, ``setup_training``, ``train``) for ``model="ecapa"``:
+``build_datasets``, ``setup_training``, ``train``) for ``model`` in
+{"ecapa", "resnet", "lcnn"} and ``add_loss`` in {None, "isolate",
+"iso_sq", "ang_iso", "p2sgrad"}:
 
 - data: cached feature files (``ASVspoof2019FeatureDataset``, or
   ``AugmentedFeatureDataset`` under ``LA_aug``/``DF_aug``/``LAPA_aug``/
@@ -10,8 +12,10 @@ Counterpart of the JAX package's ``train/loop.py`` (``TrainConfig``,
   -> ``OnDeviceFrontend``, LFCC through kernel B1 on the card, after the
   channel augmenter under ``on_device_aug``, with the synthetic IR bank
   under ``apply_ir``); both iterators behind a ``PrefetchIterator``;
-- the step: ECAPA in train mode (kernels B4a/B4b) in f32 or bf16
-  (``compute_dtype``) -> the base loss and the add-loss (plus, under
+- the step: the model in train mode (ECAPA pools through kernels
+  B4a/B4b; LCNN's dropout and ResNet's pooling noise draw from the run's
+  seed and the step) in f32 or bf16 (``compute_dtype``) -> the base loss
+  and the add-loss (plus, under
   ``ADV_AUG``, the channel classifiers' CE behind the GRL from the second
   epoch on, and the classifiers' own phase) -> every optimizer;
   ``steps_per_call`` > 1 runs K steps per call, on the card as one CUDA
@@ -35,7 +39,8 @@ NotImplementedError (``check_supported``). ``ADV_AUG`` trains from
 augmented feature files only: on the fly the JAX loop's batches carry no
 channel ids, so its step fails there; the port refuses the pair. ``C``
 and ``model_scale`` are the port's own fields, so tests can train a
-narrow ECAPA; the JAX loop always trains C=512, scale 8.
+narrow ECAPA; the JAX loop always trains C=512, scale 8. ResNet18 and LCNN
+have fixed widths; LCNN's head is sized for ``feat_len``.
 """
 
 from __future__ import annotations
@@ -59,10 +64,11 @@ from asvspoof2021_air_tpu_torch.data.datasets import (
 from asvspoof2021_air_tpu_torch.data.pipeline import (
     RatioMixIterator, SequentialIterator, WaveformIterator)
 from asvspoof2021_air_tpu_torch.data.prefetch import PrefetchIterator
-from asvspoof2021_air_tpu_torch.losses.one_class import OCSoftmax
+from asvspoof2021_air_tpu_torch.losses.registry import build_loss
 from asvspoof2021_air_tpu_torch.metrics.eer import compute_eer
 from asvspoof2021_air_tpu_torch.models.classifier import ChannelClassifier
-from asvspoof2021_air_tpu_torch.models.ecapa import ECAPA_TDNN
+from asvspoof2021_air_tpu_torch.models.registry import (
+    MODEL_REGISTRY, build_model)
 from asvspoof2021_air_tpu_torch.ops.augment import (
     ChannelAugmenter, synthetic_ir_bank)
 from asvspoof2021_air_tpu_torch.train.checkpoint import (
@@ -80,9 +86,10 @@ from asvspoof2021_air_tpu_torch.utils.seed import setup_seed
 class TrainConfig:
     """The fields of the JAX ``TrainConfig`` that this port reads or refuses
     (``check_supported``), with their defaults, plus ``C`` and
-    ``model_scale``. It always trains through B4a/B4b and the recompute
-    VJP, the JAX loop's ``fused_pool``/``fused_bn``, so those are no
-    fields; ``cli/train.py`` refuses a config file that turns them off."""
+    ``model_scale`` (ECAPA's widths). It always trains through B4a/B4b
+    (ECAPA) and the recompute VJPs, the JAX loop's ``fused_pool``/
+    ``fused_bn``, so those are no fields; ``cli/train.py`` refuses a config
+    file that turns them off."""
 
     out_fold: str = "./models/try"
     seed: int = 688
@@ -146,8 +153,13 @@ def _aug_flag(config: TrainConfig) -> bool:
 def check_supported(config: TrainConfig) -> None:
     """Raise NotImplementedError naming every flag of ``config`` that this
     port does not train with (ROADMAP Queue A lists them), and ValueError
-    for ADV_AUG without augmented feature files."""
+    for ADV_AUG without augmented feature files and, as the JAX
+    ``setup_training`` does, for rawnet with an add-loss."""
     c = config
+    if c.model == "rawnet" and c.add_loss is not None:
+        raise ValueError(
+            "rawnet returns class logits, not an enc_dim embedding; train it "
+            "with the base CE loss (add_loss None)")
     if c.ADV_AUG and not _aug_flag(c):
         raise ValueError("ADV_AUG requires an augmentation flag")
     if c.ADV_AUG and c.on_the_fly:
@@ -156,9 +168,9 @@ def check_supported(config: TrainConfig) -> None:
             "ids of augmented feature files (LA_aug/DF_aug/LAPA_aug/"
             "DFPA_aug), and waveform batches carry none")
     bad = [name for name, hit in (
-        (f"model={c.model!r} (the port trains 'ecapa')", c.model != "ecapa"),
-        (f"add_loss={c.add_loss!r} (the port trains None or 'ang_iso')",
-         c.add_loss not in (None, "ang_iso")),
+        (f"model={c.model!r} (the port trains {sorted(MODEL_REGISTRY)}; "
+         "the other families are ROADMAP Queue A)",
+         c.model not in MODEL_REGISTRY),
         (f"feat={c.feat!r} on the fly (the port's front-end is LFCC)",
          c.on_the_fly and c.feat != "LFCC"),
         (f"ensemble={c.ensemble}", c.ensemble > 1),
@@ -206,10 +218,12 @@ def build_datasets(config: TrainConfig):
 
 def setup_training(config: TrainConfig, steps_per_epoch: int, frontend=None,
                    device="cuda"):
-    """(model, loss module, state, train step, eval step). The weights are
-    drawn from a generator seeded with ``config.seed``: the model's first,
-    then the OC-Softmax center, then the channel classifiers (ADV_AUG: one
-    over the LA or DF channels, a second over the devices for LAPA/DFPA).
+    """(model, loss module, state, train step, eval step), the model and
+    the loss module built by name (``models/registry.build_model``,
+    ``losses/registry.build_loss``). The weights are drawn from a generator
+    seeded with ``config.seed``: the model's first, then the loss
+    module's, then the channel classifiers (ADV_AUG: one over the LA or DF
+    channels, a second over the devices for LAPA/DFPA).
     With ``steps_per_call`` > 1 on the card the state is capturable, for
     the CUDA graph of K steps. The eval step scores clean; its attribute
     ``dev_eval_step`` is the dev pass's step, through the augmenter with
@@ -221,16 +235,16 @@ def setup_training(config: TrainConfig, steps_per_epoch: int, frontend=None,
     if dtype is None:
         disable_tf32()      # f32 training computes in full f32
     gen = setup_seed(config.seed)
-    model = ECAPA_TDNN(
-        C=config.C, model_scale=config.model_scale,
-        n_out=1 if config.base_loss == "bce" else config.nclasses,
-        n_feat=config.feat_dim, enc_dim=config.enc_dim, fused_pool=True,
-        generator=gen, device=dev, dtype=dtype)
-    loss_mod = None
-    if config.add_loss is not None:
-        loss_mod = OCSoftmax(feat_dim=config.enc_dim, r_real=config.r_real,
-                             r_fake=config.r_fake, alpha=config.alpha,
-                             generator=gen, device=dev)
+    model = build_model(
+        config.model, enc_dim=config.enc_dim,
+        nclasses=1 if config.base_loss == "bce" else config.nclasses,
+        feat_dim=config.feat_dim, feat_len=config.feat_len, dtype=dtype,
+        generator=gen, device=dev, C=config.C,
+        model_scale=config.model_scale)
+    loss_mod = build_loss(config.add_loss, enc_dim=config.enc_dim,
+                          r_real=config.r_real, r_fake=config.r_fake,
+                          alpha=config.alpha, nclasses=config.nclasses,
+                          generator=gen, device=dev)
     clf = clf2 = None
     dual = config.ADV_AUG and (config.LAPA_aug or config.DFPA_aug)
     if config.ADV_AUG:

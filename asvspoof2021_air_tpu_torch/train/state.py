@@ -2,8 +2,9 @@
 classifiers, with their optimizers.
 
 Counterpart of the JAX package's ``train/state.py``: Adam with coupled L2
-weight decay 5e-4 on the backbone, plain SGD on the loss module's center,
-both stepped each iteration at the step-decay learning rate
+weight decay 5e-4 on the backbone (any model the port holds), plain SGD
+on every parameter of the loss module (the center of OC-Softmax and of the
+Isolate losses, P2SGrad's weight), both stepped each iteration at the step-decay learning rate
 ``lr * decay^((step // steps_per_epoch) // interval)``; under ADV_AUG one
 channel classifier (two for LAPA/DFPA), each with its own Adam of the
 backbone's form (``make_backbone_optimizer(sched_d)`` in the JAX loop)
@@ -20,9 +21,9 @@ A *capturable* state (``create_train_state(capturable=True)``, CUDA only)
 can be stepped inside a CUDA graph (``train/steps.make_multi_step``): the
 rates ``lr`` and ``lr_d`` and the adversarial gate ``adv_gate`` are device
 tensors that the optimizers and the step read (Adam with
-``capturable=True``, its step counts on the card; the center's SGD fused),
-the gradients are zeroed in place rather than dropped, so every buffer the
-graph captured persists, and :meth:`TrainState.load_state_dict` copies
+``capturable=True``, its step counts on the card; the loss module's SGD
+fused), the gradients are zeroed in place rather than dropped, so every
+buffer the graph captured persists, and :meth:`TrainState.load_state_dict` copies
 into the existing tensors.
 """
 
@@ -88,7 +89,7 @@ class TrainState:
     schedule: Callable[[int], float]
     step: int = 0
     # the learning rate on the card, read by the backbone's and the
-    # center's optimizers of a capturable state; None for an eager one
+    # loss module's optimizers of a capturable state; None for an eager one
     lr: Optional[torch.Tensor] = None
     # ADV_AUG: the channel classifier(s), their Adams and their schedule
     classifier: Optional[nn.Module] = None
@@ -158,8 +159,8 @@ class TrainState:
     def apply_gradients(self) -> None:
         """One step of every optimizer at ``schedule(step)`` and
         ``schedule_d(step)``. A backbone parameter the loss does not reach
-        (``fc7`` and ``bn7`` under OC-Softmax, whose logits feed only the
-        logged CE) gets a zero gradient first: in JAX every parameter has
+        (the logits' layers under an add-loss: ECAPA's ``fc7`` and ``bn7``,
+        ResNet's and LCNN's ``fc_mu``, which feed only the logged CE) gets a zero gradient first: in JAX every parameter has
         one, so coupled L2 still moves it, while ``torch.optim.Adam`` skips
         a parameter whose grad is None. Inside a CUDA graph's capture the
         rates are not written: the graph's caller writes them before each
@@ -191,7 +192,7 @@ class TrainState:
 
     def load_state_dict(self, state: Dict[str, Any]) -> None:
         """Load a :meth:`state_dict` into this state's tensors, in place
-        where they exist (model, center, classifiers, Adam moments), so a
+        where they exist (model, loss module, classifiers, Adam moments), so a
         CUDA graph captured over them replays from the loaded state."""
         self.model.load_state_dict(state["model"])
         if self.loss_module is not None:

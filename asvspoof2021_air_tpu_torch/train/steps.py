@@ -2,10 +2,14 @@
 
 Counterpart of the JAX package's ``train/steps.py`` ``make_train_step``,
 ``make_multi_step`` and ``make_eval_step`` for ``add_loss`` in {None,
-"ang_iso"} and ``base_loss`` in {"ce", "bce"}, with or without ADV_AUG:
+"isolate", "iso_sq", "ang_iso", "p2sgrad"} and ``base_loss`` in {"ce",
+"bce"}, with or without ADV_AUG, for any model the port holds:
 
 - the base loss is always computed and logged; with an add-loss the
-  backbone trains on the add-loss alone, times ``weight_loss``;
+  backbone trains on the add-loss alone: ``add * weight_loss`` for
+  isolate, iso_sq and ang_iso, ``add`` for p2sgrad (``steps.py:128-165``
+  of the JAX package, which raises ValueError for amsoftmax, as the port
+  does);
 - ADV_AUG (``adv_aug``, ``dual_classifier`` for LAPA/DFPA) adds
   ``adv_gate * CE(classifier(GRL(feats)), channel)`` to the ang_iso loss
   (both classifiers' CEs in dual mode), then trains the classifiers on the
@@ -19,18 +23,21 @@ Counterpart of the JAX package's ``train/steps.py`` ``make_train_step``,
   name, ``adv_loss``/``adv_acc`` and ``clf_loss``/``clf_acc`` under
   ADV_AUG, and ``total_loss``, as 0-dim tensors;
 - the eval step scores as the JAX one does: softmax[:, 0] of the logits
-  for CE, the logit for BCE, the loss module's score (-cos) for ang_iso;
+  for CE, the logit for BCE, the loss module's score (-cos) for ang_iso
+  and p2sgrad, the distance to the center for isolate and iso_sq;
   with an augmenting front-end (``dev_aug``) it draws the same channels
   for every batch, as JAX's eval step passes one fixed key;
 - ``make_multi_step`` runs K steps per call, the JAX ``lax.scan`` over K
   stacked batches: on the card as one CUDA graph of K steps, replayed.
 
-The augmenter's draws at a training step are a function of the run's seed
-and the step alone (:func:`step_generator`), as the JAX step folds the
-step into its key: a step draws the same eagerly, in a graph's replay and
-after a resume.
+The augmenter's draws at a training step, and the model's (LCNN's dropout
+mask, ResNet's pooling noise: the JAX step's ``dropout`` and ``noise``
+streams), are a function of the run's seed and the step alone
+(:func:`step_generator`, one stream each), as the JAX step folds the step
+into its key: a step draws the same eagerly, in a graph's replay and after
+a resume.
 
-The other losses and ``remat_policy`` raise NotImplementedError.
+``remat_policy`` raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -40,15 +47,18 @@ from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from asvspoof2021_air_tpu_torch._device import resolve_device
+from asvspoof2021_air_tpu_torch.losses.basic import (
+    binary_cross_entropy_with_logits, cross_entropy)
 from asvspoof2021_air_tpu_torch.train.state import TrainState
+
+TRAINED_LOSSES = (None, "isolate", "iso_sq", "ang_iso", "p2sgrad")
 
 
 @dataclasses.dataclass(frozen=True)
 class StepConfig:
-    add_loss: Optional[str] = None        # None | "ang_iso"
+    add_loss: Optional[str] = None   # None|isolate|iso_sq|ang_iso|p2sgrad
     base_loss: str = "ce"                 # "ce" | "bce"
     weight_loss: float = 1.0
     adv_aug: bool = False
@@ -58,11 +68,11 @@ class StepConfig:
     remat_policy: Optional[str] = None
 
 
-def _check(config: StepConfig) -> None:
-    if config.add_loss not in (None, "ang_iso"):
-        raise NotImplementedError(
-            f"add_loss {config.add_loss!r}: the port trains with None or "
-            "'ang_iso' (the other losses are ROADMAP Queue A)")
+def _check(config: StepConfig, train: bool = True) -> None:
+    if train and config.add_loss not in TRAINED_LOSSES:
+        # the JAX step's ValueError (amsoftmax is a scoring head only)
+        raise ValueError(f"add_loss {config.add_loss!r} does not train; "
+                         f"choices: {TRAINED_LOSSES}")
     if config.base_loss not in ("ce", "bce"):
         raise ValueError(f"base_loss {config.base_loss!r}")
     if config.remat_policy is not None:
@@ -71,23 +81,27 @@ def _check(config: StepConfig) -> None:
 
 def base_loss_and_score(base_loss: str, logits: torch.Tensor,
                         labels: torch.Tensor):
-    """The JAX package's ``losses/basic.py`` CE (mean softmax cross-entropy
-    on integer labels) or BCE-with-logits on the first logit, and the
-    score the eval step reports with it."""
+    """The mean CE on integer labels or BCE-with-logits on the first logit
+    (``losses/basic.py``), and the score the eval step reports with it."""
     if base_loss == "bce":
-        return (F.binary_cross_entropy_with_logits(
-            logits[:, 0], labels.to(logits.dtype)), logits[:, 0])
-    return F.cross_entropy(logits, labels), torch.softmax(logits, dim=1)[:, 0]
+        return (binary_cross_entropy_with_logits(logits[:, 0], labels),
+                logits[:, 0])
+    return cross_entropy(logits, labels), torch.softmax(logits, dim=1)[:, 0]
 
 
-def step_generator(seed: int, step: int, device) -> torch.Generator:
-    """The generator of the augmenter's draws at training step ``step`` of a
-    run whose base seed is ``seed``: a fresh ``torch.Generator`` on
-    ``device`` seeded from (seed, step) alone. The draws are made eagerly,
-    outside any CUDA graph (a graph takes them as static inputs, like its
-    batches), so a replayed step draws bit for bit what the same step draws
-    eagerly."""
-    s = np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)[0]
+FRONTEND_STREAM, MODEL_STREAM = 0, 1
+
+
+def step_generator(seed: int, step: int, device,
+                   stream: int = FRONTEND_STREAM) -> torch.Generator:
+    """The generator of the draws of ``stream`` (the augmenter's, or the
+    model's dropout and noise) at training step ``step`` of a run whose base
+    seed is ``seed``: a fresh ``torch.Generator`` on ``device`` seeded from
+    (seed, step, stream) alone. The draws are made eagerly, outside any
+    CUDA graph (a graph takes them as static inputs, like its batches), so
+    a replayed step draws bit for bit what the same step draws eagerly."""
+    key = [seed, step] + ([stream] if stream != FRONTEND_STREAM else [])
+    s = np.random.SeedSequence(key).generate_state(1, np.uint64)[0]
     return torch.Generator(device=device).manual_seed(int(s) >> 1)
 
 
@@ -102,10 +116,10 @@ def _channel_ce(state: TrainState, config: StepConfig, x: torch.Tensor,
     0]) + CE(c2, channel[:, 1])."""
     if not config.dual_classifier:
         c1 = state.classifier(x)
-        return F.cross_entropy(c1, channel), _accuracy(c1, channel)
+        return cross_entropy(c1, channel), _accuracy(c1, channel)
     c1, c2 = state.classifier(x), state.classifier2(x)
-    return (F.cross_entropy(c1, channel[:, 0])
-            + F.cross_entropy(c2, channel[:, 1]),
+    return (cross_entropy(c1, channel[:, 0])
+            + cross_entropy(c2, channel[:, 1]),
             _accuracy(c1, channel[:, 0]))
 
 
@@ -116,18 +130,22 @@ def _augmenter(frontend):
 def make_train_step(config: StepConfig, frontend: Optional[Callable] = None,
                     device="cuda") -> Callable:
     """``step(state, batch, rng=None, adv_gate=0.0, frontend_params=None,
-    draws=None) -> metrics``.
+    draws=None, model_draws=None) -> metrics``.
 
     ``batch`` holds 'feat' (B, T, F) or 'wave' (B, L) + 'length', 'label'
     (B,) and, under ADV_AUG, 'channel' ((B,) or (B, 2)), as tensors.
     ``frontend(batch, draws, params)`` turns a waveform batch into features
     on ``device``. ``rng`` is the run's base seed (an int): with an
     augmenting front-end the step draws from ``step_generator(rng,
-    state.step)`` unless ``draws`` are given. ``adv_gate`` multiplies the
-    adversarial term (0 in the first epoch, then 1). The step updates
-    ``state`` in place (parameters, BN statistics, optimizer states,
-    step). ``step.draw(rng, step, batch, out=None)`` gives the draws it
-    would make at ``step`` (None without an augmenter), written into
+    state.step)`` unless ``draws`` are given, and a model that draws in
+    train mode (LCNN, ResNet) from ``step_generator(rng, state.step,
+    stream=MODEL_STREAM)`` unless ``model_draws`` are given. ``adv_gate``
+    multiplies the adversarial term (0 in the first epoch, then 1). The
+    step updates ``state`` in place (parameters, BN statistics, optimizer
+    states, step). ``step.draw(rng, step, batch, out=None)`` gives the
+    augmenter's draws it would make at ``step`` (None without an
+    augmenter) and ``step.draw_model(rng, step, model, batch, out=None)``
+    the model's (None for a model that does not draw), written into
     ``out``'s tensors where given."""
     _check(config)
     dev = resolve_device(device)
@@ -142,9 +160,24 @@ def make_train_step(config: StepConfig, frontend: Optional[Callable] = None,
         return augmenter.draw(batch["wave"].shape,
                               step_generator(rng, step, dev), out)
 
+    def draw_model(rng, step: int, model, batch: Dict[str, Any], out=None):
+        # a model that draws in train mode (LCNN's dropout, ResNet's
+        # pooling noise) has draw(batch, frames, generator, out)
+        if not hasattr(model, "draw"):
+            return None
+        if rng is None:
+            raise ValueError("the model's dropout and noise draw from the "
+                             "run's seed: pass rng or model_draws")
+        if "feat" in batch:
+            n, frames = batch["feat"].shape[:2]
+        else:
+            n, frames = batch["wave"].shape[0], frontend.feat_len
+        return model.draw(n, frames, step_generator(rng, step, dev,
+                                                    MODEL_STREAM), out)
+
     def train_step(state: TrainState, batch: Dict[str, Any], rng=None,
                    adv_gate: float = 0.0, frontend_params=None,
-                   draws=None) -> Dict[str, torch.Tensor]:
+                   draws=None, model_draws=None) -> Dict[str, torch.Tensor]:
         state.model.train()
         labels = batch["label"].to(dev).long()
         with torch.no_grad():
@@ -154,16 +187,24 @@ def make_train_step(config: StepConfig, frontend: Optional[Callable] = None,
                 if draws is None:
                     draws = draw(rng, state.step, batch)
                 x = frontend(batch, draws, frontend_params)
+            if model_draws is None:
+                model_draws = draw_model(rng, state.step, state.model, batch)
         state.zero_grad()
-        feats, logits = state.model(x)
+        feats, logits = (state.model(x) if model_draws is None
+                         else state.model(x, model_draws))
         base, _ = base_loss_and_score(config.base_loss, logits, labels)
         metrics = {"base_loss": base.detach()}
         if config.add_loss is None:
             total = base
+        elif config.add_loss in ("isolate", "iso_sq"):
+            add = state.loss_module(feats, labels)
+            total = add * config.weight_loss
         else:
             add, _scores = state.loss_module(feats, labels)
+            total = add if config.add_loss == "p2sgrad" \
+                else add * config.weight_loss
+        if config.add_loss is not None:
             metrics[config.add_loss] = add.detach()
-            total = add * config.weight_loss
         if config.adv_aug:
             channel = batch["channel"].to(dev).long()
             if config.add_loss == "ang_iso":
@@ -189,6 +230,7 @@ def make_train_step(config: StepConfig, frontend: Optional[Callable] = None,
         return metrics
 
     train_step.draw = draw
+    train_step.draw_model = draw_model
     return train_step
 
 
@@ -196,11 +238,11 @@ def _run_steps(train_step: Callable, state: TrainState,
                batches: Dict[str, torch.Tensor], n_steps: int, rng,
                adv_gate: float, frontend_params,
                draws: Optional[List] = None) -> Dict[str, torch.Tensor]:
-    """``n_steps`` calls of the step over stacked batches; the metrics
-    stacked."""
+    """``n_steps`` calls of the step over stacked batches, with each step's
+    (augmenter's, model's) ``draws`` where given; the metrics stacked."""
     ms = [train_step(state, {k: v[i] for k, v in batches.items()}, rng,
                      adv_gate, frontend_params,
-                     None if draws is None else draws[i])
+                     *((None, None) if draws is None else draws[i]))
           for i in range(n_steps)]
     return {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
 
@@ -229,14 +271,17 @@ class _GraphedSteps:
         ts += [state.lr, state.lr_d, state.adv_gate]
         return [t.data_ptr() for t in ts]
 
-    def _draws(self, rng, step: int, batches, out=None):
-        """Each inner step's draws, made eagerly from (rng, step + i);
-        written into ``out``'s buffers where given."""
-        ds = [self.train_step.draw(rng, step + i,
-                                   {k: v[i] for k, v in batches.items()},
-                                   None if out is None else out[i])
-              for i in range(self.n_steps)]
-        return None if ds[0] is None else ds
+    def _draws(self, model, rng, step: int, batches, out=None):
+        """Each inner step's (augmenter's, model's) draws, made eagerly
+        from (rng, step + i); written into ``out``'s buffers where given."""
+        ds = []
+        for i in range(self.n_steps):
+            batch = {k: v[i] for k, v in batches.items()}
+            a, m = (None, None) if out is None else out[i]
+            ds.append((self.train_step.draw(rng, step + i, batch, a),
+                       self.train_step.draw_model(rng, step + i, model,
+                                                  batch, m)))
+        return None if ds[0] == (None, None) else ds
 
     def __call__(self, state: TrainState, batches: Dict[str, torch.Tensor],
                  rng=None, adv_gate: float = 0.0,
@@ -251,7 +296,8 @@ class _GraphedSteps:
             # steps of the run, which also warm up what the capture needs
             # (Adam's state, the libraries' workspaces, cuFFT's plans).
             # Then the capture records the same K steps over static
-            # buffers (batches and the augmenter's draws), running none.
+            # buffers (batches, the augmenter's and the model's draws),
+            # running none.
             self.static = {k: v.to(dev, copy=True) for k, v in
                            batches.items()}
             side = torch.cuda.Stream(dev)
@@ -261,7 +307,8 @@ class _GraphedSteps:
                                  self.n_steps, rng, adv_gate,
                                  frontend_params)
                 step, graph = state.step, torch.cuda.CUDAGraph()
-                self.draws = self._draws(rng, step, self.static)
+                self.draws = self._draws(state.model, rng, step,
+                                         self.static)
                 with torch.cuda.graph(graph, stream=side):
                     self.out = _run_steps(self.train_step, state,
                                           self.static, self.n_steps, rng,
@@ -282,7 +329,8 @@ class _GraphedSteps:
         for k, v in batches.items():
             self.static[k].copy_(v, non_blocking=True)
         if self.draws is not None:
-            self._draws(rng, state.step, self.static, self.draws)
+            self._draws(state.model, rng, state.step, self.static,
+                        self.draws)
         state.set_rate()
         state.gate(adv_gate)
         self.graph.replay()
@@ -301,9 +349,9 @@ def make_multi_step(train_step: Callable, n_steps: int) -> Callable:
     state must be capturable: the first call runs its steps eagerly, then
     captures them as one CUDA graph (front-end and augmenter, forward,
     backward, every optimizer); every later call copies its batches and
-    the augmenter's draws for its steps into the graph's static buffers,
-    writes the learning rates and the gate (constant within a call) and
-    replays. The batches must keep their shapes. A kernel launched inside
+    the augmenter's and the model's draws for its steps into the graph's
+    static buffers, writes the learning rates and the gate (constant within
+    a call) and replays. The batches must keep their shapes. A kernel launched inside
     the graph counts its launch once, at the capture. A failed capture
     raises; nothing falls back to eager steps."""
     graphed = _GraphedSteps(train_step, n_steps)
@@ -325,8 +373,11 @@ def make_eval_step(config: StepConfig, frontend: Optional[Callable] = None,
     feats)`` with the model in eval mode and no gradient. An augmenting
     front-end draws once per batch shape from a generator seeded 0 and
     reuses the draws for every batch, as the JAX eval step passes
-    ``PRNGKey(0)`` to its front-end."""
-    _check(config)
+    ``PRNGKey(0)`` to its front-end. Scores per ``add_loss`` as the JAX
+    eval step (``steps.py:355-371``): the loss module's score for ang_iso
+    and p2sgrad, the distance to the center for isolate and iso_sq, the
+    base loss's for None and amsoftmax."""
+    _check(config, train=False)
     dev = resolve_device(device)
     augmenter = _augmenter(frontend)
     fixed: Dict[Any, Any] = {}
@@ -348,9 +399,12 @@ def make_eval_step(config: StepConfig, frontend: Optional[Callable] = None,
             base, score = base_loss_and_score(config.base_loss, logits,
                                               labels)
             metrics = {"base_loss": base}
-            if config.add_loss == "ang_iso":
+            if config.add_loss in ("isolate", "iso_sq"):
+                metrics[config.add_loss] = state.loss_module(feats, labels)
+                score = state.loss_module.score(feats)
+            elif config.add_loss in ("ang_iso", "p2sgrad"):
                 add, score = state.loss_module(feats, labels)
-                metrics["ang_iso"] = add
+                metrics[config.add_loss] = add
         return metrics, score, feats
 
     return eval_step

@@ -108,7 +108,27 @@ Phases, each fatal on failure:
    utt/s by CUDA events on the fly with and without the augmenter and
    from features with and without ADV_AUG (bf16, K = 8), the augmenter's
    own ms at (64, 119840), peak memory, and a profile of one replay with
-   the augmenter.
+   the augmenter;
+4d. drive the LCNN and ResNet18 families at full width (B = 64, T = 750,
+   weights from a seed): ``train`` of ResNet18 + ang_iso (2 epochs of 2
+   steps) and LCNN + iso_sq (one epoch of 2 steps) in f32 at one step a
+   call on the fly, so B1 runs on two new paths, each step's and dev
+   batch's launch counted; the losses finite, BN statistics and the loss
+   module moved; one on-the-fly step through B1 against the same step
+   through B1's plain version at phase 4's bars (the model's dropout or
+   noise drawn from the run's seed and the step, so both steps draw the
+   same); then LCNN + p2sgrad and ResNet18 + isolate in bf16 at
+   ``steps_per_call=8`` from feature files (2 epochs of 8 steps: one
+   capture, one replay), 8 replayed steps against 8 eager ones (rtol 1e-6,
+   cuDNN deterministic) with the model's draws as static inputs of the
+   graph; then ``cli.generate_score`` over a 19dev tree of 136 LFCC files
+   for run folders of both families with every add-loss (None, ang_iso,
+   isolate, iso_sq, p2sgrad, amsoftmax) and every ``-l`` rule (softmax,
+   ocsoftmax, ang_iso, isolate, iso_sq, p2sgrad, amsoftmax): the files'
+   rows, finite scores, the first 8 against the same scorer on the CPU
+   (1e-4), and ``cli.evaluate_tdcf``; print ms per step, utt/s and peak
+   memory by CUDA events for the four configurations and a profile of
+   each with the device's busy share.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is the device JSON. The script imports only the port, torch and
@@ -2156,6 +2176,324 @@ def train_adv_path(torch, gpu: str, entries):
               f"utt/s (peak {peak:.2f} GiB)")
 
 
+@contextlib.contextmanager
+def plain_b1():
+    """B1's plain version in place of the kernel for ``CudaLFCC`` on CUDA
+    tensors (the step the kernel path is held against in phase 4d)."""
+    from asvspoof2021_air_tpu_torch.ops import lfcc_cuda as lc
+
+    saved = lc.CudaLFCC.cepstra
+    lc.CudaLFCC.cepstra = lambda self, x: lc.lfcc_plain(
+        x, self.cs, self.fb, self.dct, self.config)
+    try:
+        yield
+    finally:
+        lc.CudaLFCC.cepstra = saved
+
+
+def family_step_vs_plain(torch, fresh_state, live, step, wave, rng,
+                         tag: str):
+    """One on-the-fly training step of ResNet or LCNN from state ``live``
+    on the waveform batch ``wave`` with its features through B1, against
+    the same step with B1's plain version (phase 4d), at phase 4's bars:
+    the metrics rtol 1e-4; each gradient's error norm within max(1e-2, 4 x
+    two kernel steps' own) of its norm, and the gradients that are zero in
+    the plain step zero in the kernel step; BN statistics rtol 1e-4 and
+    atol 1e-5, or one input ulp (``bn_ulp_bars``). Both steps draw the
+    model's dropout or noise from (rng, step): the same draws."""
+    runs = []
+    for ctx in (contextlib.nullcontext, contextlib.nullcontext, plain_b1):
+        st = fresh_state()
+        st.load_state_dict(live)
+        with ctx():
+            metrics = step(st, wave, rng)
+        grads = {n: p.grad.clone() for n, p in st.model.named_parameters()}
+        grads.update({f"loss.{n}": p.grad.clone()
+                      for n, p in st.loss_module.named_parameters()})
+        runs.append((metrics, grads, {
+            k: v.clone() for k, v in st.model.state_dict().items()
+            if k.endswith(RUNNING)}))
+    (m_k, g_k, s_k), (_, g_k2, _), (m_p, g_p, s_p) = runs
+    for k in m_k:
+        a, b = float(m_k[k]), float(m_p[k])
+        print(f"{tag} B1 vs plain step: {k} {a:.7f} vs {b:.7f} (rtol 1e-4)")
+        check(abs(a - b) <= 1e-4 * abs(b), f"{tag} step {k}: {a} vs {b}")
+    names = [n for n in g_p if g_p[n].abs().max() > 0]
+    norm_err = lambda got, want: max(
+        (float((got[n] - want[n]).norm() / want[n].norm()), n)
+        for n in names)
+    worst, spread = norm_err(g_k, g_p), norm_err(g_k2, g_k)
+    bar = max(1e-2, 4 * spread[0])
+    print(f"{tag} B1 vs plain step: largest gradient error norm "
+          f"{worst[0]:.3e} of its tensor's ({worst[1]}; bar {bar:.3e}); two "
+          f"kernel steps {spread[0]:.3e} ({spread[1]})")
+    check(worst[0] <= bar, f"{tag} step gradients disagree: {worst}")
+    for n in g_p:
+        if float(g_p[n].abs().max()) == 0:
+            check(bool((g_k[n] == 0).all()), f"{tag} gradient {n} not zero")
+    ulp_bars = bn_ulp_bars(torch, st.model, live["model"], s_p, 2.0 ** -23)
+    worst_stat = max((max_err(s_k[k], s_p[k]), k) for k in s_p)
+    print(f"{tag} B1 vs plain step: BN statistics largest difference "
+          f"{worst_stat[0]:.3e} ({worst_stat[1]}; rtol 1e-4, atol 1e-5, or "
+          f"one input ulp)")
+    for k in s_p:
+        bar = torch.maximum(1e-4 * s_p[k].abs() + 1e-5, ulp_bars[k])
+        check(bool(((s_k[k] - s_p[k]).abs() <= bar).all()),
+              f"{tag} step BN statistic {k} disagrees")
+
+
+def family_times(torch, cfg, spe, live, batches, frontend, rng, what: str):
+    """(ms per step by CUDA events, peak GiB) of ``cfg``'s step from state
+    ``live`` (K = ``cfg.steps_per_call``: one replay of the K-step graph
+    over ``batches`` per call; K = 1: one step on ``batches[0]``), and a
+    profile of one call with the device's busy share."""
+    from asvspoof2021_air_tpu_torch.train.loop import setup_training
+    from asvspoof2021_air_tpu_torch.train.steps import make_multi_step
+
+    k = cfg.steps_per_call
+    _, _, st, step, _ = setup_training(cfg, spe, frontend=frontend,
+                                       device=DEVICE)
+    st.load_state_dict(live)
+    if k == 1:
+        call = lambda: step(st, batches[0], rng)
+    else:
+        multi = make_multi_step(step, k)
+        stacked = {n: torch.stack([b[n] for b in batches[:k]])
+                   for n in batches[0]}
+        call = lambda: multi(st, stacked, rng)
+    torch.cuda.reset_peak_memory_stats()
+    ms = time_ms(torch, call, iters=3 if k > 1 else 5) / k
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    profile_device(torch, call, k * ms, what)
+    return ms, peak
+
+
+def train_families_path(torch, gpu: str, entries):
+    """Phase 4d: ResNet18 and LCNN at full width, on the fly through B1
+    and from feature files as CUDA graphs of 8 steps, and their scoring
+    through ``cli.generate_score`` with every ``-l`` rule."""
+    import ast
+    import dataclasses
+    import io
+
+    from asvspoof2021_air_tpu_torch.cli import evaluate_tdcf, generate_score
+    from asvspoof2021_air_tpu_torch.data.datasets import (
+        ASVspoof2019FeatureDataset, RawAudioDataset)
+    from asvspoof2021_air_tpu_torch.data.pipeline import (
+        RatioMixIterator, SequentialIterator, WaveformIterator)
+    from asvspoof2021_air_tpu_torch.interop.flax_weights import (
+        from_flax_variables, random_flax_variables)
+    from asvspoof2021_air_tpu_torch.losses.registry import build_loss
+    from asvspoof2021_air_tpu_torch.ops import lfcc_cuda as lc
+    from asvspoof2021_air_tpu_torch.scoring import make_score_fn
+    from asvspoof2021_air_tpu_torch.train.frontend import OnDeviceFrontend
+    from asvspoof2021_air_tpu_torch.train.loop import (
+        TrainConfig, setup_training, train)
+    from asvspoof2021_air_tpu_torch.train.steps import make_multi_step
+
+    K, rng = 8, 688 ^ 0x5EED           # the loop's seed for the draws
+    times = {}
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        # ---- on the fly, f32, K = 1: ResNet18 + ang_iso, LCNN + iso_sq --
+        write_corpus(tmp, 2 * B, seed=30, part="train")
+        write_corpus(tmp, B, seed=31, part="dev")
+        fe = OnDeviceFrontend(feat_len=T, device=DEVICE)
+        raw = next(WaveformIterator(RawAudioDataset("LA", tmp, "train"), B,
+                                    fe.min_samples(), seed=5).epoch())
+        wave = {k: torch.from_numpy(raw[k]) for k in ("wave", "length",
+                                                      "label")}
+        for family, add_loss, epochs in (("resnet", "ang_iso", 2),
+                                         ("lcnn", "iso_sq", 1)):
+            cfg = TrainConfig(
+                out_fold=os.path.join(tmp, f"otf_{family}"),
+                path_to_database=tmp, model=family, add_loss=add_loss,
+                on_the_fly=True, batch_size=B, feat_len=T,
+                num_epochs=epochs, ratio=1.0)
+            init = setup_training(cfg, 2, device=DEVICE)[2].state_dict()
+            torch.cuda.synchronize()
+            lc.launches = 0
+            summary, state = train(cfg, device=DEVICE, return_state=True)
+            torch.cuda.synchronize()
+            steps = 2 * epochs
+            print(f"{family} + {add_loss} f32 on the fly: {steps} steps and "
+                  f"{epochs} dev passes, B1 launches {lc.launches}; "
+                  f"{summary}")
+            check(lc.launches == steps + epochs,
+                  f"{family}: B1 did not run once per step and dev batch")
+            entries["B1"][f"launches_train_{family}_otf"] = lc.launches
+            with open(os.path.join(cfg.out_fold, "train_loss.log")) as f:
+                losses = [float(r.split()[2]) for r in f.readlines()[1:]]
+            check(len(losses) == steps and bool(np.isfinite(losses).all()),
+                  f"{family} losses {losses}")
+            live = state.state_dict()
+            moved = {k for k, v in live["model"].items()
+                     if not torch.equal(v, init["model"][k])}
+            stats = {k for k in live["model"] if k.endswith(RUNNING)}
+            check(stats <= moved, f"{family}: BN statistics that did not "
+                                  f"move: {sorted(stats - moved)}")
+            check(all(not torch.equal(v, init["loss_module"][k])
+                      for k, v in live["loss_module"].items()),
+                  f"{family}: the loss module did not move")
+            print(f"{family}: moved {len(moved)} of {len(live['model'])} "
+                  f"model tensors (all BN statistics), the loss module; "
+                  f"losses {np.round(losses, 5).tolist()}")
+            fresh = lambda: setup_training(cfg, 2, device=DEVICE)[2]
+            step = setup_training(cfg, 2, frontend=fe, device=DEVICE)[3]
+            family_step_vs_plain(torch, fresh, live, step, wave, rng,
+                                 f"{family} f32")
+            times[f"{family} + {add_loss} f32 K=1 on the fly"] = (
+                family_times(torch, cfg, 2, live, [wave], fe, rng,
+                             f"{family} f32 training step on the fly"))
+            del state
+
+        # ---- from feature files, bf16, K = 8 as a CUDA graph: LCNN +
+        # p2sgrad, ResNet18 + isolate ----
+        feats = os.path.join(tmp, "feats")
+        write_feature_tree(os.path.join(feats, "train", "LFCC"), 2 * B, 32,
+                           True)
+        write_feature_tree(os.path.join(feats, "dev", "LFCC"), B, 33, True)
+        train_set = Repeat(ASVspoof2019FeatureDataset("LA", feats, "train"),
+                           K // 2)             # K steps an epoch
+        dev_set = ASVspoof2019FeatureDataset("LA", feats, "dev")
+        fb = [{k: torch.from_numpy(b[k]) for k in ("feat", "label")}
+              for b in RatioMixIterator(train_set, B, 1.0, feat_len=T,
+                                        seed=7,
+                                        steps_per_epoch=2 * K).epoch()]
+        stack = lambda bs: {k: torch.stack([b[k] for b in bs])
+                            for k in bs[0]}
+        for family, add_loss in (("lcnn", "p2sgrad"), ("resnet", "isolate")):
+            cfg = TrainConfig(
+                out_fold=os.path.join(tmp, f"bf16_{family}"),
+                path_to_features=feats, model=family, add_loss=add_loss,
+                batch_size=B, feat_len=T, num_epochs=2, ratio=1.0,
+                compute_dtype="bfloat16", steps_per_call=K)
+            init = setup_training(cfg, K, device=DEVICE)[2].state_dict()
+            summary, state = train(cfg, train_set=train_set,
+                                   dev_set=dev_set, device=DEVICE,
+                                   return_state=True)
+            with open(os.path.join(cfg.out_fold, "train_loss.log")) as f:
+                rows = [r.split() for r in f.readlines()[1:]]
+            losses = np.array([float(r[2]) for r in rows])
+            check([(int(r[0]), int(r[1])) for r in rows]
+                  == [(e, i) for e in range(2) for i in range(K)],
+                  f"{family} bf16 train_loss.log steps")
+            check(bool(np.isfinite(losses).all()),
+                  f"{family} bf16 losses {losses}")
+            live = state.state_dict()
+            check(all(not torch.equal(v, init["model"][k])
+                      for k, v in live["model"].items()
+                      if k.endswith(RUNNING))
+                  and all(not torch.equal(v, init["loss_module"][k])
+                          for k, v in live["loss_module"].items()),
+                  f"{family} bf16: BN statistics or the loss did not move")
+            print(f"{family} + {add_loss} bf16 K={K} from features: 2 "
+                  f"epochs of {K} steps (one capture, one replay); "
+                  f"{add_loss} loss per step "
+                  f"{np.round(losses, 5).tolist()}; {summary}")
+            del state
+            # K graph-replayed steps against K eager steps, the model's
+            # draws static inputs of the graph, cuDNN deterministic
+            torch.backends.cudnn.deterministic = True
+            _, _, st, step, _ = setup_training(cfg, K, device=DEVICE)
+            st.load_state_dict(live)
+            multi = make_multi_step(step, K)
+            multi(st, stack(fb[:K]), rng)           # eager K steps, capture
+            st.load_state_dict(live)
+            m_graph = multi(st, stack(fb[K:]), rng)   # replay
+            after_graph = st.state_dict()
+            st.load_state_dict(live)
+            m_eager = [step(st, b, rng) for b in fb[K:]]
+            after_eager = st.state_dict()
+            torch.backends.cudnn.deterministic = False
+            check_replay(torch, m_graph, after_graph, m_eager, after_eager,
+                         live["step"], K, f"{family} + {add_loss} bf16 "
+                         f"(its draws static inputs)")
+            del st, multi
+            times[f"{family} + {add_loss} bf16 K={K} from features"] = (
+                family_times(torch, cfg, K, live, fb[:K], None, rng,
+                             f"{family} bf16 {K}-step graph replay"))
+
+        # ---- scoring: cli.generate_score with every -l rule ----
+        dev_names = write_feature_tree(os.path.join(tmp, "score", "dev",
+                                                    "LFCC"),
+                                       2 * B + 8, 34, labeled=True)
+        asv = os.path.join(tmp, "asv.txt")
+        g = np.random.default_rng(35)
+        with open(asv, "w") as f:
+            for i in range(300):
+                kind = ("target", "nontarget", "spoof")[i % 3]
+                f.write(f"LA_{i:04d} {kind} "
+                        f"{g.standard_normal() + 2.0 * (i % 3 != 1)}\n")
+        rules = ((None, ("softmax",)), ("ang_iso", ("ocsoftmax", "ang_iso")),
+                 ("isolate", ("isolate",)), ("iso_sq", ("iso_sq",)),
+                 ("p2sgrad", ("p2sgrad",)), ("amsoftmax", ("amsoftmax",)))
+        os.chdir(tmp)               # the 19* tasks write under ./scores
+        try:
+            for family in ("resnet", "lcnn"):
+                sd = from_flax_variables(random_flax_variables(
+                    36, model=family, feat_len=T), model=family)
+                for add_loss, flags in rules:
+                    name = f"{family}_{add_loss}"
+                    run = os.path.join(tmp, "runs", name)
+                    os.makedirs(run)
+                    cfg = TrainConfig(out_fold=run, model=family,
+                                      add_loss=add_loss, feat_len=T)
+                    with open(os.path.join(run, "args.json"), "w") as f:
+                        json.dump(dataclasses.asdict(cfg), f)
+                    loss = build_loss(add_loss, generator=torch.Generator()
+                                      .manual_seed(37), device="cpu")
+                    torch.save({"step": 0, "model": sd, "optimizer": {},
+                                "loss_module": None if loss is None
+                                else loss.state_dict()},
+                               os.path.join(run, "best.pt"))
+                    for flag in flags:
+                        with contextlib.redirect_stdout(io.StringIO()):
+                            path = generate_score.main([
+                                "--model_folder", os.path.join(tmp, "runs"),
+                                "-n", name, "-t", "19dev", "-l", flag,
+                                "--ori_features",
+                                os.path.join(tmp, "score"), "--batch_size",
+                                str(B), "--device", DEVICE])
+                        with open(path) as f:
+                            rows = [r.split() for r in f]
+                        scores = np.array([float(r[1]) for r in rows])
+                        check([r[0] for r in rows] == dev_names
+                              and bool(np.isfinite(scores).all()),
+                              f"{name} -l {flag}: score file rows")
+                        # the first 8 utterances on the CPU, the plain
+                        # reference of the card's cuDNN convolutions
+                        batch = next(iter(SequentialIterator(
+                            ASVspoof2019FeatureDataset(
+                                "LA", os.path.join(tmp, "score"), "dev"),
+                            8, T)))
+                        _sd, lm, _c = generate_score.load_system(
+                            run, device="cpu")
+                        rule = None if flag == "softmax" else flag
+                        ref = -make_score_fn(sd, lm, rule, model=family,
+                                             device="cpu")(batch["feat"])
+                        err = float(np.abs(scores[:8] - ref.numpy()).max())
+                        print(f"cli.generate_score {name} -l {flag}: "
+                              f"{len(rows)} rows, card vs CPU on 8 "
+                              f"utterances {err:.2e} (bar 1e-4)")
+                        check(err <= 1e-4, f"{name} -l {flag} scores off "
+                                           "the CPU's")
+                    buf = io.StringIO()
+                    with contextlib.redirect_stdout(buf):
+                        evaluate_tdcf.main([path, "--asv_score_file", asv])
+                    result = ast.literal_eval(
+                        buf.getvalue().strip().splitlines()[-1])
+                    check(all(np.isfinite(v) for v in result.values()),
+                          f"{name}: EER or min-tDCF not finite")
+                print(f"{family}: evaluate_tdcf of the last file {result}")
+        finally:
+            os.chdir(cwd)
+    for what, (ms, peak) in times.items():
+        print(f"training step {what} [{gpu}] (B={B}, T={T}; CUDA events, "
+              f"host-to-device copies of the batches included): {ms:.3f} "
+              f"ms/step = {B / ms * 1e3:.1f} utt/s; peak {peak:.2f} GiB")
+
+
 def main() -> int:
     try:
         import torch
@@ -2185,6 +2523,7 @@ def main() -> int:
     f32_ms, _ = train_path(torch, gpu, entries)
     train_bf16_path(torch, gpu, entries, f32_ms)
     train_adv_path(torch, gpu, entries)
+    train_families_path(torch, gpu, entries)
 
     kernels = []
     for key in ("B1", "B2", "B3", "B4a", "B4b"):
@@ -2192,7 +2531,8 @@ def main() -> int:
         bound_ms, bound_by = bound(e["bytes"], e["flops"], e["kind"])
         by_path = {p: e[f"launches_{p}"] for p in (
             "serve", "score", "train", "train_bf16", "train_bf16_otf",
-            "train_adv", "train_adv_dual", "train_aug_otf")
+            "train_adv", "train_adv_dual", "train_aug_otf",
+            "train_resnet_otf", "train_lcnn_otf")
             if f"launches_{p}" in e}
         launches = sum(by_path.values())
         print(f"{e['name']} [{gpu}]: max_abs_err {e['max_abs_err']:.3e}, "

@@ -259,3 +259,48 @@ def test_host_entry_points_match_ctypes_signatures():
     for name, params in found.items():
         argtypes, _restype = _build.HOST_SIGNATURES[name]
         assert len(params) == len(argtypes), name
+
+
+def test_family_slice_entry_points_default_to_cuda_and_refuse_the_cpu(
+        monkeypatch):
+    """ResNet18, LCNN, the one-class losses, the center loss, the
+    registries, the checkpoint loaders of the families and the scorer's
+    model builder raise on a machine without CUDA unless asked for the
+    CPU; each is among the modules the import guard above covers."""
+    from asvspoof2021_air_tpu_torch.interop.checkpoints import (
+        lcnn_from_state_dict, resnet_from_state_dict)
+    from asvspoof2021_air_tpu_torch.interop.flax_weights import (
+        from_flax_variables)
+    from asvspoof2021_air_tpu_torch.losses.basic import CenterLoss
+    from asvspoof2021_air_tpu_torch.losses.one_class import (
+        AMSoftmax, IsolateLoss, IsolateSquareLoss, P2SGradLoss)
+    from asvspoof2021_air_tpu_torch.losses.registry import build_loss
+    from asvspoof2021_air_tpu_torch.models.lcnn import LCNN
+    from asvspoof2021_air_tpu_torch.models.registry import build_model
+    from asvspoof2021_air_tpu_torch.models.resnet import ResNet
+    from asvspoof2021_air_tpu_torch.scoring import build_scoring_model
+
+    assert {f"asvspoof2021_air_tpu_torch.{m}" for m in (
+        "models.resnet", "models.lcnn", "models.registry", "losses.basic",
+        "losses.registry")} <= set(MODULES)
+    lcnn_sd = from_flax_variables(random_flax_variables(
+        0, model="lcnn", enc_dim=8, feat_len=32), model="lcnn")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (ResNet, lambda: LCNN(feat_len=32),
+                 lambda: IsolateLoss(8), lambda: IsolateSquareLoss(8),
+                 lambda: P2SGradLoss(8), lambda: AMSoftmax(2, 8),
+                 lambda: CenterLoss(2, 8),
+                 lambda: build_model("lcnn", feat_len=32),
+                 lambda: build_loss("isolate", enc_dim=8),
+                 lambda: resnet_from_state_dict({}),
+                 lambda: lcnn_from_state_dict(lcnn_sd),
+                 lambda: build_scoring_model(lcnn_sd, "lcnn")):
+        with pytest.raises(RuntimeError, match="cuda"):
+            make()
+    assert next(LCNN(feat_len=32, device="cpu").parameters()).device.type \
+        == "cpu"
+    assert build_loss("p2sgrad", enc_dim=8, device="cpu").weight.device.type \
+        == "cpu"
+    for name in ("cnn", "res2net", "rawnet"):
+        with pytest.raises(NotImplementedError, match="Queue A"):
+            build_model(name, device="cpu")

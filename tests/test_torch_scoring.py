@@ -53,13 +53,15 @@ def test_ocsoftmax_loss_and_score_match_jax():
 
 
 def test_default_score_rule_and_unported_rules():
+    """The default rule, -softmax(logits)[:, 0], for None and, as in the
+    JAX ``score_rule``, for a rule name it does not know; every named rule
+    is ported (tests/test_torch_loss_rules.py)."""
     logits = np.random.default_rng(1).standard_normal((5, 2)).astype(
         np.float32)
-    want = j_score_rule(None, None, jnp.asarray(logits))
-    got = score_rule(None, torch.zeros(5, ENC), torch.from_numpy(logits))
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6)
-    with pytest.raises(NotImplementedError):
-        score_rule("amsoftmax", torch.zeros(5, ENC), torch.zeros(5, 2))
+    for rule in (None, "center"):
+        want = j_score_rule(rule, None, jnp.asarray(logits))
+        got = score_rule(rule, torch.zeros(5, ENC), torch.from_numpy(logits))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6)
 
 
 @pytest.mark.parametrize("padding", ["repeat", "zero", "silence"])
@@ -363,11 +365,10 @@ def test_generate_score_cli_refuses_what_is_not_ported(tmp_path):
     run = port_run_folder(tmp_path / "port", variables, center)
     base = ["--model_folder", str(tmp_path), "-n", "port", "-t", "19dev",
             "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="losses"):
-        p_cli.main([*base, "-l", "amsoftmax"])
     args = json.load(open(os.path.join(run, "args.json")))
     for key, value, match in (("ensemble", 3, "ensembles"),
-                              ("model", "lcnn", "families")):
+                              ("model", "cnn", "families"),
+                              ("model", "rawnet", "Queue A")):
         json.dump(dict(args, **{key: value}),
                   open(os.path.join(run, "args.json"), "w"))
         with pytest.raises(NotImplementedError, match=match):

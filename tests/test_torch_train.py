@@ -415,17 +415,24 @@ def test_cli_loads_a_jax_config_file_and_refuses_fused_off(tmp_path):
 
 
 def test_unsupported_flags_raise(tmp_path):
-    """The flags the port still refuses, each named in the error; the ones
-    it trains with (bf16, K steps per call, feature files with or without
-    an aug flag, resume, test_on_eval, profile, ADV_AUG and the channel
-    augmenter) are held by tests/test_torch_train_loop.py,
-    tests/test_torch_train_bf16.py and tests/test_torch_adv_aug.py."""
+    """The flags the port still refuses, each named in the error (the
+    families not ported yet name ROADMAP Queue A); the ones it trains with
+    (bf16, K steps per call, feature files with or without an aug flag,
+    resume, test_on_eval, profile, ADV_AUG and the channel augmenter, the
+    LCNN and ResNet families and every add-loss that trains) are held by
+    tests/test_torch_train_loop.py, tests/test_torch_train_bf16.py,
+    tests/test_torch_adv_aug.py and tests/test_torch_train_families.py.
+    AMSoftmax does not train: the step raises ValueError, as the JAX step
+    does."""
     base = dict(out_fold=str(tmp_path / "o"), model="ecapa", on_the_fly=True)
-    for extra, name in (({"model": "lcnn"}, "model"),
+    for extra, name in (({"model": "cnn"}, "Queue A"),
+                        ({"model": "res2net"}, "model"),
                         ({"ensemble": 2}, "ensemble"),
-                        ({"visualize": True}, "visualize"),
-                        ({"add_loss": "p2sgrad"}, "add_loss")):
+                        ({"visualize": True}, "visualize")):
         with pytest.raises(NotImplementedError, match=name):
             train(TrainConfig(**{**base, **extra}), device="cpu")
-    with pytest.raises(NotImplementedError, match="add_loss"):
-        make_train_step(StepConfig(add_loss="p2sgrad"), device="cpu")
+    with pytest.raises(ValueError, match="rawnet"):
+        train(TrainConfig(**{**base, "model": "rawnet",
+                             "add_loss": "ang_iso"}), device="cpu")
+    with pytest.raises(ValueError, match="add_loss"):
+        make_train_step(StepConfig(add_loss="amsoftmax"), device="cpu")

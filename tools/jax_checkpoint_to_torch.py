@@ -10,12 +10,13 @@ installed: it imports the JAX package, which the port never does. It
 reads the run's ``args.json``, rebuilds the train state as the JAX
 ``cli/generate_score.load_system`` does (``setup_training``, then
 ``restore_checkpoint`` of ``<model_dir>/best`` or ``checkpoint/<N>``),
-maps it with the port's ``interop/flax_weights.from_flax_train_state`` (an
-ADV_AUG run's channel classifiers and their Adam states included) and
+maps it with the port's ``interop/flax_weights.from_flax_train_state``
+(ECAPA, ResNet18 or LCNN; the loss module's parameters; an ADV_AUG run's
+channel classifiers and their Adam states included) and
 writes ``<out>/best.pt`` (the port's checkpoint dict) and ``<out>/args.json``
 with the keys of the port's ``TrainConfig`` (``lambda_`` and ``lr_d``
 among them; the others dropped, as the port's training CLI drops them;
-``C`` read from the weights). The port's
+ECAPA's ``C`` read from the weights). The port's
 ``cli.generate_score`` then scores that folder.
 """
 
@@ -43,26 +44,31 @@ def convert(model_dir: str, out_dir: str, checkpoint: str = "best") -> str:
     from asvspoof2021_air_tpu.train.loop import setup_training
     from asvspoof2021_air_tpu_torch.interop.flax_weights import (
         from_flax_train_state)
+    from asvspoof2021_air_tpu_torch.models.registry import MODEL_REGISTRY
     from asvspoof2021_air_tpu_torch.train.loop import TrainConfig
 
     with open(os.path.join(model_dir, "args.json")) as f:
         cfg_dict = json.load(f)
     jax_fields = set(JaxConfig.__dataclass_fields__)
     jcfg = JaxConfig(**{k: v for k, v in cfg_dict.items() if k in jax_fields})
-    if jcfg.model != "ecapa" or jcfg.ensemble > 1:
+    if jcfg.model not in MODEL_REGISTRY or jcfg.ensemble > 1:
         raise NotImplementedError(
             f"model={jcfg.model!r}, ensemble={jcfg.ensemble}: the port "
-            "scores single ECAPA systems")
+            f"holds single {sorted(MODEL_REGISTRY)} systems (the other "
+            "families and ensembles are ROADMAP Queue A)")
     _model, _loss, state, _ts, _es = setup_training(jcfg, steps_per_epoch=1)
     state = restore_checkpoint(os.path.join(model_dir, checkpoint), state)
-    ckpt = from_flax_train_state(state, MODEL_SCALE)
+    ckpt = from_flax_train_state(state, MODEL_SCALE, jcfg.model,
+                                 jcfg.feat_dim)
 
     port_fields = set(TrainConfig.__dataclass_fields__)
     port_cfg = {k: v for k, v in cfg_dict.items() if k in port_fields}
     if port_cfg.get("add_loss") == "ocsoftmax":
         port_cfg["add_loss"] = "ang_iso"
-    port_cfg.update(out_fold=out_dir, model_scale=MODEL_SCALE,
-                    C=int(ckpt["model"]["conv1.weight"].shape[0]))
+    port_cfg["out_fold"] = out_dir
+    if jcfg.model == "ecapa":
+        port_cfg.update(model_scale=MODEL_SCALE,
+                        C=int(ckpt["model"]["conv1.weight"].shape[0]))
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "args.json"), "w") as f:
         json.dump(dataclasses.asdict(TrainConfig(**port_cfg)), f, indent=2,
