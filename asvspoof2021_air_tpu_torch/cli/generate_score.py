@@ -1,5 +1,6 @@
-"""Scoring CLI of the PyTorch/CUDA port: a trained run's checkpoint (ECAPA,
-ResNet18 or LCNN, with any add-loss) -> score file for one of the 8 tasks.
+"""Scoring CLI of the PyTorch/CUDA port: a trained run's checkpoint (any
+model family but RawNet2, with any add-loss) -> score file for one of the
+8 tasks.
 
     python -m asvspoof2021_air_tpu_torch.cli.generate_score \\
         --model_folder <runs> -n <run> -t {LA,DF,19dev,...} \\
@@ -11,14 +12,19 @@ with its flags. The system is rebuilt from the run folder the port's
 training loop writes (or ``tools/jax_checkpoint_to_torch.py`` converts):
 ``args.json`` and ``best.pt``, or ``checkpoint/<N>.pt`` for
 ``--checkpoint N``. It scores ECAPA through its serving graph (kernels B2
-and B3 on the card) and ResNet or LCNN through their eval-mode modules, in
-f32 unless ``--dtype bfloat16``, by the run's add-loss's rule or ``-l``'s
-(every rule of the JAX CLI). The '19*' tasks write under ``./scores``, as
-the JAX CLI does; the challenge tasks under ``--score_dir``.
+and B3 on the card) and the other families through their eval-mode
+modules, in f32 unless ``--dtype bfloat16`` (ECAPA, ResNet and LCNN; the
+other families have no bf16 model in the JAX package and score in f32), by
+the run's add-loss's rule or ``-l``'s (every rule of the JAX CLI). The
+'19*' tasks write under ``./scores``, as the JAX CLI does; the challenge
+tasks under ``--score_dir``. ``load_system`` loads a RawNet2 run too (its
+``rawnet_args`` in ``args.json``); RawNet2 reads waveforms, so the
+feature-file tasks refuse it (ValueError) and
+``scoring.score_raw_to_file`` scores it.
 
-Ensemble runs (``ensemble > 1``) and the families not ported yet raise
-NotImplementedError; :func:`write_fused_score_file` (the members' fusion)
-is here for the ensembles when they come.
+Ensemble runs (``ensemble > 1``) raise NotImplementedError;
+:func:`write_fused_score_file` (the members' fusion) is here for the
+ensembles when they come.
 """
 
 from __future__ import annotations
@@ -33,7 +39,6 @@ import torch
 from asvspoof2021_air_tpu_torch._device import resolve_device
 from asvspoof2021_air_tpu_torch.losses.registry import build_loss
 from asvspoof2021_air_tpu_torch.metrics.evaluate import read_score_file
-from asvspoof2021_air_tpu_torch.models.registry import MODEL_REGISTRY
 from asvspoof2021_air_tpu_torch.scoring import TASKS, test_on_asvspoof2021
 from asvspoof2021_air_tpu_torch.train.checkpoint import restore_checkpoint
 from asvspoof2021_air_tpu_torch.train.loop import TrainConfig
@@ -55,11 +60,6 @@ def load_system(model_dir: str, checkpoint: str = "best", device="cuda"):
             f"ensemble={config.ensemble}: ensembles come with the port of "
             "multi-GPU and ensembles (ROADMAP Queue A, the ensembles "
             "item)")
-    if config.model not in MODEL_REGISTRY:
-        raise NotImplementedError(
-            f"model={config.model!r}: the port scores "
-            f"{sorted(MODEL_REGISTRY)}; the other families come with ROADMAP "
-            "Queue A, the model families item")
     path = os.path.join(model_dir, checkpoint)
     if not path.endswith(".pt"):
         path += ".pt"

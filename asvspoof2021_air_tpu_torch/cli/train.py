@@ -1,9 +1,11 @@
 """Training CLI of the PyTorch/CUDA port: LCNN (the default, as in the JAX
-CLI), ResNet18 or ECAPA-TDNN, from cached feature files or,
-``--on_the_fly``, from raw waveforms.
+CLI) or any other family of the JAX CLI's ``-m`` choices, from cached
+feature files or, ``--on_the_fly``, from raw waveforms (RawNet2 from raw
+waveforms only).
 
     python -m asvspoof2021_air_tpu_torch.cli.train -f <features> -o <out> \\
-        [-m lcnn|resnet|ecapa] [--add_loss isolate|iso_sq|ang_iso|p2sgrad] \\
+        [-m lcnn|resnet|ecapa|res2net|cnn] \\
+        [--add_loss isolate|iso_sq|ang_iso|p2sgrad] \\
         [--LA_aug --path_to_aug_features <aug>] \\
         [--compute_dtype bfloat16] [--steps_per_call 8] [--device cuda]
     python -m asvspoof2021_air_tpu_torch.cli.train -d <database> -o <out> \\
@@ -12,12 +14,14 @@ CLI), ResNet18 or ECAPA-TDNN, from cached feature files or,
     python -m asvspoof2021_air_tpu_torch.cli.train -f <features> -o <out> \
         -m ecapa --add_loss ang_iso --LA_aug --path_to_aug_features <aug> \
         --ADV_AUG [--lambda_ 0.05] [--lr_d 1e-4]
+    python -m asvspoof2021_air_tpu_torch.cli.train -d <database> -o <out> \
+        -m rawnet --on_the_fly [--on_device_aug] [--config <json>]
 
 The argparse front of the JAX package's ``cli/train.py`` for the flags the
 port trains with; ``--C`` and ``--model_scale`` narrow ECAPA. ``-m`` takes
-the JAX CLI's choices: the families not ported yet (cnn, res2net, rawnet)
-raise NotImplementedError naming ROADMAP Queue A. Other flags of the JAX
-CLI that the port does not cover are absent here, and
+the JAX CLI's choices, all six. RawNet2's ``rawnet_args`` come from a
+``--config`` file, as in the JAX CLI. Other flags of the JAX CLI that the
+port does not cover are absent here, and
 ``train/loop.check_supported`` refuses them in a ``--config`` file. As in
 the JAX CLI, ``--add_loss ocsoftmax`` from a ``--config`` file is
 ``ang_iso`` and an add-loss that does not train (amsoftmax) is refused, and

@@ -8,10 +8,13 @@
   ``ECAPA_TDNN.load_state_dict`` as it is (torch ``BatchNorm``'s
   ``num_batches_tracked`` counters, which the port's BatchNorm does not
   keep, are dropped).
-- :func:`ecapa_from_state_dict`, :func:`resnet_from_state_dict` and
-  :func:`lcnn_from_state_dict`: the eval-mode model those weights
-  describe, its widths read from the weights (LCNN's input frequency dim
-  is given: the head's width fixes only its product with ``feat_len``).
+- :func:`ecapa_from_state_dict`, :func:`resnet_from_state_dict`,
+  :func:`lcnn_from_state_dict`, :func:`res2net_from_state_dict`,
+  :func:`convnet_from_state_dict` and :func:`rawnet_from_state_dict`: the
+  eval-mode model those weights describe, its widths read from the weights
+  (LCNN's and ConvNet's input frequency dim is given: the head's width
+  fixes only its product with ``feat_len``; RawNet2's arguments are given,
+  its sinc bank having no weights).
 
 A JAX ``TrainState`` checkpoint is converted where JAX is installed, by
 ``tools/jax_checkpoint_to_torch.py``, into the port's ``best.pt`` and
@@ -25,8 +28,11 @@ from typing import Dict, Optional
 import torch
 
 from asvspoof2021_air_tpu_torch._device import resolve_device
+from asvspoof2021_air_tpu_torch.models.convnet import ConvNet
 from asvspoof2021_air_tpu_torch.models.ecapa import ECAPA_TDNN
 from asvspoof2021_air_tpu_torch.models.lcnn import LCNN
+from asvspoof2021_air_tpu_torch.models.rawnet import RawNet
+from asvspoof2021_air_tpu_torch.models.res2net import SERes2Net50
 from asvspoof2021_air_tpu_torch.models.resnet import RESNET_CONFIGS, ResNet
 
 
@@ -90,5 +96,45 @@ def lcnn_from_state_dict(sd: Dict[str, torch.Tensor], num_nodes: int = 60,
     model = LCNN(num_nodes=num_nodes, enc_dim=sd["out.3.weight"].shape[0],
                  nclasses=sd["fc_mu.weight"].shape[0], feat_len=16 * width,
                  dtype=dtype, device=device)
+    model.load_state_dict(sd)
+    return model.eval()
+
+
+def res2net_from_state_dict(sd: Dict[str, torch.Tensor], device="cuda"
+                            ) -> SERes2Net50:
+    """An eval-mode ``SERes2Net50`` on ``device`` holding ``sd`` (strict
+    names; the classes from ``cls_layer``)."""
+    device = resolve_device(device)
+    model = SERes2Net50(num_classes=sd["cls_layer.weight"].shape[0],
+                        device=device)
+    model.load_state_dict(sd)
+    return model.eval()
+
+
+def convnet_from_state_dict(sd: Dict[str, torch.Tensor], feat_dim: int = 60,
+                            device="cuda") -> ConvNet:
+    """An eval-mode ``ConvNet`` on ``device`` holding ``sd`` (strict
+    names): the variant from ``attention.att_weights``, ``layer5``'s rows,
+    enc_dim, the classes and ``fc1``'s width from the weights' shapes."""
+    device = resolve_device(device)
+    attention = "attention.att_weights" in sd
+    model = ConvNet(
+        num_classes=sd["fc3.weight"].shape[0],
+        num_nodes=sd["layer5.0.weight"].shape[2] if attention else 512,
+        enc_dim=sd["fc2.weight"].shape[0], subband_attention=attention,
+        feat_dim=feat_dim,
+        flat=None if attention else sd["fc1.weight"].shape[1],
+        device=device)
+    model.load_state_dict(sd)
+    return model.eval()
+
+
+def rawnet_from_state_dict(sd: Dict[str, torch.Tensor],
+                           rawnet_args: Optional[dict] = None,
+                           device="cuda") -> RawNet:
+    """An eval-mode ``RawNet`` at ``rawnet_args`` (the default arguments
+    when None) on ``device`` holding ``sd`` (strict names)."""
+    device = resolve_device(device)
+    model = RawNet(d_args=rawnet_args, device=device)
     model.load_state_dict(sd)
     return model.eval()

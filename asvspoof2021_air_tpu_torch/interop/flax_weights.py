@@ -1,10 +1,11 @@
 """Model weights between the JAX package's flax variable trees and the
-port's state_dicts, for ECAPA-TDNN, ResNet and LCNN.
+port's state_dicts, for every model family.
 
 :func:`from_flax_variables` is the inverse of the JAX package's
-``interop/torch_port.port_ecapa``, ``port_resnet`` and ``port_lcnn``: it
-turns ``{"params", "batch_stats"}`` (numpy arrays, flax names) into the
-port's state_dict (reference names):
+``interop/torch_port.port_ecapa``, ``port_resnet``, ``port_lcnn``,
+``port_se_res2net50``, ``port_convnet``, ``port_rawnet`` and
+``port_subband``: it turns ``{"params", "batch_stats"}`` (numpy arrays,
+flax names) into the port's state_dict (reference names):
 
 - Conv kernel (K, I, O)        -> Conv1d weight (O, I, K)
 - Conv kernel (KH, KW, I, O)   -> Conv2d weight (O, I, KH, KW)
@@ -15,13 +16,20 @@ port's state_dict (reference names):
 - att_weights (H, 1)           -> attention.att_weights (1, H) (ResNet)
 - LCNN's Dense_0 (H W 32, 160), rows in NHWC order (h, w, c)
                                -> out.1.weight (160, 32 H W), columns in
-                                  NCHW order (c, h, w)
+                                  NCHW order (c, h, w); ConvNet's Dense_0
+                                  (H W 64, 256) -> fc1.weight alike
+- GRULayer wi (C, 3H), wh (H, 3H), bi, bh
+                               -> gru.weight_ih_l{k} (3H, C),
+                                  weight_hh_l{k} (3H, H), bias_ih_l{k},
+                                  bias_hh_l{k} (RawNet2)
 - BatchNorm scale/bias + mean/var -> weight/bias/running_mean/running_var
   (an affine-free BN has only the statistics)
 
 :func:`random_flax_variables` makes a seeded tree with exactly the names
-and shapes the JAX model's ``init`` gives, so a full-width model can be
-built without JAX or a checkpoint.
+and shapes the JAX model's ``init`` gives (ECAPA, ResNet18, LCNN), so a
+full-width model can be built without JAX or a checkpoint; the other
+families start from ``models/registry.build_model`` with a seeded
+generator.
 
 :func:`from_flax_classifier` does the same for the JAX
 ``ChannelClassifier`` (``Dense_0``/``Dense_1`` -> ``classifier.0``/``.3``).
@@ -40,6 +48,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from asvspoof2021_air_tpu_torch.models.convnet import convnet_extent
 from asvspoof2021_air_tpu_torch.models.registry import (
     MODEL_REGISTRY, resnet_nodes)
 
@@ -56,7 +65,8 @@ def _conv(sd, name, p):
 def _dense(sd, name, p, as_conv1x1=False):
     w = np.asarray(p["kernel"]).T
     sd[name + ".weight"] = _t(w[:, :, None] if as_conv1x1 else w)
-    sd[name + ".bias"] = _t(p["bias"])
+    if "bias" in p:
+        sd[name + ".bias"] = _t(p["bias"])
 
 
 def _conv2d(sd, name, p):
@@ -75,10 +85,9 @@ def _bn(sd, name, p, s):
 
 
 def _check_model(model: str) -> None:
-    if model not in MODEL_REGISTRY:
-        raise NotImplementedError(
-            f"model {model!r}: the port holds {sorted(MODEL_REGISTRY)}; the "
-            "other families are ROADMAP Queue A")
+    if model not in (*MODEL_REGISTRY, "subband"):
+        raise ValueError(f"unknown model {model!r}; choices: "
+                         f"{sorted((*MODEL_REGISTRY, 'subband'))}")
 
 
 def from_flax_variables(variables, model_scale: int = 8,
@@ -86,13 +95,24 @@ def from_flax_variables(variables, model_scale: int = 8,
                         ) -> Dict[str, torch.Tensor]:
     """The JAX model's variables -> the port's state_dict (f32 CPU
     tensors) of ``model``: ``ECAPA_TDNN`` (``model_scale``), ``ResNet``
-    ("18") or ``LCNN`` (``num_nodes``, the input's frequency dim, fixes the
-    head's permutation)."""
+    ("18"), ``LCNN``, ``SERes2Net50`` ("res2net", layers 3/4/6/3, scale 4),
+    ``ConvNet`` ("cnn", either variant), ``RawNet`` ("rawnet") or
+    ``Subband`` ("subband"). ``num_nodes``, the input's frequency dim,
+    fixes the permutation of the head after a flatten (LCNN, ConvNet, each
+    band of Subband)."""
     _check_model(model)
     if model == "resnet":
         return _resnet_from_flax(variables)
     if model == "lcnn":
         return _lcnn_from_flax(variables, num_nodes)
+    if model == "res2net":
+        return _res2net_from_flax(variables)
+    if model == "cnn":
+        return _convnet_from_flax(variables, num_nodes)
+    if model == "rawnet":
+        return _rawnet_from_flax(variables)
+    if model == "subband":
+        return _subband_from_flax(variables, num_nodes)
     p, s = variables["params"], variables["batch_stats"]
     sd: Dict[str, torch.Tensor] = {}
     _conv(sd, "conv1", p["Conv_0"])
@@ -179,6 +199,114 @@ def _lcnn_from_flax(variables, num_nodes: int) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def _res2net_from_flax(variables, layers=(3, 4, 6, 3),
+                       scale: int = 4) -> Dict[str, torch.Tensor]:
+    p, s = variables["params"], variables["batch_stats"]
+    sd: Dict[str, torch.Tensor] = {}
+    for i, (conv_name, bn_name) in enumerate((("conv1.0", "conv1.1"),
+                                              ("conv1.3", "conv1.4"),
+                                              ("conv1.6", "bn1"))):
+        _conv2d(sd, conv_name, p[f"Conv_{i}"])
+        _bn(sd, bn_name, p[f"BatchNorm_{i}"], s[f"BatchNorm_{i}"])
+    i = 0
+    for stage, n_blocks in enumerate(layers):
+        for b in range(n_blocks):
+            sd.update(res2net_block_from_flax(
+                {"params": p[f"SEBottle2neck_{i}"],
+                 "batch_stats": s[f"SEBottle2neck_{i}"]}, scale,
+                f"layer{stage + 1}.{b}."))
+            i += 1
+    _dense(sd, "cls_layer", p["Dense_0"])
+    return sd
+
+
+def res2net_block_from_flax(variables, scale: int = 4, prefix: str = ""
+                            ) -> Dict[str, torch.Tensor]:
+    """One JAX ``SEBottle2neck``'s variables -> the port's
+    ``SEBottle2neck`` entries, their names prefixed by ``prefix``."""
+    bp, bs = variables["params"], variables["batch_stats"]
+    nums = 1 if scale == 1 else scale - 1
+    sd: Dict[str, torch.Tensor] = {}
+    names = ["conv1"] + [f"convs.{j}" for j in range(nums)] + ["conv3"]
+    bns = ["bn1"] + [f"bns.{j}" for j in range(nums)] + ["bn3"]
+    if f"Conv_{nums + 2}" in bp:
+        names.append("downsample.1")
+        bns.append("downsample.2")
+    for j, (c, n) in enumerate(zip(names, bns)):
+        _conv2d(sd, prefix + c, bp[f"Conv_{j}"])
+        _bn(sd, prefix + n, bp[f"BatchNorm_{j}"], bs[f"BatchNorm_{j}"])
+    _dense(sd, prefix + "se.fc.0", bp["SELayer2D_0"]["Dense_0"])
+    _dense(sd, prefix + "se.fc.2", bp["SELayer2D_0"]["Dense_1"])
+    return sd
+
+
+def _convnet_from_flax(variables, num_nodes: int
+                       ) -> Dict[str, torch.Tensor]:
+    p, s = variables["params"], variables["batch_stats"]
+    sd: Dict[str, torch.Tensor] = {}
+    attention = "SelfAttentionPooling_0" in p
+    for i in range(5 if attention else 4):
+        _conv2d(sd, f"layer{i + 1}.0", p[f"Conv_{i}"])
+        _bn(sd, f"layer{i + 1}.1", p[f"BatchNorm_{i}"],
+            s[f"BatchNorm_{i}"])
+    if attention:
+        sd["attention.att_weights"] = _t(
+            np.asarray(p["SelfAttentionPooling_0"]["att_weights"]).T)
+        _dense(sd, "fc2", p["Dense_0"])
+        _dense(sd, "fc3", p["Dense_1"])
+        return sd
+    k = np.asarray(p["Dense_0"]["kernel"])           # (H W 64, 256)
+    H = convnet_extent(num_nodes, 1)[0]
+    W = k.shape[0] // (64 * H)
+    sd["fc1.weight"] = _t(k.reshape(H, W, 64, -1).transpose(3, 2, 0, 1)
+                          .reshape(k.shape[1], -1))
+    sd["fc1.bias"] = _t(p["Dense_0"]["bias"])
+    _dense(sd, "fc2", p["Dense_1"])
+    _dense(sd, "fc3", p["Dense_2"])
+    return sd
+
+
+def _rawnet_from_flax(variables) -> Dict[str, torch.Tensor]:
+    p, s = variables["params"], variables["batch_stats"]
+    sd: Dict[str, torch.Tensor] = {}
+    _bn(sd, "first_bn", p["BatchNorm_0"], s["BatchNorm_0"])
+    for i in range(6):
+        t, bp, bs = f"block{i}.0", p[f"ResidualBlock_{i}"], \
+            s[f"ResidualBlock_{i}"]
+        bns = ["bn2"] if i == 0 else ["bn1", "bn2"]   # the first: no bn1
+        for j, name in enumerate(bns):
+            _bn(sd, f"{t}.{name}", bp[f"BatchNorm_{j}"], bs[f"BatchNorm_{j}"])
+        for j, name in enumerate(("conv1", "conv2", "conv_downsample")):
+            if f"Conv_{j}" in bp:
+                _conv(sd, f"{t}.{name}", bp[f"Conv_{j}"])
+        _dense(sd, f"fc_attention{i}.0", p[f"FMSAttention_{i}"]["Dense_0"])
+    _bn(sd, "bn_before_gru", p["BatchNorm_1"], s["BatchNorm_1"])
+    k = 0
+    while f"GRULayer_{k}" in p:
+        g = p[f"GRULayer_{k}"]
+        sd[f"gru.weight_ih_l{k}"] = _t(np.asarray(g["wi"]).T)
+        sd[f"gru.weight_hh_l{k}"] = _t(np.asarray(g["wh"]).T)
+        sd[f"gru.bias_ih_l{k}"] = _t(g["bi"])
+        sd[f"gru.bias_hh_l{k}"] = _t(g["bh"])
+        k += 1
+    _dense(sd, "fc1_gru", p["Dense_0"])
+    _dense(sd, "fc2_gru", p["Dense_1"])
+    return sd
+
+
+def _subband_from_flax(variables, num_nodes: int
+                       ) -> Dict[str, torch.Tensor]:
+    p, s = variables["params"], variables["batch_stats"]
+    n = sum(1 for k in p if k.startswith("LCNN_"))
+    sd: Dict[str, torch.Tensor] = {}
+    for i in range(n):
+        band = _lcnn_from_flax({"params": p[f"LCNN_{i}"],
+                                "batch_stats": s[f"LCNN_{i}"]},
+                               num_nodes // n)
+        sd.update({f"sub{i + 1}.{k}": v for k, v in band.items()})
+    return sd
+
+
 def random_flax_variables(seed: int, C: int = 512, model_scale: int = 8,
                           n_feat: int = 60, enc_dim: int = 256,
                           n_out: int = 2, stat_noise: float = 0.05,
@@ -191,7 +319,11 @@ def random_flax_variables(seed: int, C: int = 512, model_scale: int = 8,
     Kernels are lecun-normal (std 1/sqrt(fan_in)), biases small; BatchNorm
     scales, biases and running statistics are perturbed by ``stat_noise``
     so the inference affine is not the identity."""
-    _check_model(model)
+    if model not in ("ecapa", "resnet", "lcnn"):
+        raise ValueError(
+            f"random_flax_variables makes ecapa, resnet and lcnn trees, not "
+            f"{model!r}: build that family with models/registry.build_model "
+            "and a seeded generator")
     g = np.random.default_rng(seed)
     width = C // model_scale
 

@@ -1,10 +1,12 @@
 """Shared model building blocks: BatchNorm (eval and train mode, with or
-without its affine, ReLU before or after it), the SE module, max-feature-map,
+without its affine, ReLU before or after it, leaky ReLU after it), the SE
+modules (1-D with a BN'd bottleneck, 2-D with bias-free denses), max-feature-map,
 self-attentive statistics pooling, flax's convolution and dense semantics
 under a compute dtype, and flax's initializers.
 
 Counterparts of the JAX package's ``models/common.py`` ``BatchNorm``,
-``batch_norm``, ``relu_bn``, ``bn_relu``, ``SEModule1D``, ``MaxFeatureMap``,
+``batch_norm``, ``relu_bn``, ``bn_relu``, ``leaky_slope``, ``SEModule1D``,
+``SELayer2D``, ``MaxFeatureMap``,
 ``SelfAttentionPooling``, ``to_2d_input``, ``conv_kaiming_init`` and
 ``linear_kaiming_init``. Train mode follows the JAX ``BatchNorm`` and
 flax's ``nn.BatchNorm``, not ``torch.nn.BatchNorm1d``: batch statistics in
@@ -33,7 +35,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from asvspoof2021_air_tpu_torch.ops.bn_relu_vjp import (
-    bn_relu_train, bn_train, channel_layout, relu_bn_train)
+    bn_leaky_relu_train, bn_relu_train, bn_train, channel_layout,
+    relu_bn_train)
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.9      # flax: the retained fraction of the running statistics
@@ -52,7 +55,7 @@ def conv1d(x: torch.Tensor, weight: torch.Tensor,
 
 def conv2d(x: torch.Tensor, weight: torch.Tensor,
            bias: Optional[torch.Tensor], dtype: Optional[torch.dtype],
-           stride=1, padding=0) -> torch.Tensor:
+           stride=1, padding=0, dilation=1) -> torch.Tensor:
     """flax ``nn.Conv`` over NCHW, as :func:`conv1d`: ``padding`` an int,
     a pair, or ``"SAME"`` (odd kernels at stride 1: k // 2 each side)."""
     if padding == "SAME":
@@ -61,7 +64,7 @@ def conv2d(x: torch.Tensor, weight: torch.Tensor,
             raise ValueError("'SAME' is ported for odd kernels at stride 1")
         padding = (kh // 2, kw // 2)
     dt = dtype or torch.promote_types(x.dtype, weight.dtype)
-    y = F.conv2d(x.to(dt), weight.to(dt), None, stride, padding)
+    y = F.conv2d(x.to(dt), weight.to(dt), None, stride, padding, dilation)
     return y if bias is None else y + bias.to(dt)[:, None, None]
 
 
@@ -70,7 +73,8 @@ def conv(m: nn.Module, x: torch.Tensor,
     """:func:`conv1d` or :func:`conv2d` with the parameters and geometry of
     ``m`` (an ``nn.Conv1d`` or ``nn.Conv2d``)."""
     if isinstance(m, nn.Conv2d):
-        return conv2d(x, m.weight, m.bias, dtype, m.stride, m.padding)
+        return conv2d(x, m.weight, m.bias, dtype, m.stride, m.padding,
+                      m.dilation)
     return conv1d(x, m.weight, m.bias, dtype, m.padding[0], m.dilation[0])
 
 
@@ -169,6 +173,20 @@ class BatchNorm(nn.Module):
         self._update(mu.detach(), var.detach())
         return self._out(y, x)
 
+    def bn_leaky_relu(self, x: torch.Tensor, slope: float,
+                      dim: int = 1) -> torch.Tensor:
+        """``leaky_relu(self(x), slope)`` (flax's: y where y >= 0, else
+        slope y), the JAX BatchNorm's ``relu_after`` with ``leaky_slope``;
+        in train mode through ``ops/bn_relu_vjp.bn_leaky_relu_train`` (the
+        JAX ConvNet's ``fused_bn``)."""
+        if not self.training:
+            y = self._eval(x, dim)
+            return self._out(torch.where(y >= 0, y, slope * y), x)
+        y, mu, var = bn_leaky_relu_train(x, self.weight, self.bias, self.eps,
+                                         slope, dim)
+        self._update(mu.detach(), var.detach())
+        return self._out(y, x)
+
 
 BatchNorm1d = BatchNorm     # the name ECAPA's modules use
 
@@ -219,6 +237,26 @@ class SEModule1D(nn.Module):
         y = x.mean(2, keepdim=True, dtype=torch.float32).to(x.dtype)
         y = bn(torch.relu(conv(c1, y, self.dtype)))
         return x * Logistic.apply(conv(c2, y, self.dtype))
+
+
+class SELayer2D(nn.Module):
+    """Squeeze-excitation over NCHW: the mean over (H, W), ``fc.0`` (C ->
+    C // reduction, no bias), ReLU, ``fc.2`` (back to C, no bias), sigmoid
+    gates per channel (the JAX ``SELayer2D``, f32; the reference's
+    ``se.fc`` names)."""
+
+    def __init__(self, channels: int, reduction: int = 16):
+        super().__init__()
+        self.fc = nn.Sequential(
+            nn.Linear(channels, channels // reduction, bias=False),
+            nn.ReLU(),
+            nn.Linear(channels // reduction, channels, bias=False),
+            nn.Sigmoid())
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        fc1, _, fc2, _ = self.fc
+        y = torch.sigmoid(fc2(torch.relu(fc1(x.mean((2, 3))))))
+        return x * y[:, :, None, None]
 
 
 class MaxFeatureMap(nn.Module):

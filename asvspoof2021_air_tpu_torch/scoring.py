@@ -1,11 +1,11 @@
 """Batched scoring: feature files or raw audio -> a model (the ECAPA
-serving graph, ResNet or LCNN) -> reference-format score file.
+serving graph or any other family) -> reference-format score file.
 
 Counterpart of the JAX package's ``scoring.py``: the 8-task router
 (``build_task_dataset``), the feature-file scorer (``make_score_fn``,
 ``score_to_file``, ``test_on_asvspoof2021``), the per-loss ``score_rule``
-and the cache-free ``score_raw_to_file`` (waveforms -> LFCC on the card ->
-ECAPA). A score file holds ``fname -score [bonafide|spoof]`` lines, where
+and the cache-free ``score_raw_to_file`` (waveforms -> LFCC on the card -> a
+feature model, or waveforms -> RawNet2). A score file holds ``fname -score [bonafide|spoof]`` lines, where
 the score is the JAX ``score_rule``'s: -softmax(logits)[:, 0] by default,
 the loss module's score (-cos) for OC-Softmax and P2SGrad,
 softmax(cosine logits)[:, 0] for AMSoftmax and the distance to the center
@@ -13,10 +13,14 @@ for the Isolate losses, so an OC-Softmax file stores +cos (bona fide near
 +1).
 
 Both scorers run ECAPA through its serving graph (``ServingECAPA``:
-kernels B2 and B3 on the card) and ResNet or LCNN through their eval-mode
-modules (``model="resnet"``/``"lcnn"``), in f32 by default, as the JAX
-scorer runs ``model.apply`` in f32; ``dtype=torch.bfloat16`` is the bf16
-tier.
+kernels B2 and B3 on the card) and the other families through their
+eval-mode modules (``model="resnet"``, ``"lcnn"``, ``"res2net"``,
+``"cnn"``, ``"rawnet"``), in f32 by default, as the JAX scorer runs
+``model.apply`` in f32; ``dtype=torch.bfloat16`` is the bf16 tier of
+ECAPA, ResNet and LCNN (SE-Res2Net50, ConvNet and RawNet2 have no bf16
+model in the JAX package, and the port adds none: they score in f32).
+RawNet2 reads waveforms, so it scores through ``score_raw_to_file`` with
+a ``WaveformFrontend``; the feature-file tasks refuse it.
 """
 
 from __future__ import annotations
@@ -33,7 +37,8 @@ from asvspoof2021_air_tpu_torch.data.datasets import (
 from asvspoof2021_air_tpu_torch.data.pipeline import (
     SequentialIterator, WaveformIterator)
 from asvspoof2021_air_tpu_torch.interop.checkpoints import (
-    lcnn_from_state_dict, resnet_from_state_dict)
+    convnet_from_state_dict, lcnn_from_state_dict, rawnet_from_state_dict,
+    res2net_from_state_dict, resnet_from_state_dict)
 from asvspoof2021_air_tpu_torch.models.registry import MODEL_REGISTRY
 from asvspoof2021_air_tpu_torch.serving.ecapa_serving import ServingECAPA
 from asvspoof2021_air_tpu_torch.serving.stream import make_scanned_infer
@@ -85,25 +90,30 @@ def score_rule(add_loss: Optional[str], emb: torch.Tensor,
 def build_scoring_model(state_dict, model: str = "ecapa", *,
                         dtype: torch.dtype = torch.float32,
                         model_scale: int = 8, feat_dim: int = 60,
+                        rawnet_args: Optional[dict] = None,
                         device="cuda") -> Callable:
-    """feats (B, T, F) -> (embedding, logits) on ``device`` in ``dtype``:
-    ECAPA's serving graph (kernels B2 and B3 on the card), or the eval-mode
-    ResNet or LCNN (``feat_dim``-dim features) holding ``state_dict``."""
+    """feats (B, T, F) (RawNet2: waveforms (B, L)) -> (embedding, logits)
+    on ``device``: ECAPA's serving graph (kernels B2 and B3 on the card) in
+    ``dtype``, the eval-mode ResNet or LCNN in ``dtype``, or the eval-mode
+    SE-Res2Net50, ConvNet or RawNet2 (at ``rawnet_args``) in f32, holding
+    ``state_dict``; ``feat_dim`` is the features' dim (LCNN, ConvNet)."""
     dev = resolve_device(device)
     if model == "ecapa":
         return ServingECAPA(state_dict, dtype=dtype, model_scale=model_scale,
                             device=dev)
     compute = None if dtype == torch.float32 else dtype
     if model == "resnet":
-        net = resnet_from_state_dict(state_dict, compute, dev)
-    elif model == "lcnn":
-        net = lcnn_from_state_dict(state_dict, feat_dim, compute, dev)
-    else:
-        raise NotImplementedError(
-            f"model {model!r}: the port scores {sorted(MODEL_REGISTRY)}; the "
-            "other families come with ROADMAP Queue A, the model families "
-            "item")
-    return net
+        return resnet_from_state_dict(state_dict, compute, dev)
+    if model == "lcnn":
+        return lcnn_from_state_dict(state_dict, feat_dim, compute, dev)
+    if model == "res2net":
+        return res2net_from_state_dict(state_dict, dev)
+    if model == "cnn":
+        return convnet_from_state_dict(state_dict, feat_dim, dev)
+    if model == "rawnet":
+        return rawnet_from_state_dict(state_dict, rawnet_args, dev)
+    raise ValueError(f"unknown model {model!r}; choices: "
+                     f"{sorted(MODEL_REGISTRY)}")
 
 
 def make_score_fn(state_dict, loss_module=None,
@@ -193,10 +203,15 @@ def test_on_asvspoof2021(
     feat_dim: int = 60,
     device="cuda",
 ) -> str:
-    """Score one task with ``model`` and return the score file's path: the
-    '19*' tasks
-    write ``<out>/<model_name>_<task>_score.txt`` (labeled), the challenge
-    tasks ``<out>/<model_name>_<task>/score.txt`` (unlabeled)."""
+    """Score one task's feature files with ``model`` and return the score
+    file's path: the '19*' tasks write
+    ``<out>/<model_name>_<task>_score.txt`` (labeled), the challenge tasks
+    ``<out>/<model_name>_<task>/score.txt`` (unlabeled). RawNet2 reads
+    waveforms, not features: ValueError (score it with
+    :func:`score_raw_to_file`)."""
+    if model == "rawnet":
+        raise ValueError("rawnet scores raw waveforms, not feature files: "
+                         "use score_raw_to_file with a WaveformFrontend")
     dataset = build_task_dataset(task, paths, feature)
     if "19" in task:
         out = os.path.join(output_score_path, f"{model_name}_{task}_score.txt")
@@ -222,16 +237,19 @@ def score_raw_to_file(
     dtype: torch.dtype = torch.float32,
     model_scale: int = 8,
     model: str = "ecapa",
+    rawnet_args: Optional[dict] = None,
     device="cuda",
 ) -> str:
     """Score every utterance of ``dataset`` through ``frontend`` (an
-    :class:`~asvspoof2021_air_tpu_torch.train.frontend.OnDeviceFrontend`)
-    and ``model`` built from ``state_dict`` (:func:`build_scoring_model`:
-    the ECAPA serving graph, or ResNet or LCNN); write the score file and
-    return its path."""
+    :class:`~asvspoof2021_air_tpu_torch.train.frontend.OnDeviceFrontend`,
+    or for RawNet2 a ``WaveformFrontend``) and ``model`` built from
+    ``state_dict`` (:func:`build_scoring_model`: the ECAPA serving graph or
+    the family's eval-mode module); write the score file and return its
+    path."""
     dev = resolve_device(device)
     net = build_scoring_model(state_dict, model, dtype=dtype,
-                              model_scale=model_scale, device=dev)
+                              model_scale=model_scale,
+                              rawnet_args=rawnet_args, device=dev)
     if loss_module is not None:
         loss_module = loss_module.to(dev).eval()
     n = len(dataset)

@@ -1,9 +1,12 @@
-"""On-device front-end: the channel augmenter (optional), LFCC with
+"""On-device front-ends: the channel augmenter (optional), LFCC with
 per-utterance lengths, then the reference's padding policy to
-``feat_len`` frames.
+``feat_len`` frames (:class:`OnDeviceFrontend`); or, for the raw-waveform
+RawNet2, the augmenter and the waveforms repeat-tiled to a fixed sample
+count (:class:`WaveformFrontend`).
 
 Counterpart of the JAX package's ``train/frontend.py`` ``OnDeviceFrontend``
-with the call form ``fe(batch, rng, params)`` of the train step:
+and ``WaveformFrontend`` with the call form ``fe(batch, rng, params)`` of
+the train step:
 
 - with an ``augmenter`` (``ops/augment.ChannelAugmenter``) every
   utterance draws a channel before LFCC, over the whole (B, L_max)
@@ -104,3 +107,52 @@ class OnDeviceFrontend:
         out = feats[rows, src]
         is_pad = (t[None, :] < pad[:, None])[..., None]
         return torch.where(is_pad, self._silence_vec.to(out.dtype), out)
+
+
+class WaveformFrontend:
+    """fn({"wave": (B, L), "length": (B,)}, rng=None, params=None) ->
+    (B, n_samples) waveforms on ``device``: with an ``augmenter`` every
+    utterance draws a channel over the whole (B, L) buffer first (``rng``
+    and ``params`` as for :class:`OnDeviceFrontend`), then sample t of an
+    utterance of ``length`` samples reads sample t mod length (the ASVspoof
+    RawNet2 baseline's repeat padding; the JAX ``WaveformFrontend``)."""
+
+    def __init__(self, n_samples: int = 64600, augmenter=None,
+                 apply_ir: bool = False, device="cuda"):
+        self.n_samples = n_samples
+        self.augmenter = augmenter
+        self.apply_ir = apply_ir
+        self.device = resolve_device(device)
+
+    def min_samples(self) -> int:
+        """The waveform buffer length the model reads."""
+        return self.n_samples
+
+    @property
+    def params(self):
+        """The augmenter's tables (None without an augmenter)."""
+        return None if self.augmenter is None else self.augmenter.tables
+
+    def eval_view(self) -> "WaveformFrontend":
+        """Augmenter-free copy, for the eval step."""
+        view = copy.copy(self)
+        view.augmenter = None
+        view.apply_ir = False
+        return view
+
+    def __call__(self, batch: Dict[str, torch.Tensor], rng=None,
+                 params=None) -> torch.Tensor:
+        wave = batch["wave"].to(self.device)
+        lengths = batch.get("length")
+        if lengths is None:
+            lengths = torch.full((wave.shape[0],), wave.shape[1])
+        lengths = lengths.to(self.device).long()
+        if self.augmenter is not None:
+            if rng is None:
+                raise ValueError("the channel augmenter needs rng: its draws "
+                                 "or a torch.Generator")
+            wave, _fam, _ir = self.augmenter(wave, rng, self.apply_ir,
+                                             params)
+        t = torch.arange(self.n_samples, device=self.device)
+        idx = t[None, :] % torch.clamp(lengths[:, None], min=1)
+        return torch.gather(wave, 1, idx)

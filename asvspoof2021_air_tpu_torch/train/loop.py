@@ -1,9 +1,9 @@
-"""Epoch-level training loop for ECAPA-TDNN, ResNet18 and LCNN.
+"""Epoch-level training loop for every model family.
 
 Counterpart of the JAX package's ``train/loop.py`` (``TrainConfig``,
 ``build_datasets``, ``setup_training``, ``train``) for ``model`` in
-{"ecapa", "resnet", "lcnn"} and ``add_loss`` in {None, "isolate",
-"iso_sq", "ang_iso", "p2sgrad"}:
+{"ecapa", "resnet", "lcnn", "res2net", "cnn", "rawnet"} and ``add_loss``
+in {None, "isolate", "iso_sq", "ang_iso", "p2sgrad"}:
 
 - data: cached feature files (``ASVspoof2019FeatureDataset``, or
   ``AugmentedFeatureDataset`` under ``LA_aug``/``DF_aug``/``LAPA_aug``/
@@ -11,10 +11,14 @@ Counterpart of the JAX package's ``train/loop.py`` (``TrainConfig``,
   ``on_the_fly``, raw waveforms (``RawAudioDataset`` -> ``WaveformIterator``
   -> ``OnDeviceFrontend``, LFCC through kernel B1 on the card, after the
   channel augmenter under ``on_device_aug``, with the synthetic IR bank
-  under ``apply_ir``); both iterators behind a ``PrefetchIterator``;
+  under ``apply_ir``; for RawNet2 ``WaveformFrontend``: the augmenter,
+  then the waveforms tiled to ``rawnet_args["nb_samp"]`` samples); both
+  iterators behind a ``PrefetchIterator``;
 - the step: the model in train mode (ECAPA pools through kernels
   B4a/B4b; LCNN's dropout and ResNet's pooling noise draw from the run's
-  seed and the step) in f32 or bf16 (``compute_dtype``) -> the base loss
+  seed and the step) in f32 or bf16 (``compute_dtype``; SE-Res2Net50,
+  ConvNet and RawNet2 compute in f32 under either, as the JAX registry
+  builds them) -> the base loss
   and the add-loss (plus, under
   ``ADV_AUG``, the channel classifiers' CE behind the GRL from the second
   epoch on, and the classifiers' own phase) -> every optimizer;
@@ -37,10 +41,13 @@ eer``) as the JAX loop does, and returns the same summary dict.
 Flags of the JAX loop that this port does not cover raise
 NotImplementedError (``check_supported``). ``ADV_AUG`` trains from
 augmented feature files only: on the fly the JAX loop's batches carry no
-channel ids, so its step fails there; the port refuses the pair. ``C``
-and ``model_scale`` are the port's own fields, so tests can train a
-narrow ECAPA; the JAX loop always trains C=512, scale 8. ResNet18 and LCNN
-have fixed widths; LCNN's head is sized for ``feat_len``.
+channel ids, so its step fails there; the port refuses the pair. RawNet2
+reads waveforms, so it trains on the fly only (from feature files the JAX
+model would read a feature column as a waveform; the port refuses it).
+``C`` and ``model_scale`` are the port's own fields, so tests can train a
+narrow ECAPA; the JAX loop always trains C=512, scale 8. The other
+families have fixed widths; the heads of LCNN and ConvNet are sized for
+``feat_dim`` x ``feat_len``.
 """
 
 from __future__ import annotations
@@ -67,13 +74,14 @@ from asvspoof2021_air_tpu_torch.data.prefetch import PrefetchIterator
 from asvspoof2021_air_tpu_torch.losses.registry import build_loss
 from asvspoof2021_air_tpu_torch.metrics.eer import compute_eer
 from asvspoof2021_air_tpu_torch.models.classifier import ChannelClassifier
-from asvspoof2021_air_tpu_torch.models.registry import (
-    MODEL_REGISTRY, build_model)
+from asvspoof2021_air_tpu_torch.models.rawnet import RAWNET2_DEFAULT_ARGS
+from asvspoof2021_air_tpu_torch.models.registry import build_model
 from asvspoof2021_air_tpu_torch.ops.augment import (
     ChannelAugmenter, synthetic_ir_bank)
 from asvspoof2021_air_tpu_torch.train.checkpoint import (
     restore_checkpoint, save_checkpoint)
-from asvspoof2021_air_tpu_torch.train.frontend import OnDeviceFrontend
+from asvspoof2021_air_tpu_torch.train.frontend import (
+    OnDeviceFrontend, WaveformFrontend)
 from asvspoof2021_air_tpu_torch.train.state import (
     create_train_state, step_decay_schedule)
 from asvspoof2021_air_tpu_torch.train.steps import (
@@ -86,7 +94,8 @@ from asvspoof2021_air_tpu_torch.utils.seed import setup_seed
 class TrainConfig:
     """The fields of the JAX ``TrainConfig`` that this port reads or refuses
     (``check_supported``), with their defaults, plus ``C`` and
-    ``model_scale`` (ECAPA's widths). It always trains through B4a/B4b
+    ``model_scale`` (ECAPA's widths). ``rawnet_args`` are RawNet2's
+    (``RAWNET2_DEFAULT_ARGS`` when None). It always trains through B4a/B4b
     (ECAPA) and the recompute VJPs, the JAX loop's ``fused_pool``/
     ``fused_bn``, so those are no fields; ``cli/train.py`` refuses a config
     file that turns them off."""
@@ -143,6 +152,7 @@ class TrainConfig:
     ensemble: int = 1
     C: int = 512
     model_scale: int = 8
+    rawnet_args: Optional[dict] = None
 
 
 def _aug_flag(config: TrainConfig) -> bool:
@@ -153,13 +163,16 @@ def _aug_flag(config: TrainConfig) -> bool:
 def check_supported(config: TrainConfig) -> None:
     """Raise NotImplementedError naming every flag of ``config`` that this
     port does not train with (ROADMAP Queue A lists them), and ValueError
-    for ADV_AUG without augmented feature files and, as the JAX
-    ``setup_training`` does, for rawnet with an add-loss."""
+    for ADV_AUG without augmented feature files, for rawnet from feature
+    files and, as the JAX ``setup_training`` does, for rawnet with an
+    add-loss."""
     c = config
     if c.model == "rawnet" and c.add_loss is not None:
         raise ValueError(
             "rawnet returns class logits, not an enc_dim embedding; train it "
             "with the base CE loss (add_loss None)")
+    if c.model == "rawnet" and not c.on_the_fly:
+        raise ValueError("rawnet reads raw waveforms: train it on_the_fly")
     if c.ADV_AUG and not _aug_flag(c):
         raise ValueError("ADV_AUG requires an augmentation flag")
     if c.ADV_AUG and c.on_the_fly:
@@ -168,11 +181,8 @@ def check_supported(config: TrainConfig) -> None:
             "ids of augmented feature files (LA_aug/DF_aug/LAPA_aug/"
             "DFPA_aug), and waveform batches carry none")
     bad = [name for name, hit in (
-        (f"model={c.model!r} (the port trains {sorted(MODEL_REGISTRY)}; "
-         "the other families are ROADMAP Queue A)",
-         c.model not in MODEL_REGISTRY),
         (f"feat={c.feat!r} on the fly (the port's front-end is LFCC)",
-         c.on_the_fly and c.feat != "LFCC"),
+         c.on_the_fly and c.feat != "LFCC" and c.model != "rawnet"),
         (f"ensemble={c.ensemble}", c.ensemble > 1),
         ("visualize", c.visualize),
     ) if hit]
@@ -240,7 +250,7 @@ def setup_training(config: TrainConfig, steps_per_epoch: int, frontend=None,
         nclasses=1 if config.base_loss == "bce" else config.nclasses,
         feat_dim=config.feat_dim, feat_len=config.feat_len, dtype=dtype,
         generator=gen, device=dev, C=config.C,
-        model_scale=config.model_scale)
+        model_scale=config.model_scale, rawnet_args=config.rawnet_args)
     loss_mod = build_loss(config.add_loss, enc_dim=config.enc_dim,
                           r_real=config.r_real, r_fake=config.r_fake,
                           alpha=config.alpha, nclasses=config.nclasses,
@@ -377,10 +387,16 @@ def train(config: TrainConfig, train_set=None, dev_set=None, eval_set=None,
             augmenter = ChannelAugmenter(
                 ir_bank=synthetic_ir_bank() if config.apply_ir else None,
                 device=dev)
-        frontend = OnDeviceFrontend(feat_len=config.feat_len,
-                                    padding=config.padding,
-                                    augmenter=augmenter,
-                                    apply_ir=config.apply_ir, device=dev)
+        if config.model == "rawnet":
+            nb_samp = (config.rawnet_args or RAWNET2_DEFAULT_ARGS)["nb_samp"]
+            frontend = WaveformFrontend(nb_samp, augmenter=augmenter,
+                                        apply_ir=config.apply_ir, device=dev)
+        else:
+            frontend = OnDeviceFrontend(feat_len=config.feat_len,
+                                        padding=config.padding,
+                                        augmenter=augmenter,
+                                        apply_ir=config.apply_ir,
+                                        device=dev)
         max_samples = frontend.min_samples()
         train_iter, dev_iter = (WaveformIterator(
             data, config.batch_size, max_samples, config.ratio, seed=seed)

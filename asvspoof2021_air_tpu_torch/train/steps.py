@@ -138,8 +138,9 @@ def make_train_step(config: StepConfig, frontend: Optional[Callable] = None,
     on ``device``. ``rng`` is the run's base seed (an int): with an
     augmenting front-end the step draws from ``step_generator(rng,
     state.step)`` unless ``draws`` are given, and a model that draws in
-    train mode (LCNN, ResNet) from ``step_generator(rng, state.step,
-    stream=MODEL_STREAM)`` unless ``model_draws`` are given. ``adv_gate``
+    train mode (LCNN, ResNet, the attentive ConvNet) from
+    ``step_generator(rng, state.step, stream=MODEL_STREAM)`` unless
+    ``model_draws`` are given. ``adv_gate``
     multiplies the adversarial term (0 in the first epoch, then 1). The
     step updates ``state`` in place (parameters, BN statistics, optimizer
     states, step). ``step.draw(rng, step, batch, out=None)`` gives the
@@ -161,9 +162,10 @@ def make_train_step(config: StepConfig, frontend: Optional[Callable] = None,
                               step_generator(rng, step, dev), out)
 
     def draw_model(rng, step: int, model, batch: Dict[str, Any], out=None):
-        # a model that draws in train mode (LCNN's dropout, ResNet's
-        # pooling noise) has draw(batch, frames, generator, out)
-        if not hasattr(model, "draw"):
+        # a model that draws in train mode (LCNN's dropout, ResNet's and
+        # the attentive ConvNet's pooling noise) has draw(batch, frames,
+        # generator, out); the others have none, or None
+        if getattr(model, "draw", None) is None:
             return None
         if rng is None:
             raise ValueError("the model's dropout and noise draw from the "

@@ -128,7 +128,26 @@ Phases, each fatal on failure:
    rows, finite scores, the first 8 against the same scorer on the CPU
    (1e-4), and ``cli.evaluate_tdcf``; print ms per step, utt/s and peak
    memory by CUDA events for the four configurations and a profile of
-   each with the device's busy share.
+   each with the device's busy share;
+4e. drive the last three families of the JAX registry at full width
+   (B = 64, weights from a seed): ``train`` of SE-Res2Net50 (base width
+   26, scale 4, layers 3/4/6/3) + ang_iso and ConvNet (enc_dim 256) +
+   ang_iso in f32 at one step a call on the fly (one epoch of 2 steps, T =
+   750), B1 counted under ``train_res2net_otf`` / ``train_cnn_otf``, one
+   step through B1 against the same step through its plain version at
+   phase 4's bars; both families from feature files at
+   ``compute_dtype="bfloat16"`` and ``steps_per_call=8`` (2 epochs of 8
+   steps), checked to compute in f32 as in JAX, 8 replayed steps against
+   8 eager ones (rtol 1e-6); RawNet2 at its default arguments (64600
+   samples, a cuDNN GRU of 3 x 1024) with CE on the fly with the channel
+   augmenter at K = 8, replay against eager, no B1 launch; then
+   ``cli.generate_score`` over the two feature-file run folders and
+   ``score_raw_to_file`` of RawNet2 over 136 FLAC utterances, the first 8
+   scores of each against the CPU (1e-4); print ms per step, utt/s, peak
+   memory, profiles by kernel group with the busy share, and the scorers'
+   forward ms.
+
+Each phase's seconds are printed.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is the device JSON. The script imports only the port, torch and
@@ -230,6 +249,8 @@ KERNEL_GROUPS = (
     # cuDNN's convolutions run implicit-GEMM kernels ("..._xmma_wgrad_
     # implicit_gemm_..."), so they are matched before cuBLAS's GEMMs.
     ("FFT (cuFFT)", ("fft",)),
+    # RawNet2's GRU (cuDNN's recurrent kernels), before the convolutions
+    ("GRU (cuDNN RNN)", ("rnn", "gru", "persist")),
     ("conv (cuDNN)", ("conv", "cudnn", "implicit", "wgrad", "dgrad",
                       "fprop")),
     ("matmul (cuBLAS)", ("gemm", "nvjet", "xmma", "cutlass", "cublas")),
@@ -2192,7 +2213,7 @@ def plain_b1():
 
 
 def family_step_vs_plain(torch, fresh_state, live, step, wave, rng,
-                         tag: str):
+                         tag: str, reverse: bool = False):
     """One on-the-fly training step of ResNet or LCNN from state ``live``
     on the waveform batch ``wave`` with its features through B1, against
     the same step with B1's plain version (phase 4d), at phase 4's bars:
@@ -2200,20 +2221,28 @@ def family_step_vs_plain(torch, fresh_state, live, step, wave, rng,
     two kernel steps' own) of its norm, and the gradients that are zero in
     the plain step zero in the kernel step; BN statistics rtol 1e-4 and
     atol 1e-5, or one input ulp (``bn_ulp_bars``). Both steps draw the
-    model's dropout or noise from (rng, step): the same draws."""
+    model's dropout or noise from (rng, step): the same draws. With
+    ``reverse`` (a model that draws nothing) the spread also counts the
+    plain step on the batch in reverse order, equal in exact arithmetic:
+    where ReLU inputs that round to the other side of zero move whole BN
+    channels' gradients (SE-Res2Net50), the kernel step's features, 1e-6
+    from the plain ones, move them as far as the order of the sums does."""
     runs = []
-    for ctx in (contextlib.nullcontext, contextlib.nullcontext, plain_b1):
+    flip = {k: v.flip(0) for k, v in wave.items()}
+    for ctx, batch in ((contextlib.nullcontext, wave),
+                       (contextlib.nullcontext, wave), (plain_b1, wave),
+                       *(((plain_b1, flip),) if reverse else ())):
         st = fresh_state()
         st.load_state_dict(live)
         with ctx():
-            metrics = step(st, wave, rng)
+            metrics = step(st, batch, rng)
         grads = {n: p.grad.clone() for n, p in st.model.named_parameters()}
         grads.update({f"loss.{n}": p.grad.clone()
                       for n, p in st.loss_module.named_parameters()})
         runs.append((metrics, grads, {
             k: v.clone() for k, v in st.model.state_dict().items()
             if k.endswith(RUNNING)}))
-    (m_k, g_k, s_k), (_, g_k2, _), (m_p, g_p, s_p) = runs
+    (m_k, g_k, s_k), (_, g_k2, _), (m_p, g_p, s_p) = runs[:3]
     for k in m_k:
         a, b = float(m_k[k]), float(m_p[k])
         print(f"{tag} B1 vs plain step: {k} {a:.7f} vs {b:.7f} (rtol 1e-4)")
@@ -2223,10 +2252,15 @@ def family_step_vs_plain(torch, fresh_state, live, step, wave, rng,
         (float((got[n] - want[n]).norm() / want[n].norm()), n)
         for n in names)
     worst, spread = norm_err(g_k, g_p), norm_err(g_k2, g_k)
+    if reverse:
+        rev = norm_err(runs[3][1], g_p)
+        print(f"{tag} plain step vs the plain step on the batch reversed: "
+              f"{rev[0]:.3e} ({rev[1]})")
+        spread = max(spread, rev)
     bar = max(1e-2, 4 * spread[0])
     print(f"{tag} B1 vs plain step: largest gradient error norm "
-          f"{worst[0]:.3e} of its tensor's ({worst[1]}; bar {bar:.3e}); two "
-          f"kernel steps {spread[0]:.3e} ({spread[1]})")
+          f"{worst[0]:.3e} of its tensor's ({worst[1]}; bar {bar:.3e}); "
+          f"spread {spread[0]:.3e} ({spread[1]})")
     check(worst[0] <= bar, f"{tag} step gradients disagree: {worst}")
     for n in g_p:
         if float(g_p[n].abs().max()) == 0:
@@ -2494,6 +2528,288 @@ def train_families_path(torch, gpu: str, entries):
               f"ms/step = {B / ms * 1e3:.1f} utt/s; peak {peak:.2f} GiB")
 
 
+def train_new_families_path(torch, gpu: str, entries):
+    """Phase 4e: SE-Res2Net50 and ConvNet at full width on the fly through
+    B1 and from feature files as CUDA graphs of 8 steps (f32, as the JAX
+    registry builds them), RawNet2 on the fly with the channel augmenter as
+    a CUDA graph of 8 steps, and their scorers."""
+    import dataclasses
+
+    from asvspoof2021_air_tpu_torch.cli import generate_score
+    from asvspoof2021_air_tpu_torch.data.datasets import (
+        ASVspoof2019FeatureDataset, RawAudioDataset)
+    from asvspoof2021_air_tpu_torch.data.pipeline import (
+        RatioMixIterator, SequentialIterator, WaveformIterator)
+    from asvspoof2021_air_tpu_torch.models.rawnet import RAWNET2_DEFAULT_ARGS
+    from asvspoof2021_air_tpu_torch.ops import lfcc_cuda as lc
+    from asvspoof2021_air_tpu_torch.ops.augment import ChannelAugmenter
+    from asvspoof2021_air_tpu_torch.scoring import (
+        build_scoring_model, make_score_fn, score_raw_to_file)
+    from asvspoof2021_air_tpu_torch.train.frontend import (
+        OnDeviceFrontend, WaveformFrontend)
+    from asvspoof2021_air_tpu_torch.train.loop import (
+        TrainConfig, setup_training, train)
+    from asvspoof2021_air_tpu_torch.train.steps import make_multi_step
+
+    K, rng = 8, 688 ^ 0x5EED           # the loop's seed for the draws
+    n_samp = RAWNET2_DEFAULT_ARGS["nb_samp"]
+    times, score_ms = {}, {}
+    cwd = os.getcwd()
+    stack = lambda bs: {k: torch.stack([b[k] for b in bs]) for k in bs[0]}
+
+    def f32_only(model, x, what: str) -> None:
+        # the JAX registry builds these families without a compute dtype
+        dtypes = set()
+        hooks = [m.register_forward_hook(
+            lambda m, i, o: dtypes.update(t.dtype for t in (
+                o if isinstance(o, tuple) else (o,)) if torch.is_tensor(t)))
+            for m in model.modules()]
+        with torch.no_grad():
+            model(x)
+        for h in hooks:
+            h.remove()
+        params = {p.dtype for p in model.parameters()}
+        print(f"{what}: parameter types {params}, module output types "
+              f"{dtypes}")
+        check(params == dtypes == {torch.float32}, f"{what} is not f32")
+
+    def replay_vs_eager(cfg, live, batches, frontend, what: str,
+                        params=None):
+        # K graph-replayed steps against K eager steps from the trained
+        # state, cuDNN deterministic
+        torch.backends.cudnn.deterministic = True
+        _, _, st, step, _ = setup_training(cfg, K, frontend=frontend,
+                                           device=DEVICE)
+        st.load_state_dict(live)
+        multi = make_multi_step(step, K)
+        multi(st, stack(batches[:K]), rng, 0.0, params)   # eager, capture
+        st.load_state_dict(live)
+        m_graph = multi(st, stack(batches[K:]), rng, 0.0, params)
+        after_graph = st.state_dict()
+        st.load_state_dict(live)
+        m_eager = [step(st, b, rng, 0.0, params) for b in batches[K:]]
+        after_eager = st.state_dict()
+        torch.backends.cudnn.deterministic = False
+        check_replay(torch, m_graph, after_graph, m_eager, after_eager,
+                     live["step"], K, what)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # ---- on the fly, f32, K = 1, through B1: SE-Res2Net50 + ang_iso,
+        # ConvNet + ang_iso ----
+        write_corpus(tmp, 2 * B, seed=50, part="train")
+        write_corpus(tmp, B, seed=51, part="dev")
+        fe = OnDeviceFrontend(feat_len=T, device=DEVICE)
+        raw = next(WaveformIterator(RawAudioDataset("LA", tmp, "train"), B,
+                                    fe.min_samples(), seed=5).epoch())
+        wave = {k: torch.from_numpy(raw[k]) for k in ("wave", "length",
+                                                      "label")}
+        for family in ("res2net", "cnn"):
+            cfg = TrainConfig(
+                out_fold=os.path.join(tmp, f"otf_{family}"),
+                path_to_database=tmp, model=family, add_loss="ang_iso",
+                on_the_fly=True, batch_size=B, feat_len=T, num_epochs=1,
+                ratio=1.0)
+            init = setup_training(cfg, 2, device=DEVICE)[2].state_dict()
+            torch.cuda.synchronize()
+            lc.launches = 0
+            summary, state = train(cfg, device=DEVICE, return_state=True)
+            torch.cuda.synchronize()
+            print(f"{family} + ang_iso f32 on the fly: 2 steps and 1 dev "
+                  f"pass, B1 launches {lc.launches}; {summary}")
+            check(lc.launches == 3,
+                  f"{family}: B1 did not run once per step and dev batch")
+            entries["B1"][f"launches_train_{family}_otf"] = lc.launches
+            with open(os.path.join(cfg.out_fold, "train_loss.log")) as f:
+                losses = [float(r.split()[2]) for r in f.readlines()[1:]]
+            check(len(losses) == 2 and bool(np.isfinite(losses).all()),
+                  f"{family} losses {losses}")
+            live = state.state_dict()
+            moved = {k for k, v in live["model"].items()
+                     if not torch.equal(v, init["model"][k])}
+            stats = {k for k in live["model"] if k.endswith(RUNNING)}
+            check(stats <= moved, f"{family}: BN statistics that did not "
+                                  f"move: {sorted(stats - moved)}")
+            check(all(not torch.equal(v, init["loss_module"][k])
+                      for k, v in live["loss_module"].items()),
+                  f"{family}: the loss module did not move")
+            fresh = lambda: setup_training(cfg, 2, device=DEVICE)[2]
+            step = setup_training(cfg, 2, frontend=fe, device=DEVICE)[3]
+            family_step_vs_plain(torch, fresh, live, step, wave, rng,
+                                 f"{family} f32", reverse=True)
+            times[f"{family} + ang_iso f32 K=1 on the fly"] = (
+                family_times(torch, cfg, 2, live, [wave], fe, rng,
+                             f"{family} f32 training step on the fly"))
+            del state
+
+        # ---- from feature files at compute_dtype bf16 (f32 as in JAX),
+        # K = 8 as a CUDA graph: SE-Res2Net50 + isolate, ConvNet +
+        # p2sgrad ----
+        feats = os.path.join(tmp, "feats")
+        write_feature_tree(os.path.join(feats, "train", "LFCC"), 2 * B, 52,
+                           True)
+        write_feature_tree(os.path.join(feats, "dev", "LFCC"), B, 53, True)
+        train_set = Repeat(ASVspoof2019FeatureDataset("LA", feats, "train"),
+                           K // 2)             # K steps an epoch
+        dev_set = ASVspoof2019FeatureDataset("LA", feats, "dev")
+        fb = [{k: torch.from_numpy(b[k]) for k in ("feat", "label")}
+              for b in RatioMixIterator(train_set, B, 1.0, feat_len=T,
+                                        seed=7,
+                                        steps_per_epoch=2 * K).epoch()]
+        for family, add_loss in (("res2net", "isolate"), ("cnn", "p2sgrad")):
+            cfg = TrainConfig(
+                out_fold=os.path.join(tmp, "runs", family),
+                path_to_features=feats, model=family, add_loss=add_loss,
+                batch_size=B, feat_len=T, num_epochs=2, ratio=1.0,
+                compute_dtype="bfloat16", steps_per_call=K)
+            summary, state = train(cfg, train_set=train_set,
+                                   dev_set=dev_set, device=DEVICE,
+                                   return_state=True)
+            with open(os.path.join(cfg.out_fold, "train_loss.log")) as f:
+                rows = [r.split() for r in f.readlines()[1:]]
+            losses = np.array([float(r[2]) for r in rows])
+            check([(int(r[0]), int(r[1])) for r in rows]
+                  == [(e, i) for e in range(2) for i in range(K)],
+                  f"{family} train_loss.log steps")
+            check(bool(np.isfinite(losses).all()), f"{family} losses")
+            live = state.state_dict()
+            f32_only(state.model.eval(), fb[0]["feat"].to(DEVICE),
+                     f"{family} under compute_dtype bfloat16")
+            print(f"{family} + {add_loss} compute_dtype bfloat16 K={K} from "
+                  f"features: 2 epochs of {K} steps (one capture, one "
+                  f"replay); loss per step {np.round(losses, 5).tolist()}; "
+                  f"{summary}")
+            del state
+            replay_vs_eager(cfg, live, fb, None, f"{family} + {add_loss}")
+            times[f"{family} + {add_loss} f32 K={K} from features"] = (
+                family_times(torch, cfg, K, live, fb[:K], None, rng,
+                             f"{family} {K}-step graph replay"))
+
+        # ---- RawNet2, CE, on the fly with the channel augmenter, K = 8
+        # as a CUDA graph; no B1 ----
+        raw_train = Repeat(RawAudioDataset("LA", tmp, "train"), K // 2)
+        rcfg = TrainConfig(
+            out_fold=os.path.join(tmp, "runs", "rawnet"),
+            path_to_database=tmp, model="rawnet", on_the_fly=True,
+            on_device_aug=True, batch_size=B, num_epochs=1, ratio=1.0,
+            steps_per_call=K)
+        torch.cuda.synchronize()
+        lc.launches = 0
+        summary, state = train(rcfg, train_set=raw_train,
+                               dev_set=RawAudioDataset("LA", tmp, "dev"),
+                               device=DEVICE, return_state=True)
+        torch.cuda.synchronize()
+        print(f"rawnet CE on the fly with the channel augmenter, K={K}: "
+              f"{K} steps (one call: eager steps and the capture) and 1 dev "
+              f"pass, B1 launches {lc.launches}; {summary}")
+        check(lc.launches == 0, "RawNet2 launched B1")
+        entries["B1"]["launches_train_rawnet_otf"] = lc.launches
+        with open(os.path.join(rcfg.out_fold, "train_loss.log")) as f:
+            losses = np.array([float(r.split()[2])
+                               for r in f.readlines()[1:]])
+        check(len(losses) == K and bool(np.isfinite(losses).all()),
+              f"rawnet losses {losses}")
+        rfe = WaveformFrontend(n_samp, augmenter=ChannelAugmenter(
+            device=DEVICE), device=DEVICE)
+        live = state.state_dict()
+        f32_only(state.model.eval(), torch.zeros(4, n_samp, device=DEVICE),
+                 "rawnet")
+        del state
+        waves = [{k: torch.from_numpy(b[k]) for k in ("wave", "length",
+                                                      "label")}
+                 for b in WaveformIterator(raw_train, B, n_samp, seed=5,
+                                           steps_per_epoch=2 * K).epoch()]
+        replay_vs_eager(rcfg, live, waves, rfe,
+                        "rawnet with the channel augmenter (cuDNN GRU)",
+                        rfe.params)
+        times[f"rawnet CE f32 K={K} on the fly, channel augmenter"] = (
+            family_times(torch, rcfg, K, live, waves[:K], rfe, rng,
+                         f"rawnet {K}-step graph replay with the augmenter"))
+
+        # ---- scoring: cli.generate_score over the two feature-file run
+        # folders, score_raw_to_file of RawNet2 from FLAC ----
+        dev_names = write_feature_tree(os.path.join(tmp, "score", "dev",
+                                                    "LFCC"),
+                                       2 * B + 8, 54, labeled=True)
+        x = torch.from_numpy(np.stack([b["feat"].numpy() for b in fb[:1]])[
+            0]).to(DEVICE)
+        os.chdir(tmp)               # the 19* tasks write under ./scores
+        try:
+            for family in ("res2net", "cnn"):
+                run = os.path.join(tmp, "runs", family)
+                with contextlib.redirect_stdout(open(os.devnull, "w")):
+                    path = generate_score.main([
+                        "--model_folder", os.path.join(tmp, "runs"),
+                        "-n", family, "-t", "19dev", "--ori_features",
+                        os.path.join(tmp, "score"), "--batch_size", str(B),
+                        "--device", DEVICE])
+                with open(path) as f:
+                    rows = [r.split() for r in f]
+                scores = np.array([float(r[1]) for r in rows])
+                check([r[0] for r in rows] == dev_names
+                      and bool(np.isfinite(scores).all()),
+                      f"{family}: score file rows")
+                batch = next(iter(SequentialIterator(
+                    ASVspoof2019FeatureDataset(
+                        "LA", os.path.join(tmp, "score"), "dev"), 8, T)))
+                sd, lm, rc = generate_score.load_system(run, device="cpu")
+                ref = -make_score_fn(sd, lm, rc.add_loss, model=family,
+                                     device="cpu")(batch["feat"])
+                err = float(np.abs(scores[:8] - ref.numpy()).max())
+                print(f"cli.generate_score {family} ({rc.add_loss}): "
+                      f"{len(rows)} rows, card vs CPU on 8 utterances "
+                      f"{err:.2e} (bar 1e-4)")
+                check(err <= 1e-4, f"{family} scores off the CPU's")
+                sd, lm, rc = generate_score.load_system(run, device=DEVICE)
+                fn = make_score_fn(sd, lm, rc.add_loss, model=family,
+                                   device=DEVICE)
+                score_ms[family] = time_ms(torch, lambda: fn(x))
+        finally:
+            os.chdir(cwd)
+        write_corpus(os.path.join(tmp, "eval"), 2 * B + 8, seed=55,
+                     fmt="flac")
+        eval_set = RawAudioDataset("LA", os.path.join(tmp, "eval"), "eval")
+        t0 = time.perf_counter()
+        path = score_raw_to_file(
+            live["model"], eval_set, os.path.join(tmp, "rawnet.txt"), True,
+            WaveformFrontend(n_samp, device=DEVICE), batch_size=B,
+            model="rawnet", device=DEVICE)
+        raw_host_ms = (time.perf_counter() - t0) * 1e3 / 3
+        subset = [eval_set[i] for i in range(8)]
+        ref_path = score_raw_to_file(
+            {k: v.cpu() for k, v in live["model"].items()}, subset,
+            os.path.join(tmp, "rawnet_cpu.txt"), True,
+            WaveformFrontend(n_samp, device="cpu"), batch_size=8,
+            model="rawnet", device="cpu")
+        with open(path) as f:
+            rows = [r.split() for r in f]
+        with open(ref_path) as f:
+            ref_rows = [r.split() for r in f]
+        scores = np.array([float(r[1]) for r in rows])
+        check(len(rows) == len(eval_set) and bool(np.isfinite(scores).all())
+              and [r[0] for r in rows[:8]] == [r[0] for r in ref_rows],
+              "rawnet: score file rows")
+        err = float(np.abs(scores[:8] - np.array(
+            [float(r[1]) for r in ref_rows])).max())
+        print(f"score_raw_to_file rawnet from FLAC: {len(rows)} rows, card "
+              f"vs CPU on 8 utterances {err:.2e} (bar 1e-4)")
+        check(err <= 1e-4, "rawnet scores off the CPU's")
+        net = build_scoring_model(live["model"], "rawnet", device=DEVICE)
+        xw = torch.from_numpy(np.stack([w["wave"].numpy()
+                                        for w in waves[:1]])[0]).to(DEVICE)
+        with torch.no_grad():
+            score_ms["rawnet"] = time_ms(torch, lambda: net(xw))
+    for what, (ms, peak) in times.items():
+        print(f"training step {what} [{gpu}] (B={B}, T={T}; RawNet2 "
+              f"{n_samp} samples; CUDA events, host-to-device copies of the "
+              f"batches included): {ms:.3f} ms/step = {B / ms * 1e3:.1f} "
+              f"utt/s; peak {peak:.2f} GiB")
+    for family, ms in score_ms.items():
+        print(f"scorer forward {family} [{gpu}] (B={B}, f32, CUDA events): "
+              f"{ms:.3f} ms/batch = {B / ms * 1e3:.1f} utt/s")
+    print(f"score_raw_to_file rawnet [{gpu}]: {raw_host_ms:.2f} ms/batch "
+          f"(host clock, FLAC reading and the forward)")
+
+
 def main() -> int:
     try:
         import torch
@@ -2516,14 +2832,25 @@ def main() -> int:
           f"(nvcc: {_build.build_seconds})")
 
     gen = torch.Generator(device=DEVICE).manual_seed(0)
-    entries = kernel_checks(torch, gen)
-    vjp_checks(torch, gen, entries)
-    main_path(torch, gpu, entries)
-    score_path(torch, gpu, entries)
-    f32_ms, _ = train_path(torch, gpu, entries)
-    train_bf16_path(torch, gpu, entries, f32_ms)
-    train_adv_path(torch, gpu, entries)
-    train_families_path(torch, gpu, entries)
+    seconds = {}
+
+    def phase(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t
+        print(f"phase {name}: {seconds[name]:.1f} s")
+        return out
+
+    entries = phase("2", kernel_checks, torch, gen)
+    phase("2b", vjp_checks, torch, gen, entries)
+    phase("3", main_path, torch, gpu, entries)
+    phase("3b", score_path, torch, gpu, entries)
+    f32_ms, _ = phase("4", train_path, torch, gpu, entries)
+    phase("4b", train_bf16_path, torch, gpu, entries, f32_ms)
+    phase("4c", train_adv_path, torch, gpu, entries)
+    phase("4d", train_families_path, torch, gpu, entries)
+    phase("4e", train_new_families_path, torch, gpu, entries)
+    print(f"phase seconds: { {k: round(v, 1) for k, v in seconds.items()} }")
 
     kernels = []
     for key in ("B1", "B2", "B3", "B4a", "B4b"):
@@ -2532,7 +2859,8 @@ def main() -> int:
         by_path = {p: e[f"launches_{p}"] for p in (
             "serve", "score", "train", "train_bf16", "train_bf16_otf",
             "train_adv", "train_adv_dual", "train_aug_otf",
-            "train_resnet_otf", "train_lcnn_otf")
+            "train_resnet_otf", "train_lcnn_otf", "train_res2net_otf",
+            "train_cnn_otf", "train_rawnet_otf")
             if f"launches_{p}" in e}
         launches = sum(by_path.values())
         print(f"{e['name']} [{gpu}]: max_abs_err {e['max_abs_err']:.3e}, "

@@ -266,9 +266,18 @@ def test_family_slice_entry_points_default_to_cuda_and_refuse_the_cpu(
     """ResNet18, LCNN, the one-class losses, the center loss, the
     registries, the checkpoint loaders of the families and the scorer's
     model builder raise on a machine without CUDA unless asked for the
-    CPU; each is among the modules the import guard above covers."""
+    CPU; each is among the modules the import guard above covers. All six
+    names of the JAX ``MODEL_REGISTRY`` build on the CPU and raise without
+    a GPU, as do the modules and loaders of SE-Res2Net50, ConvNet,
+    Subband and RawNet2 and the waveform front-end."""
     from asvspoof2021_air_tpu_torch.interop.checkpoints import (
-        lcnn_from_state_dict, resnet_from_state_dict)
+        convnet_from_state_dict, lcnn_from_state_dict,
+        rawnet_from_state_dict, res2net_from_state_dict,
+        resnet_from_state_dict)
+    from asvspoof2021_air_tpu_torch.models import (
+        ConvNet, RawNet, SERes2Net50, Subband)
+    from asvspoof2021_air_tpu_torch.models.registry import MODEL_REGISTRY
+    from asvspoof2021_air_tpu_torch.train.frontend import WaveformFrontend
     from asvspoof2021_air_tpu_torch.interop.flax_weights import (
         from_flax_variables)
     from asvspoof2021_air_tpu_torch.losses.basic import CenterLoss
@@ -301,6 +310,28 @@ def test_family_slice_entry_points_default_to_cuda_and_refuse_the_cpu(
         == "cpu"
     assert build_loss("p2sgrad", enc_dim=8, device="cpu").weight.device.type \
         == "cpu"
-    for name in ("cnn", "res2net", "rawnet"):
-        with pytest.raises(NotImplementedError, match="Queue A"):
-            build_model(name, device="cpu")
+    assert sorted(MODEL_REGISTRY) == sorted(
+        ("cnn", "resnet", "lcnn", "res2net", "ecapa", "rawnet"))
+    tiny = {"nb_samp": 6400, "first_conv": 129, "in_channels": 1,
+            "filts": [4, [4, 4], [4, 8], [8, 8]], "blocks": [2, 4],
+            "nb_fc_node": 16, "gru_node": 16, "nb_gru_layer": 1,
+            "nb_classes": 2}
+    kw = dict(feat_len=32, C=16, model_scale=4, rawnet_args=tiny)
+    for name in MODEL_REGISTRY:
+        model = build_model(name, device="cpu", **kw)
+        assert next(model.parameters()).device.type == "cpu", name
+        with pytest.raises(RuntimeError, match="cuda"):
+            build_model(name, **kw)
+    sds = {"res2net": res2net_from_state_dict,
+           "cnn": convnet_from_state_dict,
+           "rawnet": lambda sd, **d: rawnet_from_state_dict(sd, tiny, **d)}
+    for name, load in sds.items():
+        sd = build_model(name, device="cpu", **kw).state_dict()
+        assert not load(sd, device="cpu").training
+        with pytest.raises(RuntimeError, match="cuda"):
+            load(sd)
+    for make in (SERes2Net50, lambda: ConvNet(feat_len=32),
+                 lambda: Subband(feat_len=32), lambda: RawNet(tiny),
+                 WaveformFrontend):
+        with pytest.raises(RuntimeError, match="cuda"):
+            make()

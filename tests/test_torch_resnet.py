@@ -21,7 +21,8 @@ from asvspoof2021_air_tpu_torch.interop.flax_weights import (
 from asvspoof2021_air_tpu_torch.models.resnet import pooled_frames
 from asvspoof2021_air_tpu_torch.ops.bn_relu_vjp import bn_relu_train
 from test_torch_train_families import (  # noqa: F401  (the fixture)
-    B, ENC, _two_threads, jax_model, port_draws, port_model, recorder)
+    B, ENC, _two_threads, family_input, family_variables, flax_name,
+    jax_model, port_draws, port_model, recorder)
 
 RUNNING = ("running_mean", "running_var")
 
@@ -75,17 +76,19 @@ def _np(t):
 def run_pair(family: str, T: int, seed: int, train: bool, dtype=None,
              with_grads: bool = False):
     """The JAX model (fused_bn=True) and the port's on the same seeded
-    weights and features: {quantity: (port, jax)} of the embedding, the
-    logits and, in train mode, every BN running statistic after the
-    forward (the port's names) and, ``with_grads``, every parameter
-    gradient of sum emb^2 + sum logits^2. Train mode injects the JAX
-    model's own draw."""
+    weights and inputs (``family_variables``, ``family_input``):
+    {quantity: (port, jax)} of the embedding, the logits and, in train
+    mode, every BN running statistic after the forward (the port's names)
+    and, ``with_grads``, every parameter gradient of sum emb^2 + sum
+    logits^2 (a parameter the loss does not reach has a zero gradient).
+    Train mode injects the JAX model's own draw, if it makes one."""
     g = np.random.default_rng(seed)
-    x = g.standard_normal((B, T, 60)).astype(np.float32)
-    v = random_flax_variables(seed, model=family, enc_dim=ENC, feat_len=T)
+    x = family_input(family, g, T)
+    v = family_variables(family, x, seed, T)
     jm = jax_model(family, T, jnp.bfloat16 if dtype else None)
     model = port_model(family, T, dtype)
-    sd = from_flax_variables(v, model=family)
+    name = flax_name(family)
+    sd = from_flax_variables(v, model=name)
     model.load_state_dict(sd)
     out = {}
     if not train:
@@ -95,7 +98,7 @@ def run_pair(family: str, T: int, seed: int, train: bool, dtype=None,
             pe, pl = model(torch.from_numpy(x))
         return {"emb": (_np(pe), e), "logits": (_np(pl), lg)}
     rng = jax.random.PRNGKey(seed + 100)
-    draw = np.array(recorder(jm)(v, jnp.asarray(x), rng))
+    draw = recorder(jm)(v, jnp.asarray(x), rng)
 
     def loss(params):
         (e, lg), mut = jm.apply(
@@ -107,11 +110,13 @@ def run_pair(family: str, T: int, seed: int, train: bool, dtype=None,
 
     grads, (e, lg, mut) = jax.jit(jax.grad(loss, has_aux=True))(v["params"])
     model.train()
-    pe, pl = model(torch.from_numpy(x), port_draws(family, draw))
+    draws = port_draws(family, None if draw is None else np.array(draw))
+    pe, pl = model(torch.from_numpy(x),
+                   *(() if draws is None else (draws,)))
     out = {"emb": (_np(pe), e), "logits": (_np(pl), lg)}
     want_sd = from_flax_variables(jax.tree.map(np.asarray, {
         "params": v["params"], "batch_stats": mut["batch_stats"]}),
-        model=family)
+        model=name)
     for k, t in model.state_dict().items():
         if k.endswith(RUNNING):
             out[k] = (_np(t), want_sd[k].numpy())
@@ -119,9 +124,10 @@ def run_pair(family: str, T: int, seed: int, train: bool, dtype=None,
         (pe.pow(2).sum() + pl.pow(2).sum()).backward()
         want_g = from_flax_variables(jax.tree.map(np.asarray, {
             "params": grads, "batch_stats": v["batch_stats"]}),
-            model=family)
+            model=name)
         for n, p in model.named_parameters():
-            out["grad " + n] = (_np(p.grad), want_g[n].numpy())
+            got = torch.zeros_like(p) if p.grad is None else p.grad
+            out["grad " + n] = (_np(got), want_g[n].numpy())
     return out
 
 
@@ -136,8 +142,12 @@ def check_f32(pairs, bar: float = 1e-4, grad_bar: float = 1e-4,
               grad_norm_bar: float = None) -> None:
     """Each quantity within ``bar`` of its largest magnitude; gradients
     within ``grad_bar`` of their largest or, with ``grad_norm_bar``, each
-    tensor's error within that fraction of its norm."""
+    tensor's error within that fraction of its norm; a quantity that is
+    zero in JAX zero in the port."""
     for name, (got, want) in pairs.items():
+        if not np.any(want):        # a parameter the loss does not reach
+            assert not np.any(got), name
+            continue
         if name.startswith("grad ") and grad_norm_bar is not None:
             err = norm_err(got, want)
             assert err <= grad_norm_bar, (name, err)

@@ -361,17 +361,22 @@ def test_generate_score_cli_matches_jax_cli(tmp_path, small_jax, monkeypatch,
 
 
 def test_generate_score_cli_refuses_what_is_not_ported(tmp_path):
+    """What the CLI still refuses: an ensemble run (NotImplementedError,
+    ROADMAP Queue A), and RawNet2 on the feature-file tasks (ValueError:
+    it reads waveforms; ``score_raw_to_file`` scores it). Every family
+    loads (tests/test_torch_res2net.py, tests/test_torch_convnet.py and
+    tests/test_torch_rawnet.py score them)."""
     variables, center = _weights(4)
     run = port_run_folder(tmp_path / "port", variables, center)
     base = ["--model_folder", str(tmp_path), "-n", "port", "-t", "19dev",
             "--device", "cpu"]
     args = json.load(open(os.path.join(run, "args.json")))
-    for key, value, match in (("ensemble", 3, "ensembles"),
-                              ("model", "cnn", "families"),
-                              ("model", "rawnet", "Queue A")):
+    for key, value, error, match in (
+            ("ensemble", 3, NotImplementedError, "ensembles"),
+            ("model", "rawnet", ValueError, "waveforms")):
         json.dump(dict(args, **{key: value}),
                   open(os.path.join(run, "args.json"), "w"))
-        with pytest.raises(NotImplementedError, match=match):
+        with pytest.raises(error, match=match):
             p_cli.main(base)
 
 

@@ -40,7 +40,7 @@ from asvspoof2021_air_tpu_torch.models.ecapa import ECAPA_TDNN
 from asvspoof2021_air_tpu_torch.ops.bn_relu_vjp import relu_bn_train
 from asvspoof2021_air_tpu_torch.train.checkpoint import restore_checkpoint
 from asvspoof2021_air_tpu_torch.train.loop import (
-    TrainConfig, setup_training, train)
+    TrainConfig, check_supported, setup_training, train)
 from asvspoof2021_air_tpu_torch.train.state import (
     create_train_state, step_decay_schedule)
 from asvspoof2021_air_tpu_torch.train.steps import StepConfig, make_train_step
@@ -396,11 +396,13 @@ def test_cli_trains_on_the_cpu(tmp_path, capsys):
 
 def test_cli_loads_a_jax_config_file_and_refuses_fused_off(tmp_path):
     """A JAX ``args.json`` loads: the fields the port does not read
-    (rawnet_args, ...) are dropped and the rest kept, ADV_AUG's lambda_
-    among them; one that turns fused_pool or fused_bn off is refused."""
+    (fused_pool, ...) are dropped and the rest kept, ADV_AUG's lambda_ and
+    RawNet2's rawnet_args among them; one that turns fused_pool or fused_bn
+    off is refused."""
+    rawnet_args = {"nb_samp": 6400, "first_conv": 129, "gru_node": 16}
     jcfg = dataclasses.asdict(jloop.TrainConfig(
         model="ecapa", add_loss="ang_iso", on_the_fly=True, lr=3e-4,
-        lambda_=0.1, path_to_features="/feats"))
+        lambda_=0.1, path_to_features="/feats", rawnet_args=rawnet_args))
     path = tmp_path / "args.json"
     out = ["-o", str(tmp_path / "out"), "--config", str(path)]
     path.write_text(json.dumps(jcfg))
@@ -408,6 +410,7 @@ def test_cli_loads_a_jax_config_file_and_refuses_fused_off(tmp_path):
     assert (cfg.model, cfg.add_loss, cfg.on_the_fly, cfg.lr) == (
         "ecapa", "ang_iso", True, 3e-4)
     assert cfg.lambda_ == 0.1 and not hasattr(cfg, "fused_pool")
+    assert cfg.rawnet_args == rawnet_args
     for key in ("fused_pool", "fused_bn"):
         path.write_text(json.dumps({**jcfg, key: "off"}))
         with pytest.raises(NotImplementedError, match=key):
@@ -415,24 +418,31 @@ def test_cli_loads_a_jax_config_file_and_refuses_fused_off(tmp_path):
 
 
 def test_unsupported_flags_raise(tmp_path):
-    """The flags the port still refuses, each named in the error (the
-    families not ported yet name ROADMAP Queue A); the ones it trains with
-    (bf16, K steps per call, feature files with or without an aug flag,
-    resume, test_on_eval, profile, ADV_AUG and the channel augmenter, the
-    LCNN and ResNet families and every add-loss that trains) are held by
+    """The flags the port still refuses, each named in the error (ensemble
+    and visualize: ROADMAP Queue A); the ones it trains with (bf16, K steps
+    per call, feature files with or without an aug flag, resume,
+    test_on_eval, profile, ADV_AUG and the channel augmenter, all six
+    model families and every add-loss that trains) are held by
     tests/test_torch_train_loop.py, tests/test_torch_train_bf16.py,
-    tests/test_torch_adv_aug.py and tests/test_torch_train_families.py.
-    AMSoftmax does not train: the step raises ValueError, as the JAX step
-    does."""
+    tests/test_torch_adv_aug.py, tests/test_torch_train_families.py and
+    the families' files (tests/test_torch_res2net.py,
+    tests/test_torch_convnet.py, tests/test_torch_rawnet_train.py). Every
+    family passes ``check_supported``; RawNet2 with an add-loss raises
+    ValueError, as the JAX ``setup_training`` does, and so does RawNet2
+    from feature files (it reads waveforms). AMSoftmax does not train: the
+    step raises ValueError, as the JAX step does."""
     base = dict(out_fold=str(tmp_path / "o"), model="ecapa", on_the_fly=True)
-    for extra, name in (({"model": "cnn"}, "Queue A"),
-                        ({"model": "res2net"}, "model"),
-                        ({"ensemble": 2}, "ensemble"),
+    for extra, name in (({"ensemble": 2}, "ensemble"),
                         ({"visualize": True}, "visualize")):
         with pytest.raises(NotImplementedError, match=name):
             train(TrainConfig(**{**base, **extra}), device="cpu")
+    for model in ("cnn", "resnet", "lcnn", "res2net", "ecapa", "rawnet"):
+        check_supported(TrainConfig(**{**base, "model": model}))
     with pytest.raises(ValueError, match="rawnet"):
         train(TrainConfig(**{**base, "model": "rawnet",
                              "add_loss": "ang_iso"}), device="cpu")
+    with pytest.raises(ValueError, match="on_the_fly"):
+        train(TrainConfig(**{**base, "model": "rawnet",
+                             "on_the_fly": False}), device="cpu")
     with pytest.raises(ValueError, match="add_loss"):
         make_train_step(StepConfig(add_loss="amsoftmax"), device="cpu")

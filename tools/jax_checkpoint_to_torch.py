@@ -11,7 +11,7 @@ reads the run's ``args.json``, rebuilds the train state as the JAX
 ``cli/generate_score.load_system`` does (``setup_training``, then
 ``restore_checkpoint`` of ``<model_dir>/best`` or ``checkpoint/<N>``),
 maps it with the port's ``interop/flax_weights.from_flax_train_state``
-(ECAPA, ResNet18 or LCNN; the loss module's parameters; an ADV_AUG run's
+(any model family; the loss module's parameters; an ADV_AUG run's
 channel classifiers and their Adam states included) and
 writes ``<out>/best.pt`` (the port's checkpoint dict) and ``<out>/args.json``
 with the keys of the port's ``TrainConfig`` (``lambda_`` and ``lr_d``
@@ -44,18 +44,16 @@ def convert(model_dir: str, out_dir: str, checkpoint: str = "best") -> str:
     from asvspoof2021_air_tpu.train.loop import setup_training
     from asvspoof2021_air_tpu_torch.interop.flax_weights import (
         from_flax_train_state)
-    from asvspoof2021_air_tpu_torch.models.registry import MODEL_REGISTRY
     from asvspoof2021_air_tpu_torch.train.loop import TrainConfig
 
     with open(os.path.join(model_dir, "args.json")) as f:
         cfg_dict = json.load(f)
     jax_fields = set(JaxConfig.__dataclass_fields__)
     jcfg = JaxConfig(**{k: v for k, v in cfg_dict.items() if k in jax_fields})
-    if jcfg.model not in MODEL_REGISTRY or jcfg.ensemble > 1:
+    if jcfg.ensemble > 1:
         raise NotImplementedError(
-            f"model={jcfg.model!r}, ensemble={jcfg.ensemble}: the port "
-            f"holds single {sorted(MODEL_REGISTRY)} systems (the other "
-            "families and ensembles are ROADMAP Queue A)")
+            f"ensemble={jcfg.ensemble}: the port holds single systems "
+            "(ensembles are ROADMAP Queue A)")
     _model, _loss, state, _ts, _es = setup_training(jcfg, steps_per_epoch=1)
     state = restore_checkpoint(os.path.join(model_dir, checkpoint), state)
     ckpt = from_flax_train_state(state, MODEL_SCALE, jcfg.model,
