@@ -22,9 +22,11 @@ tasks under ``--score_dir``. ``load_system`` loads a RawNet2 run too (its
 feature-file tasks refuse it (ValueError) and
 ``scoring.score_raw_to_file`` scores it.
 
-Ensemble runs (``ensemble > 1``) raise NotImplementedError;
-:func:`write_fused_score_file` (the members' fusion) is here for the
-ensembles when they come.
+An ensemble run (``ensemble`` M > 1, ``train/ensemble.py``) scores each
+member to ``<name>_member{i}`` and writes their fusion under ``<name>``
+in the single-system layout (:func:`write_fused_score_file`): the average
+(``--fusion avg``, the default) or, on a labeled '19*' task, the members'
+EER-derived entropy weights (``--fusion wght``).
 """
 
 from __future__ import annotations
@@ -37,8 +39,10 @@ import numpy as np
 import torch
 
 from asvspoof2021_air_tpu_torch._device import resolve_device
+from asvspoof2021_air_tpu_torch.fusion import entropy_weights
 from asvspoof2021_air_tpu_torch.losses.registry import build_loss
-from asvspoof2021_air_tpu_torch.metrics.evaluate import read_score_file
+from asvspoof2021_air_tpu_torch.metrics.evaluate import (
+    eer_from_score_file, read_score_file)
 from asvspoof2021_air_tpu_torch.scoring import TASKS, test_on_asvspoof2021
 from asvspoof2021_air_tpu_torch.train.checkpoint import restore_checkpoint
 from asvspoof2021_air_tpu_torch.train.loop import TrainConfig
@@ -49,29 +53,38 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 def load_system(model_dir: str, checkpoint: str = "best", device="cuda"):
     """(state_dict, loss module or None, TrainConfig) of a run folder:
     ``args.json`` (keys the port's ``TrainConfig`` lacks are dropped) and
-    the checkpoint ``<model_dir>/<checkpoint>.pt``."""
+    the checkpoint ``<model_dir>/<checkpoint>.pt``. For an ensemble run the
+    state_dicts and loss modules are lists, one entry per member, as the
+    JAX ``load_system`` returns them."""
     dev = resolve_device(device)
     with open(os.path.join(model_dir, "args.json")) as f:
         cfg_dict = json.load(f)
     fields = set(TrainConfig.__dataclass_fields__)
     config = TrainConfig(**{k: v for k, v in cfg_dict.items() if k in fields})
-    if config.ensemble > 1:
-        raise NotImplementedError(
-            f"ensemble={config.ensemble}: ensembles come with the port of "
-            "multi-GPU and ensembles (ROADMAP Queue A, the ensembles "
-            "item)")
     path = os.path.join(model_dir, checkpoint)
     if not path.endswith(".pt"):
         path += ".pt"
     data = restore_checkpoint(path)
-    loss_mod = None
-    if data.get("loss_module") is not None:
-        loss_mod = build_loss(config.add_loss, enc_dim=config.enc_dim,
-                              r_real=config.r_real, r_fake=config.r_fake,
-                              alpha=config.alpha, nclasses=config.nclasses,
-                              device=dev)
-        loss_mod.load_state_dict(data["loss_module"])
-    return data["model"], loss_mod, config
+    members = data.get("members")
+    if config.ensemble > 1 and (members is None
+                                or len(members) != config.ensemble):
+        raise ValueError(
+            f"ensemble={config.ensemble}, but {path} holds "
+            f"{'no' if members is None else len(members)} ensemble members")
+    sds, loss_mods = [], []
+    for m in members if config.ensemble > 1 else [data]:
+        loss_mod = None
+        if m.get("loss_module") is not None:
+            loss_mod = build_loss(config.add_loss, enc_dim=config.enc_dim,
+                                  r_real=config.r_real, r_fake=config.r_fake,
+                                  alpha=config.alpha,
+                                  nclasses=config.nclasses, device=dev)
+            loss_mod.load_state_dict(m["loss_module"])
+        sds.append(m["model"])
+        loss_mods.append(loss_mod)
+    if config.ensemble > 1:
+        return sds, loss_mods, config
+    return sds[0], loss_mods[0], config
 
 
 def write_fused_score_file(member_files, output: str, weights=None) -> str:
@@ -119,7 +132,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="'best' or an epoch N (<model>/checkpoint/N.pt)")
     p.add_argument("--fusion", type=str, default="avg",
                    choices=["avg", "wght"],
-                   help="ensemble member fusion (ensembles are not ported)")
+                   help="ensemble member fusion: average, or EER-derived "
+                        "entropy weights (labeled 19* tasks only)")
     p.add_argument("--ori_features", type=str, default="")
     p.add_argument("--aug_features", type=str, default="")
     p.add_argument("--la_eval", type=str, default="")
@@ -156,14 +170,37 @@ def main(argv=None) -> str:
     paths = {"ori_features": args.ori_features,
              "aug_features": args.aug_features,
              "la_eval": args.la_eval, "df_eval": args.df_eval}
-    out = test_on_asvspoof2021(
-        args.task, sd, paths, out_dir, args.model_name, add_loss=score_loss,
+    score = lambda sd, loss_mod, name: test_on_asvspoof2021(
+        args.task, sd, paths, out_dir, name, add_loss=score_loss,
         loss_module=loss_mod, batch_size=args.batch_size, feature=cfg.feat,
         feat_len=cfg.feat_len, padding=cfg.padding,
         scan_batches=args.scan_batches, dtype=DTYPES[args.dtype],
         model_scale=cfg.model_scale, model=cfg.model, feat_dim=cfg.feat_dim,
         device=args.device)
-    print(f"wrote {out}")
+    if cfg.ensemble == 1:
+        out = score(sd, loss_mod, args.model_name)
+        print(f"wrote {out}")
+        return out
+    # each member, then their fusion (the reference's score_fusion
+    # workflow in one command)
+    member_files = []
+    for i, (msd, mloss) in enumerate(zip(sd, loss_mod)):
+        member_files.append(score(msd, mloss, f"{args.model_name}_member{i}"))
+        print(f"wrote {member_files[-1]}")
+    if "19" in args.task:
+        out = os.path.join(out_dir, f"{args.model_name}_{args.task}_score.txt")
+    else:
+        out = os.path.join(out_dir, f"{args.model_name}_{args.task}",
+                           "score.txt")
+    weights = None
+    if args.fusion == "wght":
+        eers = [eer_from_score_file(f) for f in member_files]
+        weights = entropy_weights(eers)
+        print(f"member EERs {['%.4f' % e for e in eers]} -> weights "
+              f"{['%.3f' % w for w in weights]}")
+    write_fused_score_file(member_files, out, weights)
+    print(f"wrote {out} ({args.fusion} fusion of {len(member_files)} "
+          f"members)")
     return out
 
 

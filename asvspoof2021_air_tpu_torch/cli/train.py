@@ -17,16 +17,23 @@ waveforms only).
     python -m asvspoof2021_air_tpu_torch.cli.train -d <database> -o <out> \
         -m rawnet --on_the_fly [--on_device_aug] [--config <json>]
 
-The argparse front of the JAX package's ``cli/train.py`` for the flags the
-port trains with; ``--C`` and ``--model_scale`` narrow ECAPA. ``-m`` takes
-the JAX CLI's choices, all six. RawNet2's ``rawnet_args`` come from a
-``--config`` file, as in the JAX CLI. Other flags of the JAX CLI that the
-port does not cover are absent here, and
-``train/loop.check_supported`` refuses them in a ``--config`` file. As in
-the JAX CLI, ``--add_loss ocsoftmax`` from a ``--config`` file is
-``ang_iso`` and an add-loss that does not train (amsoftmax) is refused, and
-``--test_on_eval`` scores only an ``eval_set`` handed to ``train()``; the
-CLI hands none.
+    python -m asvspoof2021_air_tpu_torch.cli.train -f <features> -o <out> \
+        -m ecapa --add_loss ang_iso --ensemble 3 [--compute_dtype bfloat16] \
+        [--steps_per_call 8]
+
+The argparse front of the JAX package's ``cli/train.py``, every flag of
+it; ``--C`` and ``--model_scale`` narrow ECAPA and ``--device`` picks the
+card or the CPU. ``-m`` takes the JAX CLI's choices, all six. RawNet2's
+``rawnet_args`` come from a ``--config`` file, as in the JAX CLI.
+``--ensemble M`` trains M systems in one step (``train/ensemble.py``).
+``--num_centers`` is taken and unused, as in the JAX CLI; ``--test_only``
+prints and returns, as there; ``--fused_pool``/``--fused_bn`` take
+auto|on (the port always trains through B4a/B4b and the recompute VJPs)
+and refuse off; ``--visualize`` reaches ``train/loop.check_supported``,
+which refuses it by name. As in the JAX CLI, ``--add_loss ocsoftmax`` from
+a ``--config`` file is ``ang_iso`` and an add-loss that does not train
+(amsoftmax) is refused, and ``--test_on_eval`` scores only an
+``eval_set`` handed to ``train()``; the CLI hands none.
 """
 
 from __future__ import annotations
@@ -81,6 +88,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--r_real", type=float, default=0.9)
     p.add_argument("--r_fake", type=float, default=0.2)
     p.add_argument("--alpha", type=float, default=20.0)
+    p.add_argument("--num_centers", type=int, default=3,
+                   help="taken and unused, as in the JAX CLI")
+    p.add_argument("--visualize", action="store_true",
+                   help="refused: visualization is not ported")
+    p.add_argument("--test_only", action="store_true",
+                   help="print and return (score with cli.generate_score)")
     p.add_argument("--early_stop_patience", type=int, default=500)
     p.add_argument("--continue_training", action="store_true")
     for flag in ("ADV_AUG", "LA_aug", "DF_aug", "LAPA_aug", "DFPA_aug"):
@@ -92,6 +105,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--lr_d", type=float, default=0.0001,
                    help="the ADV_AUG channel classifiers' learning rate")
     p.add_argument("--test_on_eval", action="store_true")
+    p.add_argument("--ensemble", type=int, default=1,
+                   help="train M independently initialized systems in one "
+                        "step; dev and eval scores are averaged over them")
     p.add_argument("--steps_per_call", type=int, default=1,
                    help="optimizer steps per call (on the card, one CUDA "
                         "graph of K steps)")
@@ -100,6 +116,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--compute_dtype", type=str, default="float32",
                    choices=["float32", "bfloat16"],
                    help="model compute dtype (params always float32)")
+    for flag in ("fused_pool", "fused_bn"):
+        p.add_argument(f"--{flag}", type=str, default="auto",
+                       choices=["auto", "on", "off"],
+                       help="auto and on: the port always trains through "
+                            "B4a/B4b and the recompute VJPs; off is refused")
     p.add_argument("--on_the_fly", type=str2bool, nargs="?", const=True,
                    default=False,
                    help="train straight from raw audio (-d): LFCC on the "
@@ -132,8 +153,7 @@ def build_parser() -> argparse.ArgumentParser:
 def config_from_args(args: argparse.Namespace) -> TrainConfig:
     if not 0 < args.ratio <= 1:
         raise SystemExit(f"--ratio must be in (0, 1], got {args.ratio}")
-    off = [k for k in ("fused_pool", "fused_bn")
-           if getattr(args, k, "auto") == "off"]
+    off = [k for k in ("fused_pool", "fused_bn") if getattr(args, k) == "off"]
     if off:
         raise NotImplementedError(
             f"{'/'.join(off)}='off': the port always trains through B4a/B4b "
@@ -164,7 +184,11 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def main(argv=None):
     args = parse_args(argv)
-    summary = train(config_from_args(args), device=args.device)
+    config = config_from_args(args)
+    if args.test_only:
+        print("test_only: use cli.generate_score for scoring")
+        return
+    summary = train(config, device=args.device)
     print(summary)
 
 

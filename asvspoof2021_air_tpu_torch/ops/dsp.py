@@ -1,4 +1,4 @@
-"""DSP primitives for the LFCC front-end: constant builders in numpy and
+"""DSP primitives for the front-ends: constant builders in numpy and
 framing, pre-emphasis and deltas on torch tensors; the companding and
 quantization helpers (mu-law, A-law, integer codes) of the channel
 augmenter.
@@ -75,6 +75,54 @@ def linear_filterbank(n_fft: int, sr: int, n_filters: int) -> np.ndarray:
     for i in range(n_filters):
         fb[:, i] = trimf(f, bands[i], bands[i + 1], bands[i + 2])
     return fb.astype(np.float32)
+
+
+def mel_filterbank(n_fft: int, sr: int, n_mels: int, fmin: float = 0.0,
+                   fmax: float | None = None, htk: bool = False) -> np.ndarray:
+    """(n_fft//2+1, n_mels) Slaney-normalized mel filterbank (librosa
+    conventions), backing the Melspec feature; the JAX package's
+    ``ops/dsp.py`` ``mel_filterbank``."""
+    fmax = sr / 2.0 if fmax is None else fmax
+
+    def hz_to_mel(f):
+        f = np.asarray(f, dtype=np.float64)
+        if htk:
+            return 2595.0 * np.log10(1.0 + f / 700.0)
+        f_sp = 200.0 / 3
+        mels = f / f_sp
+        min_log_hz = 1000.0
+        logstep = np.log(6.4) / 27.0
+        log_t = f >= min_log_hz
+        mels = np.where(log_t, min_log_hz / f_sp
+                        + np.log(np.maximum(f, 1e-10) / min_log_hz) / logstep,
+                        mels)
+        return mels
+
+    def mel_to_hz(m):
+        m = np.asarray(m, dtype=np.float64)
+        if htk:
+            return 700.0 * (10.0 ** (m / 2595.0) - 1.0)
+        f_sp = 200.0 / 3
+        min_log_hz = 1000.0
+        min_log_mel = min_log_hz / f_sp
+        logstep = np.log(6.4) / 27.0
+        return np.where(m >= min_log_mel,
+                        min_log_hz * np.exp(logstep * (m - min_log_mel)),
+                        f_sp * m)
+
+    fftfreqs = np.linspace(0.0, sr / 2.0, n_fft // 2 + 1)
+    mel_pts = mel_to_hz(np.linspace(hz_to_mel(fmin), hz_to_mel(fmax),
+                                    n_mels + 2))
+    fb = np.zeros((n_mels, n_fft // 2 + 1), dtype=np.float64)
+    fdiff = np.diff(mel_pts)
+    ramps = mel_pts[:, None] - fftfreqs[None, :]
+    for i in range(n_mels):
+        lower = -ramps[i] / fdiff[i]
+        upper = ramps[i + 2] / fdiff[i + 1]
+        fb[i] = np.maximum(0.0, np.minimum(lower, upper))
+    enorm = 2.0 / (mel_pts[2:n_mels + 2] - mel_pts[:n_mels])
+    fb *= enorm[:, None]
+    return fb.T.astype(np.float32)
 
 
 def windowed_dft_matrices(

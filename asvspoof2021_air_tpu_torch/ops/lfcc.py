@@ -1,10 +1,14 @@
-"""LFCC front-end, plain PyTorch matrix-product formulation.
+"""LFCC, STFT and Melspec front-ends in plain PyTorch.
 
-pre-emphasis -> framing -> windowed DFT (one product against the
-[cos | sin] matrix) -> power -> linear filterbank -> log10 -> ortho DCT-II ->
-delta and delta-delta, over batched padded waveforms with per-utterance
-lengths. Canonical configuration: LFCC(fl=320, fs=160, fn=512, sr=16000,
-filter_num=20). Counterpart of the JAX package's ``ops/lfcc.py`` ``LFCC``.
+LFCC, a matrix-product formulation: pre-emphasis -> framing -> windowed
+DFT (one product against the [cos | sin] matrix) -> power -> linear
+filterbank -> log10 -> ortho DCT-II -> delta and delta-delta, over
+batched padded waveforms with per-utterance lengths. Canonical
+configuration: LFCC(fl=320, fs=160, fn=512, sr=16000, filter_num=20).
+STFT: the same framing's power spectrum. Melspec: the librosa mel power
+spectrogram, both through ``torch.fft.rfft``.
+Counterparts of the JAX package's ``ops/lfcc.py`` ``LFCC``, ``STFT`` and
+``Melspec``.
 """
 
 from __future__ import annotations
@@ -15,7 +19,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from asvspoof2021_air_tpu_torch._device import resolve_device
+from asvspoof2021_air_tpu_torch._device import disable_tf32, resolve_device
 from asvspoof2021_air_tpu_torch.ops import dsp
 
 INV_LN10 = float(np.float32(1.0 / np.log(10.0)))
@@ -106,3 +110,62 @@ class LFCC:
         of 3200 zero samples), used by the 'silence' padding policy."""
         wav = torch.zeros((1, 3200), device=self.device)
         return self(wav)[0, 0]
+
+
+class STFT:
+    """Power spectrogram: (B, L) waveforms -> (B, T, n_fft//2+1), T = 1 +
+    L // hop, with pre-emphasis (unmasked: the JAX ``STFT`` takes no
+    lengths) and the LFCC's framing and periodic Hamming window. The power
+    is ``torch.fft.rfft``'s of each windowed frame (cuFFT on the card): the
+    window's offset inside the n_fft frame is a phase, so the power equals
+    the JAX package's (frames C)^2 + (frames S)^2, and lies closer to its
+    float64 value than that f32 product does. It computes in its window's
+    type (f32; float64 with the window cast, as a reference)."""
+
+    def __init__(self, config: LFCCConfig = LFCCConfig(), device="cuda"):
+        self.config = config
+        self.device = resolve_device(device)
+        self.window = torch.from_numpy(
+            dsp.hamming_window(config.win_length)).to(self.device)
+
+    @property
+    def hop_length(self) -> int:
+        return self.config.hop_length
+
+    def __call__(self, waveforms: torch.Tensor) -> torch.Tensor:
+        cfg = self.config
+        x = waveforms.to(self.window.dtype)
+        if cfg.with_emphasis:
+            x = dsp.preemphasis(x, cfg.preemph_coef)
+        frames = dsp.frame_signal(x, cfg.win_length, cfg.hop_length,
+                                  cfg.n_fft)
+        z = torch.fft.rfft(frames * self.window, n=cfg.n_fft)
+        return z.real ** 2 + z.imag ** 2
+
+
+class Melspec:
+    """Mel power spectrogram, librosa conventions (n_fft 512, hop 128,
+    centered reflect padding, periodic Hann window, Slaney mel filters):
+    (B, L) waveforms -> (B, n_mels, T), T = 1 + L // hop. The power
+    spectrum is :class:`STFT`'s ``rfft``; the filterbank a product (TF32
+    off on the card). It computes in its window's and filterbank's type."""
+
+    def __init__(self, sample_rate: int = 16000, n_fft: int = 512,
+                 hop_length: int = 128, n_mels: int = 128, device="cuda"):
+        self.sample_rate = sample_rate
+        self.n_fft = n_fft
+        self.hop_length = hop_length
+        self.n_mels = n_mels
+        self.device = resolve_device(device)
+        disable_tf32()
+        to = lambda a: torch.from_numpy(a).to(self.device)
+        self.window = to(np.hanning(n_fft + 1)[:-1].astype(np.float32))
+        self.fb = to(dsp.mel_filterbank(n_fft, sample_rate, n_mels))
+
+    def __call__(self, waveforms: torch.Tensor) -> torch.Tensor:
+        pad = self.n_fft // 2
+        x = torch.nn.functional.pad(waveforms.to(self.window.dtype)[:, None],
+                                    (pad, pad), mode="reflect")[:, 0]
+        frames = x.unfold(1, self.n_fft, self.hop_length)
+        z = torch.fft.rfft(frames * self.window, n=self.n_fft)
+        return ((z.real ** 2 + z.imag ** 2) @ self.fb).transpose(1, 2)

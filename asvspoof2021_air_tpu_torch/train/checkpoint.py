@@ -3,7 +3,9 @@
 Counterpart of the JAX package's ``train/checkpoint.py`` (Orbax there): the
 model, the loss module's center, the backbone's Adam state, the ADV_AUG
 channel classifiers with their Adam states, and the step, in the form of
-:meth:`TrainState.state_dict`. The training loop writes
+:meth:`TrainState.state_dict`; for an ensemble the shared step and every
+member's (:meth:`EnsembleState.state_dict` of ``train/ensemble.py``), all
+restored on a resume. The training loop writes
 ``<out>/checkpoint/<epoch>.pt`` and ``<out>/best.pt``.
 """
 

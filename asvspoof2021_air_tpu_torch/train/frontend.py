@@ -1,5 +1,5 @@
-"""On-device front-ends: the channel augmenter (optional), LFCC with
-per-utterance lengths, then the reference's padding policy to
+"""On-device front-ends: the channel augmenter (optional), LFCC (or CQCC)
+with per-utterance lengths, then the reference's padding policy to
 ``feat_len`` frames (:class:`OnDeviceFrontend`); or, for the raw-waveform
 RawNet2, the augmenter and the waveforms repeat-tiled to a fixed sample
 count (:class:`WaveformFrontend`).
@@ -16,12 +16,14 @@ the train step:
   deterministic and ``rng`` is not read;
 - 'repeat':  frame t of a short utterance reads frame t mod T_valid;
 - 'zero':    frames at and past T_valid are zeroed;
-- 'silence': LFCC-of-silence frames are prepended and the valid frames
+- 'silence': the features of silence are prepended and the valid frames
   shifted right, so output frame t reads valid frame t - (feat_len -
   T_valid).
 
 Evaluation runs clean: :meth:`eval_view` drops the augmenter. LFCC runs
-through kernel B1 (``ops/lfcc_cuda.py``) on the GPU.
+through kernel B1 (``ops/lfcc_cuda.py``) on the GPU; ``feature="CQCC"``
+runs ``ops/cqcc.CQCC`` (plain PyTorch, 90 dims), as the JAX front-end
+does; it refuses any other feature (ValueError), as JAX does.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from typing import Dict
 import torch
 
 from asvspoof2021_air_tpu_torch._device import resolve_device
+from asvspoof2021_air_tpu_torch.ops.cqcc import CQCC
 from asvspoof2021_air_tpu_torch.ops.lfcc import LFCC, LFCCConfig
 from asvspoof2021_air_tpu_torch.ops.lfcc_cuda import CudaLFCC
 
@@ -42,17 +45,27 @@ class OnDeviceFrontend:
 
     def __init__(self, feat_len: int = 750, padding: str = "repeat",
                  config: LFCCConfig = LFCCConfig(), augmenter=None,
-                 apply_ir: bool = False, device="cuda"):
+                 apply_ir: bool = False, device="cuda",
+                 feature: str = "LFCC"):
         if padding not in ("repeat", "zero", "silence"):
             raise ValueError("padding should be zero, repeat, or silence")
+        if feature not in ("LFCC", "CQCC"):
+            raise ValueError(f"on-the-fly front-end supports LFCC/CQCC, got "
+                             f"{feature}")
         self.feat_len = feat_len
         self.padding = padding
         self.augmenter = augmenter
         self.apply_ir = apply_ir
         self.device = resolve_device(device)
+        self._silence_vec = None
+        if feature == "CQCC":
+            self.extractor = CQCC(device=self.device)
+            self.hop = self.extractor.hop_length
+            if padding == "silence":
+                self._silence_vec = self.extractor.silence_frame()
+            return
         self.extractor = CudaLFCC(config, device=self.device)
         self.hop = config.hop_length
-        self._silence_vec = None
         if padding == "silence":
             self._silence_vec = LFCC(config, device="cpu").silence_frame().to(
                 self.device)

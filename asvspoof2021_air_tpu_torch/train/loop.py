@@ -9,10 +9,11 @@ in {None, "isolate", "iso_sq", "ang_iso", "p2sgrad"}:
   ``AugmentedFeatureDataset`` under ``LA_aug``/``DF_aug``/``LAPA_aug``/
   ``DFPA_aug``, with channel ids) batched by ``RatioMixIterator``, or,
   ``on_the_fly``, raw waveforms (``RawAudioDataset`` -> ``WaveformIterator``
-  -> ``OnDeviceFrontend``, LFCC through kernel B1 on the card, after the
-  channel augmenter under ``on_device_aug``, with the synthetic IR bank
-  under ``apply_ir``; for RawNet2 ``WaveformFrontend``: the augmenter,
-  then the waveforms tiled to ``rawnet_args["nb_samp"]`` samples); both
+  -> ``OnDeviceFrontend``, LFCC through kernel B1 on the card (or CQCC),
+  after the channel augmenter under ``on_device_aug``, with the synthetic
+  IR bank under ``apply_ir``; for RawNet2 ``WaveformFrontend``: the
+  augmenter, then the waveforms tiled to ``rawnet_args["nb_samp"]``
+  samples); both
   iterators behind a ``PrefetchIterator``;
 - the step: the model in train mode (ECAPA pools through kernels
   B4a/B4b; LCNN's dropout and ResNet's pooling noise draw from the run's
@@ -38,8 +39,11 @@ Writes ``args.json``, ``train_loss.log`` (``epoch step loss`` per step),
 ``dev_loss.log`` (``epoch loss eer``) and ``test_loss.log`` (``epoch
 eer``) as the JAX loop does, and returns the same summary dict.
 
-Flags of the JAX loop that this port does not cover raise
-NotImplementedError (``check_supported``). ``ADV_AUG`` trains from
+``ensemble`` M > 1 trains M systems in one step (``train/ensemble.py``):
+one checkpoint holds every member and the shared step, and the dev and
+eval scores are the members' mean. ``feat="CQCC"`` on the fly runs the
+CQCC front-end. ``visualize`` raises NotImplementedError
+(``check_supported``). ``ADV_AUG`` trains from
 augmented feature files only: on the fly the JAX loop's batches carry no
 channel ids, so its step fails there; the port refuses the pair. RawNet2
 reads waveforms, so it trains on the fly only (from feature files the JAX
@@ -80,6 +84,9 @@ from asvspoof2021_air_tpu_torch.ops.augment import (
     ChannelAugmenter, synthetic_ir_bank)
 from asvspoof2021_air_tpu_torch.train.checkpoint import (
     restore_checkpoint, save_checkpoint)
+from asvspoof2021_air_tpu_torch.train.ensemble import (
+    fuse_scores, init_ensemble_state, make_ensemble_eval_step,
+    make_ensemble_train_step)
 from asvspoof2021_air_tpu_torch.train.frontend import (
     OnDeviceFrontend, WaveformFrontend)
 from asvspoof2021_air_tpu_torch.train.state import (
@@ -161,11 +168,11 @@ def _aug_flag(config: TrainConfig) -> bool:
 
 
 def check_supported(config: TrainConfig) -> None:
-    """Raise NotImplementedError naming every flag of ``config`` that this
-    port does not train with (ROADMAP Queue A lists them), and ValueError
-    for ADV_AUG without augmented feature files, for rawnet from feature
-    files and, as the JAX ``setup_training`` does, for rawnet with an
-    add-loss."""
+    """Raise NotImplementedError for ``visualize``, which this port does not
+    train with (ROADMAP Queue A), and ValueError for ADV_AUG without
+    augmented feature files, for rawnet from feature files and, as the JAX
+    package does, for rawnet with an add-loss and for an on-the-fly
+    feature other than LFCC and CQCC (the JAX front-end's refusal)."""
     c = config
     if c.model == "rawnet" and c.add_loss is not None:
         raise ValueError(
@@ -180,15 +187,13 @@ def check_supported(config: TrainConfig) -> None:
             "ADV_AUG with on_the_fly: the classifiers train on the channel "
             "ids of augmented feature files (LA_aug/DF_aug/LAPA_aug/"
             "DFPA_aug), and waveform batches carry none")
-    bad = [name for name, hit in (
-        (f"feat={c.feat!r} on the fly (the port's front-end is LFCC)",
-         c.on_the_fly and c.feat != "LFCC" and c.model != "rawnet"),
-        (f"ensemble={c.ensemble}", c.ensemble > 1),
-        ("visualize", c.visualize),
-    ) if hit]
-    if bad:
+    if (c.on_the_fly and c.model != "rawnet"
+            and c.feat not in ("LFCC", "CQCC")):
+        raise ValueError(f"on-the-fly front-end supports LFCC/CQCC, got "
+                         f"{c.feat}")
+    if c.visualize:
         raise NotImplementedError("not covered by the port's training "
-                                  "slice: " + "; ".join(bad))
+                                  "slice: visualize")
 
 
 def _prepare_out_fold(config: TrainConfig) -> None:
@@ -233,7 +238,10 @@ def setup_training(config: TrainConfig, steps_per_epoch: int, frontend=None,
     ``losses/registry.build_loss``). The weights are drawn from a generator
     seeded with ``config.seed``: the model's first, then the loss
     module's, then the channel classifiers (ADV_AUG: one over the LA or DF
-    channels, a second over the devices for LAPA/DFPA).
+    channels, a second over the devices for LAPA/DFPA). With ``ensemble``
+    M > 1 the state is an ``EnsembleState`` of M such members, member i
+    drawn after member i - 1, the steps ``train/ensemble.py``'s, and the
+    model and loss module member 0's.
     With ``steps_per_call`` > 1 on the card the state is capturable, for
     the CUDA graph of K steps. The eval step scores clean; its attribute
     ``dev_eval_step`` is the dev pass's step, through the augmenter with
@@ -245,55 +253,79 @@ def setup_training(config: TrainConfig, steps_per_epoch: int, frontend=None,
     if dtype is None:
         disable_tf32()      # f32 training computes in full f32
     gen = setup_seed(config.seed)
-    model = build_model(
-        config.model, enc_dim=config.enc_dim,
-        nclasses=1 if config.base_loss == "bce" else config.nclasses,
-        feat_dim=config.feat_dim, feat_len=config.feat_len, dtype=dtype,
-        generator=gen, device=dev, C=config.C,
-        model_scale=config.model_scale, rawnet_args=config.rawnet_args)
-    loss_mod = build_loss(config.add_loss, enc_dim=config.enc_dim,
-                          r_real=config.r_real, r_fake=config.r_fake,
-                          alpha=config.alpha, nclasses=config.nclasses,
-                          generator=gen, device=dev)
-    clf = clf2 = None
     dual = config.ADV_AUG and (config.LAPA_aug or config.DFPA_aug)
-    if config.ADV_AUG:
-        n_channels = len(proto.LA_CHANNELS if (config.LA_aug
-                                               or config.LAPA_aug)
-                         else proto.DF_CHANNELS)
-        clf = ChannelClassifier(config.enc_dim, n_channels, config.lambda_,
-                                generator=gen, device=dev)
-        if dual:
-            clf2 = ChannelClassifier(config.enc_dim, len(proto.DEVICES),
-                                     config.lambda_, generator=gen,
-                                     device=dev)
     sched = step_decay_schedule(config.lr, config.lr_decay, config.interval,
                                 steps_per_epoch)
     sched_d = (step_decay_schedule(config.lr_d, config.lr_decay,
                                    config.interval, steps_per_epoch)
                if config.ADV_AUG else None)
-    state = create_train_state(
-        model, loss_mod, sched, config.beta_1, config.beta_2, config.eps,
-        capturable=config.steps_per_call > 1 and dev.type == "cuda",
-        classifier=clf, classifier2=clf2, schedule_d=sched_d)
+
+    def make_state(_member: int = 0):
+        model = build_model(
+            config.model, enc_dim=config.enc_dim,
+            nclasses=1 if config.base_loss == "bce" else config.nclasses,
+            feat_dim=config.feat_dim, feat_len=config.feat_len, dtype=dtype,
+            generator=gen, device=dev, C=config.C,
+            model_scale=config.model_scale, rawnet_args=config.rawnet_args)
+        loss_mod = build_loss(config.add_loss, enc_dim=config.enc_dim,
+                              r_real=config.r_real, r_fake=config.r_fake,
+                              alpha=config.alpha, nclasses=config.nclasses,
+                              generator=gen, device=dev)
+        clf = clf2 = None
+        if config.ADV_AUG:
+            n_channels = len(proto.LA_CHANNELS if (config.LA_aug
+                                                   or config.LAPA_aug)
+                             else proto.DF_CHANNELS)
+            clf = ChannelClassifier(config.enc_dim, n_channels,
+                                    config.lambda_, generator=gen,
+                                    device=dev)
+            if dual:
+                clf2 = ChannelClassifier(config.enc_dim, len(proto.DEVICES),
+                                         config.lambda_, generator=gen,
+                                         device=dev)
+        return create_train_state(
+            model, loss_mod, sched, config.beta_1, config.beta_2, config.eps,
+            capturable=config.steps_per_call > 1 and dev.type == "cuda",
+            classifier=clf, classifier2=clf2, schedule_d=sched_d)
+
     step_cfg = StepConfig(add_loss=config.add_loss,
                           base_loss=config.base_loss,
                           weight_loss=config.weight_loss,
                           adv_aug=config.ADV_AUG, dual_classifier=dual)
     eval_frontend = frontend.eval_view() if frontend is not None else None
+    train_step = make_train_step(step_cfg, frontend, dev)
     eval_step = make_eval_step(step_cfg, eval_frontend, dev)
-    eval_step.dev_eval_step = (
+    dev_eval_step = (
         make_eval_step(step_cfg, frontend, dev)
         if config.dev_aug and config.on_device_aug and frontend is not None
         else eval_step)
-    return (model, loss_mod, state,
-            make_train_step(step_cfg, frontend, dev), eval_step)
+    if config.ensemble > 1:
+        state = init_ensemble_state(make_state, config.ensemble)
+        first = state.members[0]
+        train_step = make_ensemble_train_step(train_step, config.ensemble,
+                                              frontend=frontend)
+        ens_eval = make_ensemble_eval_step(eval_step, eval_frontend)
+        dev_eval_step = (ens_eval if dev_eval_step is eval_step
+                         else make_ensemble_eval_step(dev_eval_step,
+                                                      frontend))
+        eval_step = ens_eval
+    else:
+        state = first = make_state()
+    eval_step.dev_eval_step = dev_eval_step
+    return first.model, first.loss_module, state, train_step, eval_step
 
 
 def _tensors(batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     return {k: torch.from_numpy(batch[k])
             for k in ("feat", "wave", "length", "label", "channel")
             if k in batch}
+
+
+def _fused_host_scores(score: torch.Tensor) -> np.ndarray:
+    """Eval-step scores on the host: an ensemble's (M, B) averaged over
+    the members (``fuse_scores``), a single system's (B,) as they are."""
+    sc = score.float().cpu().numpy()
+    return fuse_scores(sc) if sc.ndim == 2 else sc
 
 
 def _eer(scores: np.ndarray, labels: np.ndarray) -> float:
@@ -318,13 +350,13 @@ def _eval_set_eer(config: TrainConfig, eval_set, state, eval_step,
         for i, batch in enumerate(batches):
             _m, score, _f = eval_step(state, _tensors(batch))
             take = min(n - i * B, B)
-            scores.append(score.float().cpu().numpy()[:take])
+            scores.append(_fused_host_scores(score)[:take])
             labels.append(batch["label"][:take])
     else:
         for batch in SequentialIterator(eval_set, B, config.feat_len,
                                         config.padding):
             _m, score, _f = eval_step(state, _tensors(batch))
-            scores.append(score.float().cpu().numpy()[batch["valid"]])
+            scores.append(_fused_host_scores(score)[batch["valid"]])
             labels.append(batch["label"][batch["valid"]])
     return _eer(np.concatenate(scores), np.concatenate(labels))
 
@@ -396,7 +428,7 @@ def train(config: TrainConfig, train_set=None, dev_set=None, eval_set=None,
                                         padding=config.padding,
                                         augmenter=augmenter,
                                         apply_ir=config.apply_ir,
-                                        device=dev)
+                                        device=dev, feature=config.feat)
         max_samples = frontend.min_samples()
         train_iter, dev_iter = (WaveformIterator(
             data, config.batch_size, max_samples, config.ratio, seed=seed)
@@ -474,7 +506,7 @@ def train(config: TrainConfig, train_set=None, dev_set=None, eval_set=None,
                 state, _tensors(batch), frontend_params)
             for k, v in metrics.items():
                 dev_log[k].append(float(v))
-            scores.append(score.float().cpu().numpy())
+            scores.append(_fused_host_scores(score))
             labels.append(batch["label"])
         eer = _eer(np.concatenate(scores), np.concatenate(labels))
         val_loss = float(np.nanmean(dev_log[monitor]))

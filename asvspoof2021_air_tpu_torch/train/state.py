@@ -148,6 +148,19 @@ class TrainState:
             self.adv_gate.fill_(value)
         return self.adv_gate
 
+    def graph_tensors(self) -> List[torch.Tensor]:
+        """Every tensor a CUDA graph of its steps reads or writes: the
+        parameters, buffers and gradients, the optimizers' states, the
+        rates and the gate."""
+        ts = [*self.model.parameters(), *self.model.buffers()]
+        for m in (self.loss_module, *self.classifiers()):
+            if m is not None:
+                ts += list(m.parameters())
+        ts += [p.grad for p in ts if p.grad is not None]
+        ts += [v for opt in self.optimizers() for st in opt.state.values()
+               for v in st.values() if torch.is_tensor(v)]
+        return ts + [self.lr, self.lr_d, self.adv_gate]
+
     def trained_parameters(self) -> List[torch.Tensor]:
         """The parameters the backbone's loss trains: the model's and the
         loss module's (the classifiers train on their own loss)."""

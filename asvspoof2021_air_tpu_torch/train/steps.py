@@ -93,14 +93,21 @@ FRONTEND_STREAM, MODEL_STREAM = 0, 1
 
 
 def step_generator(seed: int, step: int, device,
-                   stream: int = FRONTEND_STREAM) -> torch.Generator:
+                   stream: int = FRONTEND_STREAM,
+                   member: Optional[int] = None) -> torch.Generator:
     """The generator of the draws of ``stream`` (the augmenter's, or the
     model's dropout and noise) at training step ``step`` of a run whose base
     seed is ``seed``: a fresh ``torch.Generator`` on ``device`` seeded from
-    (seed, step, stream) alone. The draws are made eagerly, outside any
-    CUDA graph (a graph takes them as static inputs, like its batches), so
-    a replayed step draws bit for bit what the same step draws eagerly."""
-    key = [seed, step] + ([stream] if stream != FRONTEND_STREAM else [])
+    (seed, step, stream) alone, and ensemble member ``member``'s from
+    (seed, step, stream, member) (``train/ensemble.py``). The draws are
+    made eagerly, outside any CUDA graph (a graph takes them as static
+    inputs, like its batches), so a replayed step draws bit for bit what
+    the same step draws eagerly."""
+    key = [seed, step]
+    if stream != FRONTEND_STREAM or member is not None:
+        key.append(stream)
+    if member is not None:
+        key.append(member)
     s = np.random.SeedSequence(key).generate_state(1, np.uint64)[0]
     return torch.Generator(device=device).manual_seed(int(s) >> 1)
 
@@ -145,9 +152,10 @@ def make_train_step(config: StepConfig, frontend: Optional[Callable] = None,
     step updates ``state`` in place (parameters, BN statistics, optimizer
     states, step). ``step.draw(rng, step, batch, out=None)`` gives the
     augmenter's draws it would make at ``step`` (None without an
-    augmenter) and ``step.draw_model(rng, step, model, batch, out=None)``
-    the model's (None for a model that does not draw), written into
-    ``out``'s tensors where given."""
+    augmenter) and ``step.draw_model(rng, step, model, batch, out=None,
+    member=None)`` the model's (None for a model that does not draw; an
+    ensemble member's from its own stream), written into ``out``'s tensors
+    where given."""
     _check(config)
     dev = resolve_device(device)
     augmenter = _augmenter(frontend)
@@ -161,7 +169,8 @@ def make_train_step(config: StepConfig, frontend: Optional[Callable] = None,
         return augmenter.draw(batch["wave"].shape,
                               step_generator(rng, step, dev), out)
 
-    def draw_model(rng, step: int, model, batch: Dict[str, Any], out=None):
+    def draw_model(rng, step: int, model, batch: Dict[str, Any], out=None,
+                   member: Optional[int] = None):
         # a model that draws in train mode (LCNN's dropout, ResNet's and
         # the attentive ConvNet's pooling noise) has draw(batch, frames,
         # generator, out); the others have none, or None
@@ -175,7 +184,8 @@ def make_train_step(config: StepConfig, frontend: Optional[Callable] = None,
         else:
             n, frames = batch["wave"].shape[0], frontend.feat_len
         return model.draw(n, frames, step_generator(rng, step, dev,
-                                                    MODEL_STREAM), out)
+                                                    MODEL_STREAM, member),
+                          out)
 
     def train_step(state: TrainState, batch: Dict[str, Any], rng=None,
                    adv_gate: float = 0.0, frontend_params=None,
@@ -262,16 +272,8 @@ class _GraphedSteps:
         self.captured: List[int] = []
 
     @staticmethod
-    def _pointers(state: TrainState) -> List[int]:
-        ts = [*state.model.parameters(), *state.model.buffers()]
-        for m in (state.loss_module, *state.classifiers()):
-            if m is not None:
-                ts += list(m.parameters())
-        ts += [p.grad for p in ts if p.grad is not None]
-        ts += [v for opt in state.optimizers() for st in opt.state.values()
-               for v in st.values() if torch.is_tensor(v)]
-        ts += [state.lr, state.lr_d, state.adv_gate]
-        return [t.data_ptr() for t in ts]
+    def _pointers(state) -> List[int]:
+        return [t.data_ptr() for t in state.graph_tensors()]
 
     def _draws(self, model, rng, step: int, batches, out=None):
         """Each inner step's (augmenter's, model's) draws, made eagerly
@@ -369,34 +371,45 @@ def make_multi_step(train_step: Callable, n_steps: int) -> Callable:
     return multi_step
 
 
+def eval_features(frontend: Optional[Callable], device) -> Callable:
+    """``features(batch, frontend_params) -> x``, the eval step's input:
+    the batch's 'feat' on ``device``, or ``frontend`` over its waveforms,
+    an augmenting front-end with draws made once per batch shape from a
+    generator seeded 0 and reused for every batch, as the JAX eval step
+    passes ``PRNGKey(0)`` to its front-end."""
+    augmenter = _augmenter(frontend)
+    fixed: Dict[Any, Any] = {}
+
+    def features(batch: Dict[str, Any], frontend_params=None):
+        if "feat" in batch:
+            return batch["feat"].to(device)
+        shape = tuple(batch["wave"].shape)
+        if augmenter is not None and shape not in fixed:
+            fixed[shape] = augmenter.draw(
+                shape, torch.Generator(device=device).manual_seed(0))
+        return frontend(batch, fixed.get(shape), frontend_params)
+
+    return features
+
+
 def make_eval_step(config: StepConfig, frontend: Optional[Callable] = None,
                    device="cuda") -> Callable:
     """``step(state, batch, frontend_params=None) -> (metrics, score,
-    feats)`` with the model in eval mode and no gradient. An augmenting
-    front-end draws once per batch shape from a generator seeded 0 and
-    reuses the draws for every batch, as the JAX eval step passes
-    ``PRNGKey(0)`` to its front-end. Scores per ``add_loss`` as the JAX
+    feats)`` with the model in eval mode and no gradient, its input from
+    :func:`eval_features`. Scores per ``add_loss`` as the JAX
     eval step (``steps.py:355-371``): the loss module's score for ang_iso
     and p2sgrad, the distance to the center for isolate and iso_sq, the
     base loss's for None and amsoftmax."""
     _check(config, train=False)
     dev = resolve_device(device)
-    augmenter = _augmenter(frontend)
-    fixed: Dict[Any, Any] = {}
+    features = eval_features(frontend, dev)
 
     def eval_step(state: TrainState, batch: Dict[str, Any],
                   frontend_params=None):
         state.model.eval()
         labels = batch["label"].to(dev).long()
         with torch.no_grad():
-            if "feat" in batch:
-                x = batch["feat"].to(dev)
-            else:
-                shape = tuple(batch["wave"].shape)
-                if augmenter is not None and shape not in fixed:
-                    fixed[shape] = augmenter.draw(
-                        shape, torch.Generator(device=dev).manual_seed(0))
-                x = frontend(batch, fixed.get(shape), frontend_params)
+            x = features(batch, frontend_params)
             feats, logits = state.model(x)
             base, score = base_loss_and_score(config.base_loss, logits,
                                               labels)

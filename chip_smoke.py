@@ -145,7 +145,39 @@ Phases, each fatal on failure:
    ``score_raw_to_file`` of RawNet2 over 136 FLAC utterances, the first 8
    scores of each against the CPU (1e-4); print ms per step, utt/s, peak
    memory, profiles by kernel group with the busy share, and the scorers'
-   forward ms.
+   forward ms;
+5. drive feature materialization: ``cli.preprocess`` of a synthetic
+   ASVspoof 2019 LA dev part of 256 FLAC utterances of 1.0 - 8.0 s (from
+   a seed) to LFCC files on the card at batch 32 (B1 once per bucket
+   batch, 8 in all, buckets up to (32, 128000)); each file within 5e-4
+   of the plain LFCC of its utterance alone, unpadded, on the card; the
+   names and arrays of a CPU run (5e-4); ``build_task_dataset`` and
+   ``RatioMixIterator`` reading the tree back; ``--dataset aug
+   --with_device`` over 8 augmented WAVs and their suffixes; STFT,
+   Melspec and CQCC on 8 utterances: the card's distance to their
+   float64 value (the port's modules with float64 constants, on the card)
+   within twice the CPU run's, and the card's distance to the CPU run
+   within the sum of the two; print utterances/s by the host clock and
+   B1's ms at (32, 128000);
+5b. drive ensembles on one card: ``train`` with ``ensemble=3``
+   (ECAPA-TDNN-512 + ang_iso, B = 64, T = 750, bf16, ``steps_per_call=8``:
+   the 3 x 8 member-steps one CUDA graph) from an ``LA_aug`` tree as
+   phase 4b's for one epoch with dev (B4a/B4b launched per member), then
+   on the fly with the channel augmenter (16 steps: a capture and a
+   replay; the front-end once a step over the 192-row tiled batch, so B1
+   once a step); the launch counts, a checkpoint of every member, every
+   member moved and the members apart; from features and on the fly, 8
+   replayed ensemble steps against 8 eager ones (rtol 1e-6) and each
+   member's ensemble step against a single-system step from its state
+   (rtol 1e-6; bitwise counted), on the fly on rows i B .. (i + 1) B - 1
+   of the tiled batch's features, which B1 computes within 5e-4 of the
+   plain LFCC under the same augmenter draws; then ``cli.generate_score``
+   over 136 LFCC files with the 3-member folder (B2/B3 per member): the
+   fused file the mean of the member files (1e-6), and ``--fusion wght``
+   over 136 files without class signal: the members' EERs differ and the
+   fused file is their entropy-weighted sum (1e-6); print ms per step and
+   utterances/s (B a step, and M B member-utterances), peak memory and
+   profiles of both graphs with the busy share.
 
 Each phase's seconds are printed.
 
@@ -157,6 +189,7 @@ numpy. It exits non-zero without a GPU or without the port beside it.
 from __future__ import annotations
 
 import contextlib
+import copy
 import json
 import os
 import shutil
@@ -807,11 +840,11 @@ def write_flac_files(items, sr: int = 16000, block: int = 4096) -> None:
 
 
 def write_corpus(root: str, n: int, seed: int, part: str = "eval",
-                 fmt: str = "wav"):
+                 fmt: str = "wav", lengths=None):
     """ASVspoof2019-layout corpus part of n utterances (bona fide: noise,
-    spoof: a tone + noise), mostly 7.49 s, a few shorter and two longer,
-    as 16-bit WAVs under ``wav/`` or FLACs under ``flac/``. Returns
-    {filename: int16 samples written}."""
+    spoof: a tone + noise), mostly 7.49 s, a few shorter and two longer
+    (or of the given ``lengths`` in samples), as 16-bit WAVs under ``wav/``
+    or FLACs under ``flac/``. Returns {filename: int16 samples written}."""
     from asvspoof2021_air_tpu_torch.data.audio_io import write_wav
 
     g = np.random.default_rng(seed)
@@ -822,7 +855,9 @@ def write_corpus(root: str, n: int, seed: int, part: str = "eval",
     lines, written, flacs = [], {}, []
     for i in range(n):
         length = L
-        if i % 23 == 5:
+        if lengths is not None:
+            length = int(lengths[i])
+        elif i % 23 == 5:
             length = int(g.integers(L // 8, L // 2))
         elif i in (7, 70):
             length = L + 20000
@@ -1008,12 +1043,13 @@ def main_path(torch, gpu: str, entries):
 
 
 def write_feature_tree(root: str, n: int, seed: int, labeled: bool,
-                       suffix=""):
+                       suffix="", shift: float = 0.5):
     """n LFCC-shaped feature files (1, T', 60) .npy with the reference
     cache's names (``suffix`` appended, such as an augmented copy's
     ``_<channel>``; a function of the file's index for one per file): T' =
-    750 mostly, some shorter (repeat-padded), some longer (cropped).
-    Returns the filenames in the dataset's order."""
+    750 mostly, some shorter (repeat-padded), some longer (cropped); the
+    spoofed ones' first 20 dims shifted by ``shift``. Returns the
+    filenames in the dataset's order."""
     g = np.random.default_rng(seed)
     os.makedirs(root)
     names = []
@@ -1022,7 +1058,7 @@ def write_feature_tree(root: str, n: int, seed: int, labeled: bool,
         label = i % 2
         x = g.standard_normal((1, t, 60)).astype(np.float32)
         if label:
-            x[..., :20] += 0.5
+            x[..., :20] += shift
         if labeled:
             fname = f"LA_D_{1000000 + i}"
             sfx = suffix(i) if callable(suffix) else suffix
@@ -1701,7 +1737,7 @@ def train_bf16_path(torch, gpu: str, entries, f32_ms: float):
         multi(st, stack(fb[:K]))                  # eager K steps, capture
         st.load_state_dict(live)
         m_graph = multi(st, stack(fb[K:]))         # replay
-        after_graph = st.state_dict()
+        after_graph = copy.deepcopy(st.state_dict())
         st.load_state_dict(live)
         m_eager = [step(st, b) for b in fb[K:]]
         after_eager = st.state_dict()
@@ -2005,7 +2041,7 @@ def train_adv_path(torch, gpu: str, entries):
         for gate, part in ((0.0, fb[K:2 * K]), (1.0, fb[2 * K:])):
             st.load_state_dict(live)
             m_graph = multi(st, stack(part), None, gate)
-            after_graph = st.state_dict()
+            after_graph = copy.deepcopy(st.state_dict())
             st.load_state_dict(live)
             m_eager = [step(st, b, None, gate) for b in part]
             after_eager = st.state_dict()
@@ -2155,7 +2191,7 @@ def train_adv_path(torch, gpu: str, entries):
         multi(st, stack(waves[:K]), rng, 0.0, fe.params)
         st.load_state_dict(live)
         m_graph = multi(st, stack(waves[K:]), rng, 0.0, fe.params)
-        after_graph = st.state_dict()
+        after_graph = copy.deepcopy(st.state_dict())
         st.load_state_dict(live)
         m_eager = [step(st, b, rng, 0.0, fe.params) for b in waves[K:]]
         after_eager = st.state_dict()
@@ -2435,7 +2471,7 @@ def train_families_path(torch, gpu: str, entries):
             multi(st, stack(fb[:K]), rng)           # eager K steps, capture
             st.load_state_dict(live)
             m_graph = multi(st, stack(fb[K:]), rng)   # replay
-            after_graph = st.state_dict()
+            after_graph = copy.deepcopy(st.state_dict())
             st.load_state_dict(live)
             m_eager = [step(st, b, rng) for b in fb[K:]]
             after_eager = st.state_dict()
@@ -2585,7 +2621,7 @@ def train_new_families_path(torch, gpu: str, entries):
         multi(st, stack(batches[:K]), rng, 0.0, params)   # eager, capture
         st.load_state_dict(live)
         m_graph = multi(st, stack(batches[K:]), rng, 0.0, params)
-        after_graph = st.state_dict()
+        after_graph = copy.deepcopy(st.state_dict())
         st.load_state_dict(live)
         m_eager = [step(st, b, rng, 0.0, params) for b in batches[K:]]
         after_eager = st.state_dict()
@@ -2810,6 +2846,569 @@ def train_new_families_path(torch, gpu: str, entries):
           f"(host clock, FLAC reading and the forward)")
 
 
+PRE_N, PRE_BATCH = 256, 32
+
+
+def front_end_float64(torch, feature: str, x, lengths):
+    """The float64 value of ``feature`` on (B, L) waveforms ``x`` on the
+    card, as the preprocess CLI writes it (B, T, D): the port's module with
+    its constants cast to float64 (phase 5's reference)."""
+    from asvspoof2021_air_tpu_torch.ops.cqcc import CQCC
+    from asvspoof2021_air_tpu_torch.ops.lfcc import STFT, Melspec
+
+    x = x.double()
+    if feature == "CQCC":
+        m = CQCC(device=x.device)
+        m.kernels = [k.double() for k in m.kernels]
+        m.hb, m.resample, m.dct = (t.double() for t in (m.hb, m.resample,
+                                                        m.dct))
+        return m(x, lengths)
+    if feature == "STFT":
+        m = STFT(device=x.device)
+        m.window = m.window.double()
+        return m(x)
+    m = Melspec(device=x.device)
+    m.window, m.fb = m.window.double(), m.fb.double()
+    return m(x).transpose(1, 2)
+
+
+def preprocess_path(torch, gpu: str, entries):
+    """Phase 5: feature materialization through ``cli.preprocess`` on the
+    card, LFCC through B1; the other front-ends on the card against their
+    CPU runs."""
+    import io
+
+    from asvspoof2021_air_tpu_torch.cli import preprocess
+    from asvspoof2021_air_tpu_torch.data import protocol as proto
+    from asvspoof2021_air_tpu_torch.data.audio_io import write_wav
+    from asvspoof2021_air_tpu_torch.data.datasets import RawAudioDataset
+    from asvspoof2021_air_tpu_torch.data.pipeline import RatioMixIterator
+    from asvspoof2021_air_tpu_torch.ops import lfcc_cuda as lc
+    from asvspoof2021_air_tpu_torch.ops.lfcc import LFCC, emphasize
+    from asvspoof2021_air_tpu_torch.scoring import build_task_dataset
+
+    quiet = lambda: contextlib.redirect_stdout(io.StringIO())
+    # the ASVspoof 2019 LA utterances' range, 1.0 - 8.0 s
+    lengths = np.random.default_rng(30).integers(16000, 128001, PRE_N)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        written = write_corpus(tmp, PRE_N, seed=31, part="dev", fmt="flac",
+                               lengths=lengths)
+        print(f"preprocess corpus: {PRE_N} FLAC utterances of "
+              f"{lengths.min() / 16000:.2f} - {lengths.max() / 16000:.2f} s "
+              f"written in {time.perf_counter() - t0:.1f} s")
+        base = ["-d", tmp, "--part", "dev", "--batch_size", str(PRE_BATCH),
+                "--device", DEVICE]
+
+        # ---- --dataset aug --with_device: the channel and device
+        # suffixes (also the warm-up of the card's path) ----
+        aug = os.path.join(tmp, "aug")
+        os.makedirs(os.path.join(aug, "dev"))
+        suffixes = {}
+        for i, fname in enumerate(list(written)[:8]):
+            ch, dv = proto.LA_CHANNELS[1 + 7 * i], proto.DEVICES[i]
+            write_wav(os.path.join(aug, "dev", f"{fname}_{ch}_{dv}.wav"),
+                      written[fname][:24000] / 32768.0)
+            suffixes[fname] = (ch, dv)
+        with quiet():
+            preprocess.main(base + ["--dataset", "aug", "--aug_wav_dir", aug,
+                                    "--with_device", "-o",
+                                    os.path.join(tmp, "aug_feats")])
+        names = sorted(os.listdir(os.path.join(tmp, "aug_feats", "dev",
+                                               "LFCC")))
+        fields = [n[:-4].split("_") for n in names]
+        check(len(names) == 8 and all(
+            len(f) == 8 and (f[6], f[7]) == suffixes["_".join(f[1:4])]
+            for f in fields), f"aug --with_device names {names}")
+        print(f"--dataset aug --with_device: {len(names)} files with their "
+              f"_channel_device suffixes, e.g. {names[0]}")
+
+        # ---- the main path: 256 utterances, LFCC, batch 32, on the card
+        torch.cuda.synchronize()
+        lc.launches = 0
+        t0 = time.perf_counter()
+        with quiet():
+            n = preprocess.main(base + ["-o", os.path.join(tmp, "gpu")])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = lc.launches
+        order = np.sort(lengths)
+        buckets = [int(-(-order[s:s + PRE_BATCH].max() // 16000) * 16000)
+                   for s in range(0, PRE_N, PRE_BATCH)]
+        print(f"preprocess LFCC: {n} files, B1 launches {launches} over "
+              f"bucket batches (rows, samples) "
+              f"{[(min(PRE_BATCH, PRE_N - i * PRE_BATCH), b) for i, b in enumerate(buckets)]}")
+        check(n == PRE_N and launches == -(-PRE_N // PRE_BATCH),
+              f"preprocess: {n} files, {launches} B1 launches")
+        check(max(buckets) == 128000, f"largest bucket {max(buckets)}")
+        entries["B1"]["launches_preprocess"] = launches
+
+        # each file against the plain LFCC of its utterance alone, unpadded,
+        # on the card (B1's bar)
+        ds = RawAudioDataset("LA", tmp, "dev")
+        gpu_dir = os.path.join(tmp, "gpu", "dev", "LFCC")
+        names = sorted(os.listdir(gpu_dir))
+        plain, worst = LFCC(device=DEVICE), 0.0
+        for name in names:
+            wav, fname = ds[int(name[:6])][:2]
+            arr = np.load(os.path.join(gpu_dir, name))
+            check(name[7:].startswith(fname + "_")
+                  and arr.shape == (1, 1 + len(wav) // 160, 60)
+                  and arr.dtype == np.float32, f"{name}: {arr.shape}")
+            with torch.no_grad():
+                ref = plain(torch.from_numpy(wav)[None].to(DEVICE))
+            worst = max(worst, float(np.abs(arr - ref.cpu().numpy()).max()))
+        print(f"preprocess LFCC files vs the plain LFCC of each utterance "
+              f"alone on the card: max abs err {worst:.3e} (bar 5e-4)")
+        check(worst <= 5e-4, f"preprocess LFCC vs plain: {worst}")
+
+        # the names of a CPU run, and its arrays
+        t0 = time.perf_counter()
+        with quiet():
+            preprocess.main(base + ["-o", os.path.join(tmp, "cpu"),
+                                    "--device", "cpu"])
+        cpu_s = time.perf_counter() - t0
+        cpu_dir = os.path.join(tmp, "cpu", "dev", "LFCC")
+        check(sorted(os.listdir(cpu_dir)) == names,
+              "the card's and the CPU's file names differ")
+        cpu_err = max(float(np.abs(np.load(os.path.join(gpu_dir, f))
+                                   - np.load(os.path.join(cpu_dir, f))).max())
+                      for f in names)
+        print(f"preprocess LFCC: the CPU run's {len(names)} names equal the "
+              f"card's; arrays within {cpu_err:.3e} (bar 5e-4); the CPU run "
+              f"took {cpu_s:.1f} s")
+        check(cpu_err <= 5e-4, f"card vs CPU LFCC files {cpu_err}")
+
+        # read back by the task router and the training iterator
+        task = build_task_dataset("19dev", {"ori_features": os.path.join(
+            tmp, "gpu")})
+        batch = next(iter(RatioMixIterator(task, B, 1.0, feat_len=T,
+                                           seed=1).epoch()))
+        check(len(task) == PRE_N and batch["feat"].shape == (B, T, 60)
+              and np.isfinite(batch["feat"]).all(),
+              f"19dev read back: {len(task)}, {batch['feat'].shape}")
+        print(f"read back: build_task_dataset('19dev') {len(task)} items, "
+              f"RatioMixIterator batch {batch['feat'].shape}")
+
+        # ---- STFT, Melspec and CQCC on 8 utterances: the card's distance
+        # to their float64 value within twice the CPU run's (the CPU
+        # tests' bar, with the CPU run as the reference), and the card's
+        # distance to the CPU run within the sum of the two ----
+        waves = [ds[i][0] for i in range(8)]
+        lens = np.array([len(w) for w in waves])
+        x = np.zeros((8, int(-(-lens.max() // 16000) * 16000)), np.float32)
+        for r, w in enumerate(waves):
+            x[r, :len(w)] = w
+        for feature in ("STFT", "Melspec", "CQCC"):
+            outs = {}
+            for dev in (DEVICE, "cpu"):
+                fn, _hop = preprocess.build_extractor(feature, dev)
+                with torch.no_grad():
+                    outs[dev] = fn(torch.from_numpy(x).to(dev),
+                                   torch.from_numpy(lens).to(dev)).cpu()
+            with torch.no_grad():
+                ref = front_end_float64(
+                    torch, feature, torch.from_numpy(x).to(DEVICE),
+                    torch.from_numpy(lens).to(DEVICE)).cpu()
+            err64 = lambda a, b: float((a.double() - b.double()).abs().max())
+            d_cpu, d_card = err64(outs["cpu"], ref), err64(outs[DEVICE], ref)
+            diff = err64(outs[DEVICE], outs["cpu"])
+            print(f"{feature} {tuple(outs[DEVICE].shape)}: the card's "
+                  f"distance to float64 {d_card:.3e} (bar 2 x the CPU "
+                  f"run's, {d_cpu:.3e}); card vs CPU {diff:.3e} (bar "
+                  f"{d_card + d_cpu:.3e}); largest value "
+                  f"{float(ref.abs().max()):.1f}")
+            check(d_card <= 2 * d_cpu, f"{feature}: the card's distance "
+                                       f"to float64 {d_card} > 2 x {d_cpu}")
+            check(diff <= d_card + d_cpu, f"{feature}: card vs CPU {diff} > "
+                                          f"{d_card} + {d_cpu}")
+
+        # B1 alone at the largest bucket shape
+        ex = lc.CudaLFCC(device=DEVICE)
+        xb = emphasize(0.1 * torch.randn(PRE_BATCH, 128000, device=DEVICE),
+                       ex.config, None).contiguous()
+        b1_ms = time_ms(torch, lambda: ex.cepstra(xb))
+    print(f"preprocess [{gpu}]: {PRE_N} utterances (FLAC, 1.0 - 8.0 s) to "
+          f"LFCC files in {wall:.2f} s = {PRE_N / wall:.1f} utt/s (host "
+          f"clock: FLAC decoding, {launches} B1 bucket batches, .npy "
+          f"writes); B1 at ({PRE_BATCH}, 128000) {b1_ms:.4f} ms (CUDA "
+          f"events)")
+
+
+def flat_members(sd):
+    """An ensemble's ``state_dict`` in the form ``check_replay`` reads a
+    single system's: the step, and each member's parts under 'member<i>
+    <part>'."""
+    out = {"step": sd["step"]}
+    for i, m in enumerate(sd["members"]):
+        out.update({f"member{i} {part}": v for part, v in m.items()
+                    if part != "step"})
+    return out
+
+
+def members_vs_single(torch, cfg, n_steps: int, frontend, live, batch,
+                      rng, member_batch, what: str) -> None:
+    """One eager ensemble step of ``cfg`` (K = 1) from state ``live`` on
+    ``batch``, each member against a single-system step from the member's
+    state on ``member_batch(i)``: model, loss module and Adam states, rtol
+    1e-6 and atol 1e-9 (phase 5b)."""
+    import dataclasses
+
+    from asvspoof2021_air_tpu_torch.train.loop import setup_training
+
+    k1 = dataclasses.replace(cfg, steps_per_call=1)
+    _, _, est, estep, _ = setup_training(k1, n_steps, frontend=frontend,
+                                         device=DEVICE)
+    est.load_state_dict(live)
+    estep(est, batch, rng)
+    after_ens = copy.deepcopy(est.state_dict())
+    del est
+    _, _, single, sstep, _ = setup_training(
+        dataclasses.replace(k1, ensemble=1), n_steps, frontend=frontend,
+        device=DEVICE)
+    same = total = 0
+    for i in range(len(live["members"])):
+        single.load_state_dict(live["members"][i])
+        sstep(single, member_batch(i))
+        got, want = after_ens["members"][i], single.state_dict()
+        pairs = [(f"{part} {n}", v, want[part][n])
+                 for part in ("model", "loss_module")
+                 for n, v in got[part].items()]
+        pairs += [(f"optimizer {n} {k}", t, want["optimizer"][n][k])
+                  for n, st_ in got["optimizer"].items()
+                  for k, t in st_.items()]
+        same += sum(torch.equal(a, b) for _, a, b in pairs)
+        total += len(pairs)
+        bad = [n for n, a, b in pairs
+               if not torch.allclose(a, b, rtol=1e-6, atol=1e-9)]
+        check(not bad and got["step"] == want["step"],
+              f"member {i}'s {what} ensemble step differs from its single "
+              f"step: {bad[:5]}")
+    print(f"each member's {what} ensemble step vs a single-system step from "
+          f"its state: {same} of {total} tensors bitwise equal (bar rtol "
+          f"1e-6, atol 1e-9)")
+
+
+def train_ensemble_path(torch, gpu: str, entries):
+    """Phase 5b: ensembles on one card, M = 3 ECAPA-TDNN-512 + ang_iso in
+    bf16 with 8 steps per CUDA graph, from LA_aug feature files and on the
+    fly with the channel augmenter; replay against eager steps, member
+    steps against single-system steps; then ``cli.generate_score``'s
+    member and fused files; times."""
+    import io
+
+    from asvspoof2021_air_tpu_torch.cli import generate_score
+    from asvspoof2021_air_tpu_torch.data.datasets import (
+        AugmentedFeatureDataset, RawAudioDataset)
+    from asvspoof2021_air_tpu_torch.data.pipeline import (
+        RatioMixIterator, WaveformIterator)
+    from asvspoof2021_air_tpu_torch.fusion import entropy_weights
+    from asvspoof2021_air_tpu_torch.metrics.evaluate import (
+        eer_from_score_file, read_score_file)
+    from asvspoof2021_air_tpu_torch.ops import attn_pool_cuda as ap
+    from asvspoof2021_air_tpu_torch.ops import attn_pool_vjp as vj
+    from asvspoof2021_air_tpu_torch.ops import lfcc_cuda as lc
+    from asvspoof2021_air_tpu_torch.ops import res2_chain_cuda as rc
+    from asvspoof2021_air_tpu_torch.ops.augment import ChannelAugmenter
+    from asvspoof2021_air_tpu_torch.train.checkpoint import (
+        restore_checkpoint)
+    from asvspoof2021_air_tpu_torch.train.frontend import OnDeviceFrontend
+    from asvspoof2021_air_tpu_torch.train.loop import (
+        TrainConfig, setup_training, train)
+    from asvspoof2021_air_tpu_torch.train.steps import (
+        make_multi_step, step_generator)
+
+    M, K, n_ori, n_aug = 3, 8, 5 * B, 5 * B // 2
+    spe = -(-n_ori // (B // 2))           # ratio 0.5: 10 steps an epoch
+    stack = lambda bs: {k: torch.stack([b[k] for b in bs]) for k in bs[0]}
+    counts_now = lambda: {"B1": lc.launches, "B4a": vj.fwd_launches,
+                          "B4b": vj.bwd_launches}
+    with tempfile.TemporaryDirectory() as tmp:
+        feats, aug = os.path.join(tmp, "feats"), os.path.join(tmp, "aug")
+        for root, part, n, seed, sfx in (
+                (feats, "train", n_ori, 20, ""), (feats, "dev", B, 21, ""),
+                (aug, "train", n_aug, 23, "_amr[br=5k9]"),
+                (aug, "dev", B, 24, "_amr[br=5k9]")):
+            write_feature_tree(os.path.join(root, part, "LFCC"), n, seed,
+                               True, sfx)
+        cfg = TrainConfig(
+            out_fold=os.path.join(tmp, "runs", "ens"),
+            path_to_features=feats, path_to_aug_features=aug, LA_aug=True,
+            ratio=0.5, model="ecapa", add_loss="ang_iso", batch_size=B,
+            feat_len=T, num_epochs=1, C=C, compute_dtype="bfloat16",
+            steps_per_call=K, ensemble=M)
+        init = copy.deepcopy(setup_training(cfg, spe,
+                                            device=DEVICE)[2].state_dict())
+
+        # ---- the main path: train() M = 3, bf16, K = 8 from features ----
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        lc.launches = vj.fwd_launches = vj.bwd_launches = 0
+        t0 = time.perf_counter()
+        summary, state = train(cfg, device=DEVICE, return_state=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak_train = torch.cuda.max_memory_allocated() / 2 ** 30
+        counts = counts_now()
+        counted, _run, _replays = graph_launches(spe, K, 1)
+        print(f"ensemble M={M} bf16 K={K} from features: {spe} steps (a "
+              f"call of {K}: eager + capture, and a tail of {spe % K}) and "
+              f"one dev pass of 2 batches: launches {counts}; per member "
+              f"B4b counted {counted}")
+        check(counts == {"B1": 0, "B4a": M * (counted + 2),
+                         "B4b": M * counted},
+              f"ensemble launch counts {counts}, expected B4a "
+              f"{M * (counted + 2)}, B4b {M * counted}")
+        for k, v in counts.items():
+            entries[k]["launches_train_ensemble"] = v
+        with open(os.path.join(cfg.out_fold, "train_loss.log")) as f:
+            losses = np.array([float(line.split()[2])
+                               for line in f.readlines()[1:]])
+        check(len(losses) == spe and bool(np.isfinite(losses).all()),
+              f"ensemble losses {losses}")
+        print(f"ensemble summary: {summary}; member-mean ang_iso per step "
+              f"{np.round(losses, 5).tolist()}")
+        live = copy.deepcopy(state.state_dict())
+        best = restore_checkpoint(os.path.join(cfg.out_fold, "best.pt"))
+        check(live["step"] == spe and len(live["members"]) == M
+              and len(best["members"]) == M and best["step"] == spe,
+              "the ensemble checkpoint does not hold every member")
+        for i, m in enumerate(live["members"]):
+            check(not torch.equal(m["model"]["fc6.weight"],
+                                  init["members"][i]["model"]["fc6.weight"]),
+                  f"member {i} did not move")
+        apart = min(max_err(live["members"][i]["model"]["fc6.weight"],
+                            live["members"][j]["model"]["fc6.weight"])
+                    for i in range(M) for j in range(i + 1, M))
+        check(apart > 0, "two members' fc6 weights are equal")
+        print(f"members after the epoch: every member moved; fc6.weight "
+              f"pairwise max difference at least {apart:.3e}")
+        del state
+
+        # ---- 8 replayed ensemble steps against 8 eager ones ----
+        it = RatioMixIterator(AugmentedFeatureDataset(feats, aug, "train"),
+                              B, 0.5, feat_len=T, seed=7,
+                              steps_per_epoch=2 * K).epoch()
+        fb = [{k: torch.from_numpy(b[k]) for k in ("feat", "label")}
+              for b in it]
+        torch.backends.cudnn.deterministic = True
+        _, _, st, step, _ = setup_training(cfg, spe, device=DEVICE)
+        st.load_state_dict(live)
+        multi = make_multi_step(step, K)
+        multi(st, stack(fb[:K]))                  # eager K steps, capture
+        st.load_state_dict(live)
+        m_graph = multi(st, stack(fb[K:]))         # replay
+        after_graph = flat_members(copy.deepcopy(st.state_dict()))
+        st.load_state_dict(live)
+        m_eager = [step(st, b) for b in fb[K:]]
+        check_replay(torch, m_graph, after_graph, m_eager,
+                     flat_members(st.state_dict()), live["step"], K,
+                     f"the M={M} ensemble step")
+        del st, multi
+
+        # ---- member i's ensemble step against a single-system step from
+        # member i's state (ECAPA draws nothing, so no member draws) ----
+        fbatch = {"feat": fb[0]["feat"].to(DEVICE), "label": fb[0]["label"]}
+        members_vs_single(torch, cfg, spe, None, live, fbatch, None,
+                          lambda i: fbatch, "from features")
+        torch.backends.cudnn.deterministic = False
+
+        # ---- times: the K = 8 ensemble graph from features ----
+        _, _, st, step, _ = setup_training(cfg, spe, device=DEVICE)
+        st.load_state_dict(live)
+        multi = make_multi_step(step, K)
+        stacked = stack(fb[:K])
+        torch.cuda.reset_peak_memory_stats()
+        ms = time_ms(torch, lambda: multi(st, stacked), iters=3,
+                     warmup=2) / K
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        profile_device(torch, lambda: multi(st, stacked), K * ms,
+                       f"M={M} bf16 {K}-step ensemble graph replay")
+        del st, multi
+
+        # ---- on the fly with the channel augmenter, M = 3, bf16, K = 8:
+        # the front-end once a step over the (M B)-row tiled batch ----
+        write_corpus(tmp, B, seed=8, part="train")
+        write_corpus(tmp, B, seed=9, part="dev")
+        n_otf = 2 * K
+        otf = TrainConfig(
+            out_fold=os.path.join(tmp, "otf"), path_to_database=tmp,
+            on_the_fly=True, on_device_aug=True, ratio=1.0, model="ecapa",
+            add_loss="ang_iso", batch_size=B, feat_len=T, num_epochs=1, C=C,
+            compute_dtype="bfloat16", steps_per_call=K, ensemble=M)
+        raw_train = Repeat(RawAudioDataset("LA", tmp, "train"), n_otf)
+        torch.cuda.synchronize()
+        lc.launches = vj.fwd_launches = vj.bwd_launches = 0
+        summary_otf, st_otf = train(
+            otf, train_set=raw_train,
+            dev_set=RawAudioDataset("LA", tmp, "dev"), device=DEVICE,
+            return_state=True)
+        torch.cuda.synchronize()
+        counts = counts_now()
+        counted, _run, replays = graph_launches(n_otf, K, 1)
+        print(f"ensemble M={M} on the fly with the augmenter, bf16 K={K}: "
+              f"{n_otf} steps (one capture, {replays} replay) and one dev "
+              f"batch: launches {counts}")
+        check(counts == {"B1": counted + 1, "B4a": M * (counted + 1),
+                         "B4b": M * counted},
+              f"on-the-fly ensemble launch counts {counts}")
+        for k, v in counts.items():
+            entries[k]["launches_train_ensemble_otf"] = v
+        with open(os.path.join(otf.out_fold, "train_loss.log")) as f:
+            otf_losses = np.array([float(line.split()[2])
+                                   for line in f.readlines()[1:]])
+        check(len(otf_losses) == n_otf and np.isfinite(otf_losses).all()
+              and np.isfinite(summary_otf["dev_loss"]),
+              f"on-the-fly ensemble losses {otf_losses}, {summary_otf}")
+        ws = [m.model.fc6.weight for m in st_otf.members]
+        check(all(not torch.equal(ws[i], ws[j]) for i in range(M)
+                  for j in range(i + 1, M)), "on-the-fly members are equal")
+        print(f"on-the-fly ensemble summary: {summary_otf}")
+        otf_live = copy.deepcopy(st_otf.state_dict())
+        del st_otf
+        fe = OnDeviceFrontend(feat_len=T, augmenter=ChannelAugmenter(
+            device=DEVICE), device=DEVICE)
+        wb = [{k: torch.from_numpy(b[k]) for k in ("wave", "length",
+                                                   "label")}
+              for b in WaveformIterator(raw_train, B, fe.min_samples(),
+                                        seed=5,
+                                        steps_per_epoch=2 * K).epoch()]
+        rng = 1
+
+        # ---- B1 on the (M B)-row tiled batch against the plain LFCC,
+        # under the augmenter's draws of the next step ----
+        tiled = {k: torch.cat([wb[0][k]] * M).to(DEVICE)
+                 for k in ("wave", "length")}
+        draws = fe.augmenter.draw(tuple(tiled["wave"].shape), step_generator(
+            rng, otf_live["step"], DEVICE))
+        with torch.no_grad():
+            x_otf = fe(tiled, draws)
+            with plain_b1():
+                x_plain = fe(tiled, draws)
+        err = max_err(x_otf, x_plain)
+        print(f"on-the-fly ensemble features of the {M * B}-row tiled batch "
+              f"{tuple(x_otf.shape)}: B1 vs the plain LFCC max abs err "
+              f"{err:.3e} (B1's bar 5e-4)")
+        check(x_otf.shape == (M * B, T, 60) and err <= 5e-4,
+              f"B1 on the tiled batch vs plain: {x_otf.shape}, {err}")
+        rows = [x_otf[i * B:(i + 1) * B] for i in range(M)]
+        check(all(not torch.equal(rows[i], rows[j]) for i in range(M)
+                  for j in range(i + 1, M)),
+              "the augmenter gave two members the same rows")
+
+        # ---- member i's on-the-fly ensemble step (drawing for itself)
+        # against a single-system step from member i's state on rows
+        # i B .. (i + 1) B - 1 of those features ----
+        torch.backends.cudnn.deterministic = True
+        members_vs_single(torch, otf, n_otf, fe, otf_live, wb[0], rng,
+                          lambda i: {"feat": rows[i], "label": wb[0]["label"]},
+                          "on-the-fly")
+
+        # ---- 8 replayed on-the-fly ensemble steps against 8 eager ones
+        _, _, st, step, _ = setup_training(otf, n_otf, frontend=fe,
+                                           device=DEVICE)
+        st.load_state_dict(otf_live)
+        multi = make_multi_step(step, K)
+        multi(st, stack(wb[:K]), rng)              # eager K steps, capture
+        st.load_state_dict(otf_live)
+        m_graph = multi(st, stack(wb[K:]), rng)    # replay
+        after_graph = flat_members(copy.deepcopy(st.state_dict()))
+        st.load_state_dict(otf_live)
+        m_eager = [step(st, b, rng) for b in wb[K:]]
+        check_replay(torch, m_graph, after_graph, m_eager,
+                     flat_members(st.state_dict()), otf_live["step"], K,
+                     f"the M={M} on-the-fly ensemble step with the augmenter")
+        torch.backends.cudnn.deterministic = False
+        st.load_state_dict(otf_live)
+        waves = stack(wb[:K])
+        torch.cuda.reset_peak_memory_stats()
+        ms_otf = time_ms(torch, lambda: multi(st, waves, rng), iters=3,
+                         warmup=2) / K
+        peak_otf = torch.cuda.max_memory_allocated() / 2 ** 30
+        profile_device(torch, lambda: multi(st, waves, rng), K * ms_otf,
+                       f"M={M} bf16 {K}-step on-the-fly ensemble replay")
+        del st, multi
+
+        # ---- cli.generate_score over 136 LFCC files: member files and
+        # their fusion ----
+        scores_root = os.path.join(tmp, "score_feats")
+        n_utt = 2 * B + 8
+        write_feature_tree(os.path.join(scores_root, "dev", "LFCC"), n_utt,
+                           7, labeled=True)
+        cwd = os.getcwd()
+        os.chdir(tmp)              # the 19* tasks write under ./scores
+        try:
+            base = ["--model_folder", os.path.join(tmp, "runs"), "-n", "ens",
+                    "-t", "19dev", "--ori_features", scores_root,
+                    "--batch_size", str(B), "--device", DEVICE]
+            torch.cuda.synchronize()
+            rc.launches = ap.launches = 0
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                fused_path = generate_score.main(base)
+            torch.cuda.synchronize()
+            score_wall = time.perf_counter() - t0
+            n_batches = -(-n_utt // B)
+            counts = {"B2": rc.launches, "B3": ap.launches}
+            print(f"ensemble scoring, {M} members x {n_batches} batches: "
+                  f"launches {counts}")
+            check(counts == {"B2": 3 * n_batches * M, "B3": n_batches * M},
+                  f"ensemble scoring launch counts {counts}")
+            for k, v in counts.items():
+                entries[k]["launches_score_ensemble"] = v
+            fused = read_score_file(fused_path)
+            members = [read_score_file(os.path.join(
+                "scores", f"ens_member{i}_19dev_score.txt"))
+                for i in range(M)]
+            mean = np.mean([m["score"] for m in members], axis=0)
+            err = float(np.abs(fused["score"] - mean).max())
+            check(len(fused["fname"]) == n_utt and fused["key"] is not None
+                  and all(np.array_equal(m["fname"], fused["fname"])
+                          for m in members)
+                  and np.isfinite(fused["score"]).all() and err <= 1e-6,
+                  f"the fused file is not the members' mean ({err})")
+            print(f"fused file ({n_utt} 3-column rows) vs the mean of the "
+                  f"{M} member files: {err:.3e} (bar 1e-6)")
+            # --fusion wght on a tree of the same shapes whose labels carry
+            # no signal (every member separates the tree above, so their
+            # EERs, all 0, would give equal weights): the members' EERs
+            # differ, and the fused file is the members weighted by their
+            # entropy weights
+            noise_root = os.path.join(tmp, "noise_feats")
+            write_feature_tree(os.path.join(noise_root, "dev", "LFCC"),
+                               n_utt, 17, labeled=True, shift=0.0)
+            base[base.index(scores_root)] = noise_root
+            with contextlib.redirect_stdout(io.StringIO()):
+                wght = generate_score.main(base + ["--fusion", "wght"])
+            files = [os.path.join("scores", f"ens_member{i}_19dev_score.txt")
+                     for i in range(M)]
+            eers = [eer_from_score_file(f) for f in files]
+            w = entropy_weights(eers)
+            want = np.sum([wi * read_score_file(f)["score"]
+                           for wi, f in zip(w, files)], axis=0)
+            got = read_score_file(wght)["score"]
+            err = float(np.abs(got - want).max())
+            print(f"--fusion wght on {n_utt} files without class signal: "
+                  f"member EERs {np.round(eers, 4).tolist()}, weights "
+                  f"{np.round(w, 4).tolist()}; fused file vs the weighted "
+                  f"sum of the member files {err:.3e} (bar 1e-6)")
+            check(len(set(eers)) > 1 and err <= 1e-6
+                  and np.isfinite(got).all(),
+                  f"--fusion wght: EERs {eers}, fused vs weighted {err}")
+        finally:
+            os.chdir(cwd)
+    print(f"ensemble training [{gpu}] (M={M}, B={B}, T={T}, C={C}, bf16, "
+          f"K={K}; CUDA events, host-to-device copies included): from "
+          f"features {ms:.3f} ms/step = {B / ms * 1e3:.1f} utt/s "
+          f"({M * B / ms * 1e3:.1f} member-utt/s), peak {peak:.2f} GiB; on "
+          f"the fly with the augmenter {ms_otf:.3f} ms/step = "
+          f"{B / ms_otf * 1e3:.1f} utt/s ({M * B / ms_otf * 1e3:.1f} "
+          f"member-utt/s), peak {peak_otf:.2f} GiB; train() {spe} steps "
+          f"and a dev pass in {wall:.2f} s (host clock; peak "
+          f"{peak_train:.2f} GiB); generate_score of {M} members and their "
+          f"fusion {score_wall:.2f} s")
+
+
 def main() -> int:
     try:
         import torch
@@ -2850,6 +3449,8 @@ def main() -> int:
     phase("4c", train_adv_path, torch, gpu, entries)
     phase("4d", train_families_path, torch, gpu, entries)
     phase("4e", train_new_families_path, torch, gpu, entries)
+    phase("5", preprocess_path, torch, gpu, entries)
+    phase("5b", train_ensemble_path, torch, gpu, entries)
     print(f"phase seconds: { {k: round(v, 1) for k, v in seconds.items()} }")
 
     kernels = []
@@ -2860,7 +3461,8 @@ def main() -> int:
             "serve", "score", "train", "train_bf16", "train_bf16_otf",
             "train_adv", "train_adv_dual", "train_aug_otf",
             "train_resnet_otf", "train_lcnn_otf", "train_res2net_otf",
-            "train_cnn_otf", "train_rawnet_otf")
+            "train_cnn_otf", "train_rawnet_otf", "preprocess",
+            "train_ensemble", "train_ensemble_otf", "score_ensemble")
             if f"launches_{p}" in e}
         launches = sum(by_path.values())
         print(f"{e['name']} [{gpu}]: max_abs_err {e['max_abs_err']:.3e}, "

@@ -361,9 +361,10 @@ def test_generate_score_cli_matches_jax_cli(tmp_path, small_jax, monkeypatch,
 
 
 def test_generate_score_cli_refuses_what_is_not_ported(tmp_path):
-    """What the CLI still refuses: an ensemble run (NotImplementedError,
-    ROADMAP Queue A), and RawNet2 on the feature-file tasks (ValueError:
-    it reads waveforms; ``score_raw_to_file`` scores it). Every family
+    """What the CLI refuses: an ensemble run whose checkpoint holds no
+    members (ValueError; ensembles score in tests/test_torch_ensemble.py),
+    and RawNet2 on the feature-file tasks (ValueError: it reads waveforms;
+    ``score_raw_to_file`` scores it). Every family
     loads (tests/test_torch_res2net.py, tests/test_torch_convnet.py and
     tests/test_torch_rawnet.py score them)."""
     variables, center = _weights(4)
@@ -372,7 +373,7 @@ def test_generate_score_cli_refuses_what_is_not_ported(tmp_path):
             "--device", "cpu"]
     args = json.load(open(os.path.join(run, "args.json")))
     for key, value, error, match in (
-            ("ensemble", 3, NotImplementedError, "ensembles"),
+            ("ensemble", 3, ValueError, "ensemble members"),
             ("model", "rawnet", ValueError, "waveforms")):
         json.dump(dict(args, **{key: value}),
                   open(os.path.join(run, "args.json"), "w"))

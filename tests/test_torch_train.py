@@ -418,8 +418,9 @@ def test_cli_loads_a_jax_config_file_and_refuses_fused_off(tmp_path):
 
 
 def test_unsupported_flags_raise(tmp_path):
-    """The flags the port still refuses, each named in the error (ensemble
-    and visualize: ROADMAP Queue A); the ones it trains with (bf16, K steps
+    """The flag the port still refuses, named in the error (visualize:
+    ROADMAP Queue A); ``ensemble`` now passes (tests/test_torch_ensemble.py
+    trains it); the ones it trains with (bf16, K steps
     per call, feature files with or without an aug flag, resume,
     test_on_eval, profile, ADV_AUG and the channel augmenter, all six
     model families and every add-loss that trains) are held by
@@ -432,10 +433,9 @@ def test_unsupported_flags_raise(tmp_path):
     from feature files (it reads waveforms). AMSoftmax does not train: the
     step raises ValueError, as the JAX step does."""
     base = dict(out_fold=str(tmp_path / "o"), model="ecapa", on_the_fly=True)
-    for extra, name in (({"ensemble": 2}, "ensemble"),
-                        ({"visualize": True}, "visualize")):
-        with pytest.raises(NotImplementedError, match=name):
-            train(TrainConfig(**{**base, **extra}), device="cpu")
+    with pytest.raises(NotImplementedError, match="visualize"):
+        train(TrainConfig(**{**base, "visualize": True}), device="cpu")
+    check_supported(TrainConfig(**{**base, "ensemble": 2}))
     for model in ("cnn", "resnet", "lcnn", "res2net", "ecapa", "rawnet"):
         check_supported(TrainConfig(**{**base, "model": model}))
     with pytest.raises(ValueError, match="rawnet"):

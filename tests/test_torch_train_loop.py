@@ -309,7 +309,8 @@ def test_profile_writes_a_trace(tmp_path, feature_trees):
 def test_cli_takes_the_jax_flags(tmp_path):
     """The JAX CLI's flags for this slice, on the command line and in a JAX
     ``--config`` file, reach TrainConfig; check_supported lets them
-    through."""
+    through, CQCC on the fly among them, and refuses STFT on the fly as the
+    JAX front-end does."""
     args = ["-o", str(tmp_path / "o"), "-f", "/feats",
             "--path_to_aug_features", "/aug", "--pad_chop", "false",
             "--LA_aug", "--compute_dtype", "bfloat16", "--steps_per_call",
@@ -335,5 +336,9 @@ def test_cli_takes_the_jax_flags(tmp_path):
             cfg.steps_per_call, cfg.auto_resume, cfg.feat) == (
         "/f", True, "bfloat16", 4, True, "CQCC")
     check_supported(cfg)
-    with pytest.raises(NotImplementedError, match="feat='CQCC' on the fly"):
-        check_supported(dataclasses.replace(cfg, on_the_fly=True))
+    # CQCC on the fly is ported (tests/test_torch_cqcc.py); STFT and
+    # Melspec on the fly are refused with the JAX front-end's ValueError
+    check_supported(dataclasses.replace(cfg, on_the_fly=True))
+    with pytest.raises(ValueError, match="LFCC/CQCC"):
+        check_supported(dataclasses.replace(cfg, on_the_fly=True,
+                                            feat="STFT"))

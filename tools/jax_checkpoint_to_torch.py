@@ -12,7 +12,9 @@ reads the run's ``args.json``, rebuilds the train state as the JAX
 ``restore_checkpoint`` of ``<model_dir>/best`` or ``checkpoint/<N>``),
 maps it with the port's ``interop/flax_weights.from_flax_train_state``
 (any model family; the loss module's parameters; an ADV_AUG run's
-channel classifiers and their Adam states included) and
+channel classifiers and their Adam states included; an ``--ensemble``
+run's members split off the stacked member axis by the JAX
+``member_state``, into the port's ensemble checkpoint) and
 writes ``<out>/best.pt`` (the port's checkpoint dict) and ``<out>/args.json``
 with the keys of the port's ``TrainConfig`` (``lambda_`` and ``lr_d``
 among them; the others dropped, as the port's training CLI drops them;
@@ -40,6 +42,7 @@ def convert(model_dir: str, out_dir: str, checkpoint: str = "best") -> str:
     import torch
 
     from asvspoof2021_air_tpu.train.checkpoint import restore_checkpoint
+    from asvspoof2021_air_tpu.train.ensemble import member_state
     from asvspoof2021_air_tpu.train.loop import TrainConfig as JaxConfig
     from asvspoof2021_air_tpu.train.loop import setup_training
     from asvspoof2021_air_tpu_torch.interop.flax_weights import (
@@ -50,14 +53,18 @@ def convert(model_dir: str, out_dir: str, checkpoint: str = "best") -> str:
         cfg_dict = json.load(f)
     jax_fields = set(JaxConfig.__dataclass_fields__)
     jcfg = JaxConfig(**{k: v for k, v in cfg_dict.items() if k in jax_fields})
-    if jcfg.ensemble > 1:
-        raise NotImplementedError(
-            f"ensemble={jcfg.ensemble}: the port holds single systems "
-            "(ensembles are ROADMAP Queue A)")
     _model, _loss, state, _ts, _es = setup_training(jcfg, steps_per_epoch=1)
     state = restore_checkpoint(os.path.join(model_dir, checkpoint), state)
-    ckpt = from_flax_train_state(state, MODEL_SCALE, jcfg.model,
-                                 jcfg.feat_dim)
+    convert_state = lambda st: from_flax_train_state(
+        st, MODEL_SCALE, jcfg.model, jcfg.feat_dim)
+    if jcfg.ensemble > 1:
+        # the member axis JAX stacks, split member by member
+        members = [convert_state(member_state(state, i))
+                   for i in range(jcfg.ensemble)]
+        ckpt = {"step": members[0]["step"], "members": members}
+        first = members[0]
+    else:
+        ckpt = first = convert_state(state)
 
     port_fields = set(TrainConfig.__dataclass_fields__)
     port_cfg = {k: v for k, v in cfg_dict.items() if k in port_fields}
@@ -66,7 +73,7 @@ def convert(model_dir: str, out_dir: str, checkpoint: str = "best") -> str:
     port_cfg["out_fold"] = out_dir
     if jcfg.model == "ecapa":
         port_cfg.update(model_scale=MODEL_SCALE,
-                        C=int(ckpt["model"]["conv1.weight"].shape[0]))
+                        C=int(first["model"]["conv1.weight"].shape[0]))
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "args.json"), "w") as f:
         json.dump(dataclasses.asdict(TrainConfig(**port_cfg)), f, indent=2,
