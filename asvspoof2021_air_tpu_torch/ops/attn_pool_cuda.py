@@ -9,7 +9,9 @@ a softmax over T per channel, and the attentive [mu || sigma] in f32.
 Frames at and past ``valid_len`` are excluded from every statistic.
 
 On a CUDA tensor :func:`attention_pooling` launches the kernel; on a CPU
-tensor it runs :func:`attention_pooling_plain`, which follows the kernel's
+tensor it runs :func:`attention_pooling_plain` (both through the custom op
+``asv_torch::attention_pooling`` of ``ops/custom_ops.py``, which
+``torch.export`` keeps in an exported graph), which follows the kernel's
 formulas (variance as (E[x^2] - m^2) * n / (n - 1)). The kernel runs both
 products on the tensor cores; for bf16 x it takes Wx as bf16 planes
 (:func:`split_bf16`), split once when the weights are packed.
@@ -151,6 +153,8 @@ def attention_pooling_kernel(x: torch.Tensor, p: PoolParams,
 
 def attention_pooling(x: torch.Tensor, p: PoolParams,
                       valid_len: Optional[int] = None) -> torch.Tensor:
-    """B3 on CUDA tensors, its plain version on CPU tensors."""
-    fn = attention_pooling_kernel if x.is_cuda else attention_pooling_plain
-    return fn(x, p, valid_len)
+    """B3 on CUDA tensors, its plain version on CPU tensors (the custom op
+    ``asv_torch::attention_pooling``)."""
+    from asvspoof2021_air_tpu_torch.ops import custom_ops
+
+    return custom_ops.attention_pooling(x, *p, valid_len)

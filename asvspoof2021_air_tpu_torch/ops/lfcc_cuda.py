@@ -9,7 +9,8 @@ plain torch around the kernel, as in JAX.
 On a CUDA tensor :class:`CudaLFCC` launches the kernel, a real FFT of each
 frame in registers and shared memory; on a CPU tensor it runs
 :func:`lfcc_plain`, the same function as one product against the windowed
-[cos | sin] matrix.
+[cos | sin] matrix. Both go through the custom op ``asv_torch::lfcc``
+(``ops/custom_ops.py``), which ``torch.export`` keeps in an exported graph.
 """
 
 from __future__ import annotations
@@ -136,11 +137,15 @@ class CudaLFCC:
 
     def cepstra(self, x: torch.Tensor) -> torch.Tensor:
         """Pre-emphasized (B, L) f32 -> (B, T, n_filters) via B1 on CUDA
-        tensors and its plain version on CPU tensors."""
-        if x.is_cuda:
-            return lfcc_kernel(x, self.window, self.twiddle, self.bands,
-                               self.weights, self.dct, self.config)
-        return lfcc_plain(x, self.cs, self.fb, self.dct, self.config)
+        tensors and its plain version on CPU tensors (the custom op
+        ``asv_torch::lfcc``)."""
+        from asvspoof2021_air_tpu_torch.ops import custom_ops
+
+        c = self.config
+        return custom_ops.lfcc(x, self.window, self.twiddle, self.bands,
+                               self.weights, self.dct, self.cs, self.fb,
+                               c.hop_length, c.win_length, c.n_fft,
+                               c.n_filters)
 
     def __call__(self, waveforms: torch.Tensor,
                  lengths: Optional[torch.Tensor] = None) -> torch.Tensor:

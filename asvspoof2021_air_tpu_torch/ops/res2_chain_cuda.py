@@ -11,7 +11,9 @@ affine are f32. In bf16 the kernel runs the convs on the tensor cores
 (``mma.sync``); in f32 as FMAs.
 
 On a CUDA tensor :func:`res2_chain_infer` launches the kernel; on a CPU
-tensor it runs :func:`res2_chain_plain`.
+tensor it runs :func:`res2_chain_plain`. It goes through the custom op
+``asv_torch::res2_chain`` (``ops/custom_ops.py``), so ``torch.export``
+keeps the kernel in an exported graph.
 """
 
 from __future__ import annotations
@@ -127,7 +129,8 @@ def res2_chain_kernel(x, w, cb, a, b, *, dilation: int, scale: int = 8,
 
 def res2_chain_infer(x, w, cb, a, b, *, dilation: int, scale: int = 8,
                      valid_len: Optional[int] = None) -> torch.Tensor:
-    """B2 on CUDA tensors, its plain version on CPU tensors."""
-    fn = res2_chain_kernel if x.is_cuda else res2_chain_plain
-    return fn(x, w, cb, a, b, dilation=dilation, scale=scale,
-              valid_len=valid_len)
+    """B2 on CUDA tensors, its plain version on CPU tensors (the custom op
+    ``asv_torch::res2_chain``)."""
+    from asvspoof2021_air_tpu_torch.ops import custom_ops
+
+    return custom_ops.res2_chain(x, w, cb, a, b, dilation, scale, valid_len)

@@ -13,29 +13,35 @@ import torch
 
 from asvspoof2021_air_tpu_torch.models.common import BN_EPS
 
-
-def bn_affine(sd: Dict[str, torch.Tensor], name: str, x: torch.Tensor
-              ) -> torch.Tensor:
-    """Inference BatchNorm over the last axis in f32, cast back to x's type:
-    (x - mean) * (rsqrt(var + eps) * weight) + bias."""
-    mul = torch.rsqrt(sd[name + ".running_var"] + BN_EPS) * sd[name + ".weight"]
-    y = (x.float() - sd[name + ".running_mean"]) * mul + sd[name + ".bias"]
-    return y.to(x.dtype)
+BN_FIELDS = ("running_mean", "running_var", "weight", "bias")
 
 
-class Head:
-    """``bn5`` -> ``fc6`` -> ``fc7`` -> ``bn7`` on (B, 3072) pooled stats."""
+class Head(torch.nn.Module):
+    """``bn5`` -> ``fc6`` -> ``fc7`` -> ``bn7`` on (B, 3072) pooled stats;
+    its weights are buffers."""
 
     def __init__(self, sd: Dict[str, torch.Tensor], dtype: torch.dtype):
-        self.sd, self.dtype = sd, dtype
-        self.w6 = sd["fc6.weight"].t().to(dtype)
-        self.b6 = sd["fc6.bias"].to(dtype)
-        self.w7 = sd["fc7.weight"].t().to(dtype)
-        self.b7 = sd["fc7.bias"].to(dtype)
+        super().__init__()
+        self.dtype = dtype
+        for bn in ("bn5", "bn7"):
+            for f in BN_FIELDS:
+                self.register_buffer(f"{bn}_{f}", sd[f"{bn}.{f}"])
+        self.register_buffer("w6", sd["fc6.weight"].t().to(dtype))
+        self.register_buffer("b6", sd["fc6.bias"].to(dtype))
+        self.register_buffer("w7", sd["fc7.weight"].t().to(dtype))
+        self.register_buffer("b7", sd["fc7.bias"].to(dtype))
 
-    def __call__(self, pooled: torch.Tensor
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        x = bn_affine(self.sd, "bn5", pooled.to(self.dtype))
+    def bn_affine(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        """Inference BatchNorm ``name`` over the last axis in f32, cast back
+        to x's type: (x - mean) * (rsqrt(var + eps) * weight) + bias."""
+        mean, var, weight, bias = (getattr(self, f"{name}_{f}")
+                                   for f in BN_FIELDS)
+        mul = torch.rsqrt(var + BN_EPS) * weight
+        return ((x.float() - mean) * mul + bias).to(x.dtype)
+
+    def forward(self, pooled: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        x = self.bn_affine("bn5", pooled.to(self.dtype))
         feat = x @ self.w6 + self.b6
-        out = bn_affine(self.sd, "bn7", feat @ self.w7 + self.b7)
+        out = self.bn_affine("bn7", feat @ self.w7 + self.b7)
         return feat.float(), out.float()

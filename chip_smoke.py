@@ -177,7 +177,25 @@ Phases, each fatal on failure:
    over 136 files without class signal: the members' EERs differ and the
    fused file is their entropy-weighted sum (1e-6); print ms per step and
    utterances/s (B a step, and M B member-utterances), peak memory and
-   profiles of both graphs with the busy share.
+   profiles of both graphs with the busy share;
+6. drive the int8 serving tiers at full width (ECAPA-TDNN-512, B = 64, T
+   = 750 padded to 752 as JAX's fused chain pads, bf16, LFCC of synthetic
+   utterances through B1): ``quantize`` True, "mfa" and False, each with
+   dynamic and with calibrated activation scales
+   (``calibrate_act_scales`` in f32 over two other batches); B1, B2 and
+   B3's launches over one forward of each tier; each tier against the f32
+   serving graph at JAX's bars (embedding cosine > 0.999, logits atol
+   0.05 / rtol 0.1) and against its twin with B2/B3's plain versions on
+   the card (cosine > 0.9999, the same logit bars); each tier's ms a
+   batch (CUDA events, LFCC included, as phase 3's forward) beside phase
+   3's; the device time of ``aten::_int_mm`` against ``aten::mm`` in each
+   tier and a profile of the int8 forward; then ``cli.export`` of a
+   full-width ECAPA + ang_iso run folder for features, for ``--raw``
+   (7.49 s) and with ``--quantize int8``, each with ``--check``: the
+   launches of those runs, each loaded artifact's custom ops in its graph,
+   the B1/B2/B3 launches of one run of it, its scores against the live
+   scorer (1e-5), its ms a batch against the live scorer's and its bytes;
+   the int8 export's parameter bytes and score deviation.
 
 Each phase's seconds are printed.
 
@@ -1040,6 +1058,7 @@ def main_path(torch, gpu: str, entries):
           f"corpus from WAV {wav_wall * 1e3 / n_batches:.2f} ms/batch; "
           f"forward (LFCC + ECAPA, B={B}, bf16) {fwd_ms:.3f} ms/batch = "
           f"{B / fwd_ms * 1e3:.1f} utt/s (CUDA events)")
+    return fwd_ms
 
 
 def write_feature_tree(root: str, n: int, seed: int, labeled: bool,
@@ -3409,6 +3428,284 @@ def train_ensemble_path(torch, gpu: str, entries):
           f"fusion {score_wall:.2f} s")
 
 
+@contextlib.contextmanager
+def plain_b2_b3():
+    """B2's and B3's plain versions in place of the kernels on CUDA tensors
+    (the twin path the int8 tiers are held against in phase 6); the custom
+    ops look the launchers up at each call."""
+    from asvspoof2021_air_tpu_torch.ops import attn_pool_cuda as ap
+    from asvspoof2021_air_tpu_torch.ops import res2_chain_cuda as rc
+
+    saved = rc.res2_chain_kernel, ap.attention_pooling_kernel
+    rc.res2_chain_kernel = rc.res2_chain_plain
+    ap.attention_pooling_kernel = ap.attention_pooling_plain
+    try:
+        yield
+    finally:
+        rc.res2_chain_kernel, ap.attention_pooling_kernel = saved
+
+
+def synthetic_waves(n: int, seed: int) -> np.ndarray:
+    """(n, L) f32 7.49 s utterances as ``write_corpus`` makes them: bona
+    fide noise, spoof a tone + noise."""
+    g = np.random.default_rng(seed)
+    t = np.arange(L) / 16000.0
+    out = np.empty((n, L), np.float32)
+    for i in range(n):
+        wav = 0.1 * g.standard_normal(L)
+        if i % 2:
+            wav = 0.3 * np.sin(2 * np.pi * (300 + 7 * i) * t) + 0.02 * wav
+        out[i] = wav
+    return out
+
+
+def op_device_ms(torch, fn, names):
+    """{operator: (calls, device ms)} over one call of fn: the device time
+    of the kernels each named operator launched (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {name: (0, 0.0) for name in names}
+    for ev in prof.key_averages():
+        if ev.key in out:
+            us = getattr(ev, "device_time_total", None)
+            if us is None:
+                us = getattr(ev, "cuda_time_total", 0.0)
+            out[ev.key] = (ev.count, float(us) / 1e3)
+    return out
+
+
+def cosine_min(torch, a, b) -> float:
+    return float(torch.nn.functional.cosine_similarity(
+        a.float(), b.float(), dim=1).min())
+
+
+def int8_export_path(torch, gpu: str, entries, fwd_ms: float):
+    """Phase 6: the int8 serving tiers, then the scorer exported by
+    ``torch.export``, saved, loaded and run, at full width."""
+    import dataclasses
+
+    from asvspoof2021_air_tpu_torch.cli.export import (
+        build_score_module, export_system)
+    from asvspoof2021_air_tpu_torch.cli.generate_score import load_system
+    from asvspoof2021_air_tpu_torch.interop.flax_weights import (
+        from_flax_variables, random_flax_variables)
+    from asvspoof2021_air_tpu_torch.ops import attn_pool_cuda as ap
+    from asvspoof2021_air_tpu_torch.ops import custom_ops
+    from asvspoof2021_air_tpu_torch.ops import lfcc_cuda as lc
+    from asvspoof2021_air_tpu_torch.ops import res2_chain_cuda as rc
+    from asvspoof2021_air_tpu_torch.serving.ecapa_int8 import (
+        calibrate_act_scales, pad_time)
+    from asvspoof2021_air_tpu_torch.serving.ecapa_serving import ServingECAPA
+    from asvspoof2021_air_tpu_torch.train.checkpoint import save_checkpoint
+    from asvspoof2021_air_tpu_torch.train.frontend import OnDeviceFrontend
+    from asvspoof2021_air_tpu_torch.train.loop import (
+        TrainConfig, setup_training)
+
+    def counts():
+        return {"B1": lc.launches, "B2": rc.launches, "B3": ap.launches}
+
+    sd = from_flax_variables(random_flax_variables(
+        0, C=C, model_scale=8, enc_dim=256), model_scale=8)
+    fe = OnDeviceFrontend(feat_len=T, padding="repeat", device=DEVICE)
+    full = torch.full((B,), L, device=DEVICE)
+    batch_of = lambda seed: {"wave": torch.from_numpy(
+        synthetic_waves(B, seed)).to(DEVICE), "length": full}
+    tiers = [(q, cal) for q in (True, "mfa", False) for cal in (False, True)]
+    name = lambda q, cal: (f"quantize={q!r}, "
+                           f"{'calibrated' if cal else 'dynamic'}")
+    with torch.inference_mode():
+        # JAX calibrates in f32 without the alignment padding.
+        scales = calibrate_act_scales(
+            sd, [fe(batch_of(s)) for s in (11, 12)], device=DEVICE)
+        batch = batch_of(10)
+        ref_emb, ref_logits = ServingECAPA(sd, dtype=torch.float32,
+                                           device=DEVICE)(fe(batch))
+        models = {k: ServingECAPA(sd, dtype=torch.bfloat16, quantize=k[0],
+                                  act_scales=scales if k[1] else None,
+                                  device=DEVICE) for k in tiers}
+
+        def serve(model):
+            """LFCC, then the tier with T padded to a multiple of 8 (JAX's
+            fused_chain=True), as phase 3's forward (LFCC + ECAPA)."""
+            x, valid = pad_time(fe(batch))
+            return model(x, valid_len=valid)
+
+        for m in models.values():             # warm-up (cuBLASLt plans)
+            serve(m)
+        torch.cuda.synchronize()
+        lc.launches = rc.launches = ap.launches = 0
+        outs = {k: serve(m) for k, m in models.items()}
+        torch.cuda.synchronize()
+        got = counts()
+        print(f"int8 tiers: launches over one forward of each of the "
+              f"{len(tiers)} tiers: {got}")
+        check(got == {"B1": len(tiers), "B2": 3 * len(tiers),
+                      "B3": len(tiers)},
+              f"the int8 tiers did not run B1, B2 3x and B3 once each: {got}")
+        for k, v in got.items():
+            entries[k]["launches_serve_int8"] = v
+        with plain_b2_b3():
+            plain = {k: serve(m) for k, m in models.items()}
+        print(f"int8 tiers [{gpu}] (B={B}, T={T} padded to "
+              f"{-(-T // 8) * 8}, bf16, C={C};"
+              f" CUDA events, LFCC included as in phase 3's forward "
+              f"{fwd_ms:.3f} ms):")
+        tier_ms = {}
+        for k in tiers:
+            emb, logits = outs[k]
+            p_emb, p_logits = plain[k]
+            check(bool(torch.isfinite(emb).all() and
+                       torch.isfinite(logits).all()),
+                  f"{name(*k)}: non-finite outputs")
+            cos_ref, cos_plain = (cosine_min(torch, emb, ref_emb),
+                                  cosine_min(torch, emb, p_emb))
+            ok_ref = bool(torch.allclose(logits, ref_logits, atol=0.05,
+                                         rtol=0.1))
+            ok_plain = bool(torch.allclose(logits, p_logits, atol=0.05,
+                                           rtol=0.1))
+            tier_ms[k] = time_ms(torch, lambda: serve(models[k]), iters=10)
+            print(f"  {name(*k)}: {tier_ms[k]:.3f} ms/batch "
+                  f"({B / tier_ms[k] * 1e3:.1f} utt/s); embedding cosine vs "
+                  f"the f32 graph {cos_ref:.6f} (bar 0.999), logits "
+                  f"{max_err(logits, ref_logits):.3e} from it (atol 0.05, "
+                  f"rtol 0.1: {ok_ref}); vs plain B2/B3 on the card cosine "
+                  f"{cos_plain:.7f} (bar 0.9999), logits "
+                  f"{max_err(logits, p_logits):.3e} ({ok_plain})")
+            check(cos_ref > 0.999 and ok_ref,
+                  f"{name(*k)} misses JAX's bars against the f32 graph")
+            check(cos_plain > 0.9999 and ok_plain,
+                  f"{name(*k)} differs from its plain-B2/B3 twin")
+        split = {k: op_device_ms(torch, lambda: serve(models[(k, False)]),
+                                 ("aten::_int_mm", "aten::mm"))
+                 for k in (True, "mfa", False)}
+        for k, ops in split.items():
+            print(f"  products, quantize={k!r} (dynamic): "
+                  + ", ".join(f"{op} x{n} {ms:.3f} ms"
+                              for op, (n, ms) in ops.items()))
+        # One MFA third alone: (B T', C) @ (C, 1536), int8 with the weight
+        # as the tiers store it ((N, K), passed transposed) and as a (K, N)
+        # row-major matrix, against the same product in bf16.
+        rows, n_out = B * (-(-T // 8) * 8), 3 * C
+        gen = torch.Generator(device=DEVICE).manual_seed(1)
+        a8 = torch.randint(-127, 128, (rows, C), generator=gen,
+                           device=DEVICE, dtype=torch.int8)
+        w8 = torch.randint(-127, 128, (n_out, C), generator=gen,
+                           device=DEVICE, dtype=torch.int8)
+        w8_kn = w8.t().contiguous()
+        ab, wb = a8.bfloat16(), w8_kn.bfloat16()
+        ops = 2.0 * rows * C * n_out
+        for what, fn, peak in (
+                ("_int_mm, weight (N, K) transposed", lambda: torch._int_mm(
+                    a8, w8.t()), 1979e12),
+                ("_int_mm, weight (K, N) row-major", lambda: torch._int_mm(
+                    a8, w8_kn), 1979e12),
+                ("bf16 matmul", lambda: ab @ wb, 989e12)):
+            ms = time_ms(torch, fn, iters=20)
+            print(f"  one MFA third ({rows} x {C} x {n_out}) {what}: "
+                  f"{ms:.4f} ms = {ops / ms / 1e9:.0f} TOP/s (bound "
+                  f"{ops / peak * 1e3:.4f} ms at the peak)")
+        profile_device(torch, lambda: serve(models[(True, False)]),
+                       tier_ms[(True, False)], "int8 forward (dynamic)")
+
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            run = os.path.join(tmp, "runs", "sys")
+            cfg = TrainConfig(out_fold=run, model="ecapa", add_loss="ang_iso",
+                              on_the_fly=True, C=C, feat_len=T)
+            state = setup_training(cfg, 1, device=DEVICE)[2]
+            state.model.load_state_dict(sd)
+            with torch.no_grad():
+                state.loss_module.center.copy_(torch.from_numpy(
+                    np.random.default_rng(6).uniform(-1, 1, (1, 256))))
+            os.makedirs(run)
+            with open(os.path.join(run, "args.json"), "w") as f:
+                json.dump(dataclasses.asdict(cfg), f)
+            save_checkpoint(os.path.join(run, "best.pt"), state)
+            kinds = {"features": {}, "raw": {"raw": True},
+                     "int8": {"quantize": "int8"}}
+            metas, secs = {}, {}
+            lc.launches = rc.launches = ap.launches = 0
+            for kind, kw in kinds.items():
+                t0 = time.perf_counter()
+                metas[kind] = export_system(
+                    run, os.path.join(tmp, f"{kind}.pt2"), batch_size=B,
+                    check=True, device=DEVICE, **kw)
+                torch.cuda.synchronize()
+                secs[kind] = time.perf_counter() - t0
+            got = counts()
+            print(f"export: launches over the three exports' --check runs "
+                  f"(artifact and live scorer each): {got}")
+            check(got["B1"] >= 2 and got["B2"] >= 18 and got["B3"] >= 6,
+                  f"the exported paths did not launch B1-B3: {got}")
+            for k, v in got.items():
+                entries[k]["launches_export"] = v
+            sd_run, loss_mod, cfg_run = load_system(run, device=DEVICE)
+            g = np.random.default_rng(0)
+            for kind in ("features", "raw"):
+                meta = metas[kind]
+                frontend = (OnDeviceFrontend(feat_len=T, padding="repeat",
+                                             device=DEVICE)
+                            if kind == "raw" else None)
+                live = build_score_module([sd_run], [loss_mod], cfg_run,
+                                          frontend, DEVICE)
+                back = torch.export.load(
+                    os.path.join(tmp, f"{kind}.pt2")).module()
+                if kind == "raw":
+                    n = meta["signature"]["wave"][1]
+                    args = (torch.from_numpy(g.standard_normal(
+                        (B, n)).astype(np.float32) * 0.1).to(DEVICE),
+                        torch.full((B,), n, dtype=torch.int32,
+                                   device=DEVICE))
+                else:
+                    args = (torch.from_numpy(g.standard_normal(
+                        (B, T, 60)).astype(np.float32)).to(DEVICE),)
+                with torch.no_grad():
+                    lc.launches = rc.launches = ap.launches = 0
+                    got_scores = back(*args)
+                    torch.cuda.synchronize()
+                    ran = counts()
+                    want = live(*args)
+                    err = max_err(got_scores, want)
+                    art_ms = time_ms(torch, lambda: back(*args), iters=10)
+                    live_ms = time_ms(torch, lambda: live(*args), iters=10)
+                graph_ops = {op: sum(
+                    str(nd.target) == f"{custom_ops.NAMESPACE}.{op}.default"
+                    for nd in back.graph.nodes) for op in custom_ops.OPS}
+                want_ran = {"B1": int(kind == "raw"), "B2": 3, "B3": 1}
+                print(f"export {kind} [{gpu}]: {meta['bytes']} bytes, "
+                      f"export + save + --check {secs[kind]:.1f} s; graph "
+                      f"custom ops {graph_ops}; one run of the loaded "
+                      f"artifact launched {ran}; scores vs the live scorer "
+                      f"{err:.3e} (bar 1e-5); artifact {art_ms:.3f} ms/batch"
+                      f" vs live {live_ms:.3f} ms/batch (B={B}, f32, CUDA "
+                      f"events)")
+                check(ran == want_ran and err <= 1e-5
+                      and bool(torch.isfinite(got_scores).all()),
+                      f"export {kind}: launches {ran}, error {err}")
+            q = metas["int8"]
+            print(f"export int8 [{gpu}]: {q['bytes']} bytes, parameters "
+                  f"{q['param_bytes_int8']} bytes int8 vs "
+                  f"{q['param_bytes_f32']} f32 "
+                  f"({q['param_bytes_int8'] / q['param_bytes_f32']:.3f}); "
+                  f"scores {q['quantized_score_max_dev']:.3e} from the "
+                  f"float system, rank agreement "
+                  f"{q['quantized_rank_agreement']:.4f}; export + save + "
+                  f"--check {secs['int8']:.1f} s")
+            check(q["param_bytes_int8"] < 0.35 * q["param_bytes_f32"]
+                  and q["quantized_score_max_dev"] < 0.05,
+                  f"export int8: {q}")
+        finally:
+            os.chdir(cwd)
+
+
 def main() -> int:
     try:
         import torch
@@ -3442,7 +3739,7 @@ def main() -> int:
 
     entries = phase("2", kernel_checks, torch, gen)
     phase("2b", vjp_checks, torch, gen, entries)
-    phase("3", main_path, torch, gpu, entries)
+    fwd_ms = phase("3", main_path, torch, gpu, entries)
     phase("3b", score_path, torch, gpu, entries)
     f32_ms, _ = phase("4", train_path, torch, gpu, entries)
     phase("4b", train_bf16_path, torch, gpu, entries, f32_ms)
@@ -3451,6 +3748,7 @@ def main() -> int:
     phase("4e", train_new_families_path, torch, gpu, entries)
     phase("5", preprocess_path, torch, gpu, entries)
     phase("5b", train_ensemble_path, torch, gpu, entries)
+    phase("6", int8_export_path, torch, gpu, entries, fwd_ms)
     print(f"phase seconds: { {k: round(v, 1) for k, v in seconds.items()} }")
 
     kernels = []
@@ -3462,7 +3760,8 @@ def main() -> int:
             "train_adv", "train_adv_dual", "train_aug_otf",
             "train_resnet_otf", "train_lcnn_otf", "train_res2net_otf",
             "train_cnn_otf", "train_rawnet_otf", "preprocess",
-            "train_ensemble", "train_ensemble_otf", "score_ensemble")
+            "train_ensemble", "train_ensemble_otf", "score_ensemble",
+            "serve_int8", "export")
             if f"launches_{p}" in e}
         launches = sum(by_path.values())
         print(f"{e['name']} [{gpu}]: max_abs_err {e['max_abs_err']:.3e}, "

@@ -186,6 +186,61 @@ def test_kernel_launchers_refuse_cpu_tensors_and_bad_shapes():
                                  z(2, 256))
 
 
+def test_int8_and_export_entry_points_default_to_cuda_and_refuse_the_cpu(
+        monkeypatch, tmp_path):
+    """The int8 tiers, their calibration and the export (function and CLI)
+    raise on a machine without CUDA unless asked for the CPU."""
+    from asvspoof2021_air_tpu_torch.cli import export
+    from asvspoof2021_air_tpu_torch.interop.flax_weights import (
+        from_flax_variables)
+    from asvspoof2021_air_tpu_torch.serving import ecapa_apply_int8
+    from asvspoof2021_air_tpu_torch.serving.ecapa_int8 import (
+        calibrate_act_scales)
+    from asvspoof2021_air_tpu_torch.serving.ecapa_serving import ServingECAPA
+
+    sd = from_flax_variables(random_flax_variables(0, C=16, model_scale=4,
+                                                   enc_dim=8), model_scale=4)
+    feats = torch.zeros(2, 12, 60)
+    run = tmp_path / "run"
+    run.mkdir()
+    (run / "args.json").write_text('{"model": "ecapa"}')
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (lambda: ecapa_apply_int8(sd, feats, model_scale=4),
+                 lambda: calibrate_act_scales(sd, [feats], model_scale=4),
+                 lambda: ServingECAPA(sd, model_scale=4, quantize=True),
+                 lambda: export.export_system(str(run), str(tmp_path / "a")),
+                 lambda: export.main(["--model_folder", str(tmp_path), "-n",
+                                      "run", "-o", str(tmp_path / "a")])):
+        with pytest.raises(RuntimeError, match="cuda"):
+            make()
+    emb, _ = ecapa_apply_int8(sd, feats, model_scale=4, device="cpu")
+    assert emb.shape == (2, 8) and emb.device.type == "cpu"
+    with pytest.raises(ValueError, match="quantize"):
+        ServingECAPA(sd, model_scale=4, quantize="int4", device="cpu")
+
+
+def test_custom_ops_have_cuda_cpu_and_fake_kernels():
+    """B1, B2 and B3 are registered in ``asv_torch`` with a CUDA kernel (the
+    launcher), a CPU kernel (the plain version) and a fake one; on CPU
+    tensors an op gives its plain version's result."""
+    from asvspoof2021_air_tpu_torch.ops import custom_ops
+    from asvspoof2021_air_tpu_torch.ops.res2_chain_cuda import (
+        res2_chain_plain)
+
+    for op in custom_ops.OPS:
+        name = f"{custom_ops.NAMESPACE}::{op}"
+        for key in ("CUDA", "CPU", "Meta"):
+            assert torch._C._dispatch_has_kernel_for_dispatch_key(name, key), \
+                (name, key)
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 10, 64, generator=g)
+    w, cb, a, b = (torch.randn(s, generator=g) for s in
+                   ((7, 24, 8), (7, 8), (7, 8), (7, 8)))
+    got = torch.ops.asv_torch.res2_chain(x, w, cb, a, b, 2, 8, 7)
+    assert torch.equal(got, res2_chain_plain(x, w, cb, a, b, dilation=2,
+                                             valid_len=7))
+
+
 def test_scoring_slice_entry_points_default_to_cuda_and_refuse_the_cpu(
         monkeypatch, tmp_path):
     """The feature-file scorer, its CLI and loaders, the scanned runner and
