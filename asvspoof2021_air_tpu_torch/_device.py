@@ -2,6 +2,10 @@
 
 The default device is the GPU. The CPU is used only when the caller asks
 for it by name; a missing GPU is an error, never a silent fall-back.
+"cuda" names the process's current card: under ``torchrun`` one process
+runs on each GPU, and ``parallel/distributed.initialize_distributed``
+makes ``cuda:LOCAL_RANK`` current, so every entry point of that process
+lands there.
 """
 
 from __future__ import annotations

@@ -27,6 +27,11 @@ member to ``<name>_member{i}`` and writes their fusion under ``<name>``
 in the single-system layout (:func:`write_fused_score_file`): the average
 (``--fusion avg``, the default) or, on a labeled '19*' task, the members'
 EER-derived entropy weights (``--fusion wght``).
+
+Under ``torchrun --nproc_per_node=N`` (NCCL on the card, gloo with
+``--device cpu``) every process scores its rows of each batch
+(``scoring.score_to_file(shard=)``: N must divide ``--batch_size``) and
+rank 0 writes the files, the one process's.
 """
 
 from __future__ import annotations
@@ -37,12 +42,16 @@ import os
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from asvspoof2021_air_tpu_torch._device import resolve_device
 from asvspoof2021_air_tpu_torch.fusion import entropy_weights
 from asvspoof2021_air_tpu_torch.losses.registry import build_loss
 from asvspoof2021_air_tpu_torch.metrics.evaluate import (
     eer_from_score_file, read_score_file)
+from asvspoof2021_air_tpu_torch.parallel.distributed import (
+    initialize_distributed)
+from asvspoof2021_air_tpu_torch.parallel.mesh import make_mesh, world
 from asvspoof2021_air_tpu_torch.scoring import TASKS, test_on_asvspoof2021
 from asvspoof2021_air_tpu_torch.train.checkpoint import restore_checkpoint
 from asvspoof2021_air_tpu_torch.train.loop import TrainConfig
@@ -148,6 +157,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> str:
     args = build_parser().parse_args(argv)
+    initialize_distributed(device=args.device)
+    rank, size = world()
+    shard = make_mesh(args.device) if size > 1 else None
+    say = print if rank == 0 else (lambda *a, **k: None)
     out_dir = "./scores" if "19" in args.task else args.score_dir
     model_dir = os.path.join(args.model_folder, args.model_name)
     ckpt = args.checkpoint
@@ -165,7 +178,7 @@ def main(argv=None) -> str:
         aliases = {"ocsoftmax": "ang_iso", "ang_iso": "ocsoftmax"}
         if trained is not None and score_loss not in (
                 trained, aliases.get(trained)):
-            print(f"warning: scoring rule -l {score_loss} differs from the "
+            say(f"warning: scoring rule -l {score_loss} differs from the "
                   f"run's trained add_loss {trained}", flush=True)
     paths = {"ori_features": args.ori_features,
              "aug_features": args.aug_features,
@@ -176,31 +189,34 @@ def main(argv=None) -> str:
         feat_len=cfg.feat_len, padding=cfg.padding,
         scan_batches=args.scan_batches, dtype=DTYPES[args.dtype],
         model_scale=cfg.model_scale, model=cfg.model, feat_dim=cfg.feat_dim,
-        device=args.device)
+        device=args.device, shard=shard)
     if cfg.ensemble == 1:
         out = score(sd, loss_mod, args.model_name)
-        print(f"wrote {out}")
+        say(f"wrote {out}")
         return out
     # each member, then their fusion (the reference's score_fusion
     # workflow in one command)
     member_files = []
     for i, (msd, mloss) in enumerate(zip(sd, loss_mod)):
         member_files.append(score(msd, mloss, f"{args.model_name}_member{i}"))
-        print(f"wrote {member_files[-1]}")
+        say(f"wrote {member_files[-1]}")
     if "19" in args.task:
         out = os.path.join(out_dir, f"{args.model_name}_{args.task}_score.txt")
     else:
         out = os.path.join(out_dir, f"{args.model_name}_{args.task}",
                            "score.txt")
-    weights = None
-    if args.fusion == "wght":
-        eers = [eer_from_score_file(f) for f in member_files]
-        weights = entropy_weights(eers)
-        print(f"member EERs {['%.4f' % e for e in eers]} -> weights "
-              f"{['%.3f' % w for w in weights]}")
-    write_fused_score_file(member_files, out, weights)
-    print(f"wrote {out} ({args.fusion} fusion of {len(member_files)} "
-          f"members)")
+    if rank == 0:       # the member files are written (score_to_file)
+        weights = None
+        if args.fusion == "wght":
+            eers = [eer_from_score_file(f) for f in member_files]
+            weights = entropy_weights(eers)
+            say(f"member EERs {['%.4f' % e for e in eers]} -> weights "
+                f"{['%.3f' % w for w in weights]}")
+        write_fused_score_file(member_files, out, weights)
+        say(f"wrote {out} ({args.fusion} fusion of {len(member_files)} "
+            f"members)")
+    if shard is not None:
+        dist.barrier()
     return out
 
 

@@ -21,6 +21,16 @@ waveforms only).
         -m ecapa --add_loss ang_iso --ensemble 3 [--compute_dtype bfloat16] \
         [--steps_per_call 8]
 
+    torchrun --nproc_per_node=N -m asvspoof2021_air_tpu_torch.cli.train \
+        ... [--device cpu]
+
+Under ``torchrun`` each process joins the process group
+(``parallel/distributed.initialize_distributed``: NCCL on the card, one
+GPU a process, gloo with ``--device cpu``) and ``train`` runs over the
+ranks (``train/loop.py``): a single system data-parallel (the batch size
+must split over the N processes), ``--ensemble M`` with its members spread
+over them; rank 0 writes the run folder and prints the summary.
+
 The argparse front of the JAX package's ``cli/train.py``, every flag of
 it; ``--C`` and ``--model_scale`` narrow ECAPA and ``--device`` picks the
 card or the CPU. ``-m`` takes the JAX CLI's choices, all six. RawNet2's
@@ -41,6 +51,9 @@ from __future__ import annotations
 import argparse
 import json
 
+from asvspoof2021_air_tpu_torch.parallel.distributed import (
+    initialize_distributed)
+from asvspoof2021_air_tpu_torch.parallel.mesh import world
 from asvspoof2021_air_tpu_torch.train.loop import TrainConfig, train
 from asvspoof2021_air_tpu_torch.train.steps import TRAINED_LOSSES
 from asvspoof2021_air_tpu_torch.utils.seed import str2bool
@@ -188,8 +201,10 @@ def main(argv=None):
     if args.test_only:
         print("test_only: use cli.generate_score for scoring")
         return
+    initialize_distributed(device=args.device)
     summary = train(config, device=args.device)
-    print(summary)
+    if world()[0] == 0:
+        print(summary)
 
 
 if __name__ == "__main__":

@@ -31,12 +31,13 @@ import math
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from asvspoof2021_air_tpu_torch.ops.bn_relu_vjp import (
-    bn_leaky_relu_train, bn_relu_train, bn_train, channel_layout,
-    relu_bn_train)
+    AllReduceSum, bn_leaky_relu_train, bn_relu_train, bn_train,
+    channel_layout, current_group, relu_bn_train)
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.9      # flax: the retained fraction of the running statistics
@@ -102,7 +103,9 @@ class BatchNorm(nn.Module):
     pair (bn5, bn7, the SE modules') take autograd's VJP, as JAX's
     autodiff does there, and its bf16 trajectory against JAX's depends on
     that rounding order (with ``bn_train`` the bf16 loss four steps on is
-    2.5% from JAX's, past tests/test_torch_train_bf16.py's 2% bar)."""
+    2.5% from JAX's, past tests/test_torch_train_bf16.py's 2% bar).
+    Inside ``ops/bn_relu_vjp.batch_norm_group`` every train-mode path
+    normalizes with the moments across the group's ranks."""
 
     def __init__(self, num_features: int, eps: float = BN_EPS,
                  momentum: float = BN_MOMENTUM,
@@ -147,8 +150,18 @@ class BatchNorm(nn.Module):
             return self._out(y, x)
         dims, shape = channel_layout(x, dim)
         xf = x.float()
-        mu = xf.mean(dims)
-        var = torch.clamp((xf * xf).mean(dims) - mu * mu, min=0.0)
+        group = current_group()
+        if group is None:
+            mu = xf.mean(dims)
+            var = torch.clamp((xf * xf).mean(dims) - mu * mu, min=0.0)
+        else:
+            # the moments across the group, through a differentiable
+            # all-reduce (ops/bn_relu_vjp.batch_norm_group)
+            n = xf.numel() // xf.shape[dim] * dist.get_world_size(group)
+            s = AllReduceSum.apply(
+                torch.cat([xf.sum(dims), (xf * xf).sum(dims)]), group)
+            mu, ms = (s / n).chunk(2)
+            var = torch.clamp(ms - mu * mu, min=0.0)
         self._update(mu.detach(), var.detach())
         mul = torch.rsqrt(var + self.eps) * self.weight
         y = (xf - mu.view(shape)) * mul.view(shape) + self.bias.view(shape)

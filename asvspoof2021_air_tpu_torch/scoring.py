@@ -21,15 +21,21 @@ ECAPA, ResNet and LCNN (SE-Res2Net50, ConvNet and RawNet2 have no bf16
 model in the JAX package, and the port adds none: they score in f32).
 RawNet2 reads waveforms, so it scores through ``score_raw_to_file`` with
 a ``WaveformFrontend``; the feature-file tasks refuse it.
+
+Over several GPUs (``score_to_file(shard=)``, the JAX scorer's ``shard``):
+each rank scores its rows of every batch, the scores are gathered, and
+rank 0 writes the one process's file.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from asvspoof2021_air_tpu_torch._device import resolve_device
 from asvspoof2021_air_tpu_torch.data.datasets import (
@@ -40,6 +46,8 @@ from asvspoof2021_air_tpu_torch.interop.checkpoints import (
     convnet_from_state_dict, lcnn_from_state_dict, rawnet_from_state_dict,
     res2net_from_state_dict, resnet_from_state_dict)
 from asvspoof2021_air_tpu_torch.models.registry import MODEL_REGISTRY
+from asvspoof2021_air_tpu_torch.parallel.mesh import (
+    Mesh, batch_sharding, gather)
 from asvspoof2021_air_tpu_torch.serving.ecapa_serving import ServingECAPA
 from asvspoof2021_air_tpu_torch.serving.stream import make_scanned_infer
 
@@ -152,35 +160,62 @@ def _write_scored(f, batch, scores: np.ndarray, labeled: bool) -> None:
 
 def score_to_file(score_fn: Callable, dataset, output_path: str,
                   labeled: bool, batch_size: int = 64, feat_len: int = 750,
-                  padding: str = "repeat", scan_batches: int = 1) -> str:
+                  padding: str = "repeat", scan_batches: int = 1,
+                  shard: Optional[Mesh] = None) -> str:
     """Score ``dataset`` in batches of ``batch_size`` (the last one filled
     up, its extra rows not written) and write the score file.
 
     ``scan_batches=K`` runs K consecutive batches as one dispatch
     (``serving/stream.make_scanned_infer``: a CUDA graph on the card) with
     the same scores; a tail of fewer than K batches runs batch by batch.
-    The scan runs on ``score_fn.device`` ("cuda" when it has none)."""
-    os.makedirs(os.path.dirname(os.path.abspath(output_path)), exist_ok=True)
+    The scan runs on ``score_fn.device`` ("cuda" when it has none).
+
+    ``shard``, a 1-D "data" mesh (``parallel/mesh.make_mesh``) of W ranks
+    that all call this with the same arguments: each rank scores its
+    contiguous ``batch_size / W`` rows of every batch (W must divide
+    ``batch_size``), the scores are gathered over the mesh, and rank 0
+    writes the file, the one process's file, then every rank returns."""
     it = SequentialIterator(dataset, batch_size, feat_len, padding)
+    group = None if shard is None else shard.group()
+    rows = (slice(None) if shard is None
+            else batch_sharding(shard)(batch_size))
     scanned = None
     if scan_batches > 1:
         scanned = make_scanned_infer(score_fn,
                                      getattr(score_fn, "device", "cuda"))
-    run = lambda batch: score_fn(batch["feat"]).cpu().numpy()
-    with open(output_path, "w") as f, torch.no_grad():
-        group: list = []
+
+    def scores(feats, fn, axis: int) -> np.ndarray:
+        """The global batch's scores of ``fn`` on this rank's rows of
+        ``feats`` (rows on ``axis``), gathered."""
+        local = fn(feats[(slice(None),) * axis + (rows,)])
+        if group is None:
+            return local.cpu().numpy()
+        got = gather(local, group)          # (W, [K,] B / W)
+        return torch.cat(got.unbind(), dim=axis).cpu().numpy()
+
+    lead = shard is None or shard.index() == 0
+    if lead:
+        os.makedirs(os.path.dirname(os.path.abspath(output_path)),
+                    exist_ok=True)
+    with (open(output_path, "w") if lead else contextlib.nullcontext()) \
+            as f, torch.no_grad():
+        write = (lambda b, sc: _write_scored(f, b, sc, labeled)) if lead \
+            else (lambda b, sc: None)
+        pending: list = []
         for batch in it:
             if scanned is None:
-                _write_scored(f, batch, run(batch), labeled)
+                write(batch, scores(batch["feat"], score_fn, 0))
                 continue
-            group.append(batch)
-            if len(group) == scan_batches:
-                stacked = np.stack([b["feat"] for b in group])
-                for b, s in zip(group, scanned(stacked).cpu().numpy()):
-                    _write_scored(f, b, s, labeled)
-                group = []
-        for batch in group:
-            _write_scored(f, batch, run(batch), labeled)
+            pending.append(batch)
+            if len(pending) == scan_batches:
+                stacked = np.stack([b["feat"] for b in pending])
+                for b, sc in zip(pending, scores(stacked, scanned, 1)):
+                    write(b, sc)
+                pending = []
+        for batch in pending:
+            write(batch, scores(batch["feat"], score_fn, 0))
+    if group is not None:
+        dist.barrier(group)     # the file is written before any rank goes on
     return output_path
 
 
@@ -202,11 +237,13 @@ def test_on_asvspoof2021(
     model: str = "ecapa",
     feat_dim: int = 60,
     device="cuda",
+    shard: Optional[Mesh] = None,
 ) -> str:
     """Score one task's feature files with ``model`` and return the score
     file's path: the '19*' tasks write
     ``<out>/<model_name>_<task>_score.txt`` (labeled), the challenge tasks
-    ``<out>/<model_name>_<task>/score.txt`` (unlabeled). RawNet2 reads
+    ``<out>/<model_name>_<task>/score.txt`` (unlabeled); over the ranks of
+    a ``shard`` mesh as :func:`score_to_file`. RawNet2 reads
     waveforms, not features: ValueError (score it with
     :func:`score_raw_to_file`)."""
     if model == "rawnet":
@@ -222,7 +259,8 @@ def test_on_asvspoof2021(
                              model_scale=model_scale, model=model,
                              feat_dim=feat_dim, device=device)
     return score_to_file(score_fn, dataset, out, "19" in task, batch_size,
-                         feat_len, padding, scan_batches=scan_batches)
+                         feat_len, padding, scan_batches=scan_batches,
+                         shard=shard)
 
 
 def score_raw_to_file(

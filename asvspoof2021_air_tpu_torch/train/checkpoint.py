@@ -19,12 +19,14 @@ import torch
 from asvspoof2021_air_tpu_torch.train.state import TrainState
 
 
-def save_checkpoint(path: str, state: TrainState) -> None:
-    """Write ``state`` to ``path`` (parent directories made), atomically."""
+def save_checkpoint(path: str, state) -> None:
+    """Write ``state`` (a train state, or its ``state_dict``) to ``path``
+    (parent directories made), atomically."""
     path = os.path.abspath(path)
     os.makedirs(os.path.dirname(path), exist_ok=True)
     tmp = path + ".tmp"
-    torch.save(state.state_dict(), tmp)
+    torch.save(state if isinstance(state, dict) else state.state_dict(),
+               tmp)
     os.replace(tmp, path)
 
 

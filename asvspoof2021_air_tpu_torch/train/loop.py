@@ -52,6 +52,22 @@ model would read a feature column as a waveform; the port refuses it).
 narrow ECAPA; the JAX loop always trains C=512, scale 8. The other
 families have fixed widths; the heads of LCNN and ConvNet are sized for
 ``feat_dim`` x ``feat_len``.
+
+Across GPUs (one process each under ``torchrun``, ``parallel/``), ``train``
+takes ``mesh`` as the JAX loop does (default: a 1-D "data" mesh over every
+rank). A single system trains data-parallel: every rank iterates the same
+seeded global batches and takes its contiguous rows (``shard_batch``; the
+batch size must split over the ranks), and the step is the one-process
+step on the global batch (``train/steps.py``: BN over the global batch,
+the gradients and metrics averaged). An ensemble spreads its members: over
+a "model" mesh when the ranks divide M (``make_member_parallel_step``),
+else over a ("model", "data") mesh of M x W / M when M divides the ranks
+(``make_member_data_parallel_step``). The dev and eval passes shard their
+batches the same way and gather the scores, so every rank computes the
+same losses and EERs. Only rank 0 writes the logs, ``train_meta.json`` and
+the checkpoints (an ensemble's members gathered to it), each write followed
+by a barrier; a resume loads on every rank. Every rank loads every global
+batch: W times the host reads of one process.
 """
 
 from __future__ import annotations
@@ -67,6 +83,7 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from asvspoof2021_air_tpu_torch._device import disable_tf32, resolve_device
 from asvspoof2021_air_tpu_torch.data import protocol as proto
@@ -82,11 +99,15 @@ from asvspoof2021_air_tpu_torch.models.rawnet import RAWNET2_DEFAULT_ARGS
 from asvspoof2021_air_tpu_torch.models.registry import build_model
 from asvspoof2021_air_tpu_torch.ops.augment import (
     ChannelAugmenter, synthetic_ir_bank)
+from asvspoof2021_air_tpu_torch.parallel.mesh import (
+    Mesh, batch_sharding, gather, make_mesh, mean_metrics, replicate,
+    shard_batch, world)
 from asvspoof2021_air_tpu_torch.train.checkpoint import (
     restore_checkpoint, save_checkpoint)
 from asvspoof2021_air_tpu_torch.train.ensemble import (
-    fuse_scores, init_ensemble_state, make_ensemble_eval_step,
-    make_ensemble_train_step)
+    ensemble_mesh, fuse_scores, init_ensemble_state, make_ensemble_eval_step,
+    make_ensemble_train_step, make_member_data_parallel_step,
+    make_member_parallel_step, member_data_mesh)
 from asvspoof2021_air_tpu_torch.train.frontend import (
     OnDeviceFrontend, WaveformFrontend)
 from asvspoof2021_air_tpu_torch.train.state import (
@@ -231,8 +252,39 @@ def build_datasets(config: TrainConfig):
         for part in ("train", "dev"))
 
 
+def _axis_group(mesh: Optional[Mesh], axis: str):
+    """``mesh``'s group along ``axis``; None without the mesh or the axis."""
+    if mesh is None or axis not in mesh.axis_names:
+        return None
+    return mesh.group(axis)
+
+
+def resolve_mesh(config: TrainConfig, mesh: Optional[Mesh], device) -> Mesh:
+    """The mesh ``train`` runs over: ``mesh``, by default a 1-D "data" mesh
+    over every rank; an ensemble over a data mesh of W > 1 ranks spreads
+    its M members, over a "model" mesh (``ensemble_mesh``) when W divides
+    M, else over an M x W / M ("model", "data") mesh (``member_data_mesh``)
+    when M divides W. Other pairs raise ValueError, and so does a "model"
+    axis for a single system."""
+    mesh = make_mesh(device) if mesh is None else mesh
+    M, axes = config.ensemble, mesh.axis_names
+    if M == 1 and "model" in axes:
+        raise ValueError("a mesh with a 'model' axis trains an ensemble: "
+                         "set ensemble > 1")
+    if M == 1 or "model" in axes or mesh.size("data") == 1:
+        return mesh
+    W = mesh.size("data")
+    if M % W == 0:
+        return ensemble_mesh(M, device)
+    if W % M == 0:
+        return member_data_mesh(M, W // M, device)
+    raise ValueError(f"an ensemble of {M} members does not spread over "
+                     f"{W} ranks: use a rank count that divides {M} or "
+                     f"that {M} divides")
+
+
 def setup_training(config: TrainConfig, steps_per_epoch: int, frontend=None,
-                   device="cuda"):
+                   device="cuda", mesh: Optional[Mesh] = None):
     """(model, loss module, state, train step, eval step), the model and
     the loss module built by name (``models/registry.build_model``,
     ``losses/registry.build_loss``). The weights are drawn from a generator
@@ -245,7 +297,14 @@ def setup_training(config: TrainConfig, steps_per_epoch: int, frontend=None,
     With ``steps_per_call`` > 1 on the card the state is capturable, for
     the CUDA graph of K steps. The eval step scores clean; its attribute
     ``dev_eval_step`` is the dev pass's step, through the augmenter with
-    fixed draws under ``dev_aug`` with ``on_device_aug``, as in JAX."""
+    fixed draws under ``dev_aug`` with ``on_device_aug``, as in JAX.
+
+    With a ``mesh`` of :func:`resolve_mesh`'s kinds the state and the steps
+    are those of its ranks: the data-parallel steps over its "data" group
+    (the eval step averaging its metrics there), or this rank's ensemble
+    members with ``make_member_parallel_step`` or
+    ``make_member_data_parallel_step``; the state is broadcast from rank 0
+    (every rank draws the same weights from the seed already)."""
     check_supported(config)
     dev = resolve_device(device)
     # the JAX setup_training's mapping: bf16 for "bfloat16", else f32
@@ -293,16 +352,35 @@ def setup_training(config: TrainConfig, steps_per_epoch: int, frontend=None,
                           weight_loss=config.weight_loss,
                           adv_aug=config.ADV_AUG, dual_classifier=dual)
     eval_frontend = frontend.eval_view() if frontend is not None else None
-    train_step = make_train_step(step_cfg, frontend, dev)
-    eval_step = make_eval_step(step_cfg, eval_frontend, dev)
+    data_group = _axis_group(mesh, "data")
+    model_axis = mesh is not None and "model" in mesh.axis_names
+    M = config.ensemble
+    # the member x data mesh's member step is JAX's grad_axis step
+    train_step = make_train_step(step_cfg, frontend, dev,
+                                 data_group=data_group,
+                                 sync_bn=not model_axis)
+    eval_step = make_eval_step(step_cfg, eval_frontend, dev, data_group)
     dev_eval_step = (
-        make_eval_step(step_cfg, frontend, dev)
+        make_eval_step(step_cfg, frontend, dev, data_group)
         if config.dev_aug and config.on_device_aug and frontend is not None
         else eval_step)
-    if config.ensemble > 1:
-        state = init_ensemble_state(make_state, config.ensemble)
+    if M > 1 and model_axis:
+        state = init_ensemble_state(make_state, M, mesh)
         first = state.members[0]
-        train_step = make_ensemble_train_step(train_step, config.ensemble,
+        if data_group is not None:
+            train_step = make_member_data_parallel_step(train_step, M, mesh)
+        else:
+            train_step = make_member_parallel_step(train_step, M, mesh,
+                                                   frontend)
+        ens_eval = make_ensemble_eval_step(eval_step, eval_frontend)
+        dev_eval_step = (ens_eval if dev_eval_step is eval_step
+                         else make_ensemble_eval_step(dev_eval_step,
+                                                      frontend))
+        eval_step = ens_eval
+    elif M > 1:
+        state = init_ensemble_state(make_state, M)
+        first = state.members[0]
+        train_step = make_ensemble_train_step(train_step, M,
                                               frontend=frontend)
         ens_eval = make_ensemble_eval_step(eval_step, eval_frontend)
         dev_eval_step = (ens_eval if dev_eval_step is eval_step
@@ -311,6 +389,8 @@ def setup_training(config: TrainConfig, steps_per_epoch: int, frontend=None,
         eval_step = ens_eval
     else:
         state = first = make_state()
+        if mesh is not None:
+            replicate(state, mesh)
     eval_step.dev_eval_step = dev_eval_step
     return first.model, first.loss_module, state, train_step, eval_step
 
@@ -334,12 +414,39 @@ def _eer(scores: np.ndarray, labels: np.ndarray) -> float:
                compute_eer(-scores[labels == 0], -scores[labels == 1])[0])
 
 
+def _local_rows(batch: Dict[str, Any], mesh: Mesh) -> Dict[str, Any]:
+    """This rank's rows of a global batch: its "data" shard, or all of
+    them on a mesh without one."""
+    if "data" not in mesh.axis_names or mesh.size("data") == 1:
+        return batch
+    return shard_batch(batch, mesh)
+
+
+def _evaluate(step, state, batch: Dict[str, Any], mesh: Mesh,
+              frontend_params=None):
+    """(metrics, the global batch's scores on the host, an ensemble's
+    fused) of the eval ``step`` on this rank's rows of ``batch``: the
+    scores gathered over "data" (rows) and "model" (members), the metrics
+    (averaged over "data" by the step) averaged over "model"."""
+    metrics, score, _ = step(state, _tensors(_local_rows(batch, mesh)),
+                             frontend_params)
+    score = score.float()
+    data, model = _axis_group(mesh, "data"), _axis_group(mesh, "model")
+    if data is not None:
+        score = torch.cat(gather(score, data).unbind(), dim=-1)
+    if model is not None:
+        score = gather(score, model).flatten(0, 1)
+        metrics = mean_metrics(metrics, model)
+    return metrics, _fused_host_scores(score)
+
+
 def _eval_set_eer(config: TrainConfig, eval_set, state, eval_step,
-                 frontend=None) -> float:
+                  mesh: Mesh, frontend=None) -> float:
     """The eval-set EER of ``state``, scored as the JAX loop's
     ``test_on_eval`` scores it: on the fly, sequential waveform batches
     with the wrapped tail trimmed by count; from features,
-    ``SequentialIterator`` batches with their ``valid`` mask."""
+    ``SequentialIterator`` batches with their ``valid`` mask; each batch
+    over the mesh as :func:`_evaluate`."""
     B = config.batch_size
     scores, labels = [], []
     if frontend is not None:
@@ -348,17 +455,54 @@ def _eval_set_eer(config: TrainConfig, eval_set, state, eval_step,
                                    ratio=1.0, shuffle=False,
                                    steps_per_epoch=-(-n // B)).epoch()
         for i, batch in enumerate(batches):
-            _m, score, _f = eval_step(state, _tensors(batch))
+            _m, score = _evaluate(eval_step, state, batch, mesh)
             take = min(n - i * B, B)
-            scores.append(_fused_host_scores(score)[:take])
+            scores.append(score[:take])
             labels.append(batch["label"][:take])
     else:
         for batch in SequentialIterator(eval_set, B, config.feat_len,
                                         config.padding):
-            _m, score, _f = eval_step(state, _tensors(batch))
-            scores.append(_fused_host_scores(score)[batch["valid"]])
+            _m, score = _evaluate(eval_step, state, batch, mesh)
+            scores.append(score[batch["valid"]])
             labels.append(batch["label"][batch["valid"]])
     return _eer(np.concatenate(scores), np.concatenate(labels))
+
+
+def _to_cpu(tree):
+    if torch.is_tensor(tree):
+        return tree.detach().cpu()
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_cpu(v) for v in tree)
+    return tree
+
+
+def _checkpoint_state(state, mesh: Mesh) -> Optional[Dict[str, Any]]:
+    """What rank 0 writes as a checkpoint: its state's ``state_dict``, or,
+    for an ensemble spread over a "model" axis, every member's, gathered
+    from the ranks in member order (a collective: every rank calls it; the
+    others get None)."""
+    if _axis_group(mesh, "model") is None:
+        return state.state_dict()
+    sd = state.state_dict()
+    mine = list(zip(state.member_ids, _to_cpu(sd["members"])))
+    rank, size = world()
+    parts = [None] * size if rank == 0 else None
+    dist.gather_object(mine, parts, dst=0)
+    if rank != 0:
+        return None
+    members = {}
+    for part in parts:
+        for i, m in part:
+            members.setdefault(i, m)
+    return {"step": sd["step"],
+            "members": [members[i] for i in range(state.n_members)]}
+
+
+def _barrier() -> None:
+    if dist.is_initialized():
+        dist.barrier()
 
 
 def _resume(config: TrainConfig, state, meta_path: str):
@@ -388,9 +532,12 @@ def _resume(config: TrainConfig, state, meta_path: str):
 
 
 def train(config: TrainConfig, train_set=None, dev_set=None, eval_set=None,
-          device="cuda", return_state: bool = False):
+          device="cuda", return_state: bool = False,
+          mesh: Optional[Mesh] = None):
     """Run the training loop; return the summary dict (and, with
-    ``return_state``, the final :class:`TrainState` as well)."""
+    ``return_state``, the final :class:`TrainState` as well). Under a
+    process group every rank calls it with the same arguments; ``mesh``
+    as in the module docstring (:func:`resolve_mesh`)."""
     check_supported(config)
     K = max(1, config.steps_per_call)
     if K > 1 and not config.on_the_fly and not config.pad_chop:
@@ -398,8 +545,14 @@ def train(config: TrainConfig, train_set=None, dev_set=None, eval_set=None,
                          "pad_chop=False collates each batch to its own "
                          "length")
     dev = resolve_device(device)
+    mesh = resolve_mesh(config, mesh, dev)
+    if "data" in mesh.axis_names:
+        batch_sharding(mesh)(config.batch_size)   # raises if W does not
+    lead = world()[0] == 0                        # divide the batch
     setup_seed(config.seed)
-    _prepare_out_fold(config)
+    if lead:
+        _prepare_out_fold(config)
+    _barrier()
     if train_set is None or dev_set is None:
         train_set, dev_set = build_datasets(config)
     if len(train_set) == 0 or len(dev_set) == 0:
@@ -443,7 +596,8 @@ def train(config: TrainConfig, train_set=None, dev_set=None, eval_set=None,
     train_iter = PrefetchIterator(train_iter, depth=2)
     dev_iter = PrefetchIterator(dev_iter, depth=2)
     _model, _loss, state, train_step, eval_step = setup_training(
-        config, train_iter.steps_per_epoch, frontend=frontend, device=dev)
+        config, train_iter.steps_per_epoch, frontend=frontend, device=dev,
+        mesh=mesh)
     multi_step = make_multi_step(train_step, K) if K > 1 else None
 
     meta_path = os.path.join(config.out_fold, "train_meta.json")
@@ -458,7 +612,7 @@ def train(config: TrainConfig, train_set=None, dev_set=None, eval_set=None,
         t0 = time.time()
         train_log = defaultdict(list)
         profiling = contextlib.ExitStack()
-        if config.profile and epoch == start_epoch:
+        if config.profile and epoch == start_epoch and lead:
             profiling.enter_context(
                 trace(os.path.join(config.out_fold, "profile")))
         i = 0
@@ -469,23 +623,25 @@ def train(config: TrainConfig, train_set=None, dev_set=None, eval_set=None,
             nonlocal i
             host = {k: np.atleast_1d(v.detach().float().cpu().numpy())
                     for k, v in metrics.items()}
-            with open(os.path.join(config.out_fold, "train_loss.log"),
-                      "a") as f:
+            with (open(os.path.join(config.out_fold, "train_loss.log"), "a")
+                  if lead else contextlib.nullcontext()) as f:
                 for j in range(n_inner):
                     for k, v in host.items():
                         train_log[k].append(float(v[j]))
-                    f.write(f"{epoch}\t{i}\t{train_log[monitor][-1]}\n")
+                    if lead:
+                        f.write(f"{epoch}\t{i}\t{train_log[monitor][-1]}\n")
                     i += 1
             if i >= 20:
                 profiling.close()
 
         pending = []
         for batch in train_iter.epoch():
+            batch = _tensors(_local_rows(batch, mesh))
             if K == 1:
-                record(train_step(state, _tensors(batch), rng, adv_gate,
+                record(train_step(state, batch, rng, adv_gate,
                                   frontend_params), 1)
                 continue
-            pending.append(_tensors(batch))
+            pending.append(batch)
             if len(pending) < K:
                 continue
             stacked = {k: torch.stack([b[k] for b in pending])
@@ -502,36 +658,46 @@ def train(config: TrainConfig, train_set=None, dev_set=None, eval_set=None,
         dev_log = defaultdict(list)
         scores, labels = [], []
         for batch in dev_iter.epoch():
-            metrics, score, _feats = eval_step.dev_eval_step(
-                state, _tensors(batch), frontend_params)
+            metrics, score = _evaluate(eval_step.dev_eval_step, state,
+                                       batch, mesh, frontend_params)
             for k, v in metrics.items():
                 dev_log[k].append(float(v))
-            scores.append(_fused_host_scores(score))
+            scores.append(score)
             labels.append(batch["label"])
         eer = _eer(np.concatenate(scores), np.concatenate(labels))
         val_loss = float(np.nanmean(dev_log[monitor]))
-        with open(os.path.join(config.out_fold, "dev_loss.log"), "a") as f:
-            f.write(f"{epoch}\t{val_loss}\t{eer}\n")
+        if lead:
+            with open(os.path.join(config.out_fold, "dev_loss.log"),
+                      "a") as f:
+                f.write(f"{epoch}\t{val_loss}\t{eer}\n")
 
         # ---- eval-set EER ----
         if config.test_on_eval and eval_set is not None:
             test_eer = _eval_set_eer(config, eval_set, state, eval_step,
-                                    frontend)
-            with open(os.path.join(config.out_fold, "test_loss.log"),
-                      "a") as f:
-                f.write(f"{epoch}\t{test_eer}\n")
+                                     mesh, frontend)
+            if lead:
+                with open(os.path.join(config.out_fold, "test_loss.log"),
+                          "a") as f:
+                    f.write(f"{epoch}\t{test_eer}\n")
 
-        # ---- checkpoints and model selection ----
-        save_checkpoint(os.path.join(config.out_fold, "checkpoint",
-                                     f"{epoch + 1}.pt"), state)
-        if val_loss < prev_loss:
-            save_checkpoint(os.path.join(config.out_fold, "best.pt"), state)
+        # ---- checkpoints and model selection (rank 0 writes) ----
+        ckpt = _checkpoint_state(state, mesh)
+        improved = val_loss < prev_loss
+        if improved:
             prev_loss, early_stop = val_loss, 0
         else:
             early_stop += 1
-        with open(meta_path, "w") as f:
-            json.dump({"epoch": epoch + 1, "best_dev_loss": prev_loss,
-                       "early_stop": early_stop}, f)
+        if lead:
+            save_checkpoint(os.path.join(config.out_fold, "checkpoint",
+                                         f"{epoch + 1}.pt"), ckpt)
+            if improved:
+                save_checkpoint(os.path.join(config.out_fold, "best.pt"),
+                                ckpt)
+            with open(meta_path, "w") as f:
+                json.dump({"epoch": epoch + 1, "best_dev_loss": prev_loss,
+                           "early_stop": early_stop}, f)
+        del ckpt
+        _barrier()
         summary.update(epochs=epoch + 1, dev_loss=val_loss, dev_eer=eer,
                        epoch_seconds=time.time() - t0)
         if early_stop == config.early_stop_patience:

@@ -35,6 +35,8 @@ from typing import Any, Callable, Dict, List, Optional
 import torch
 from torch import nn
 
+from asvspoof2021_air_tpu_torch.parallel.mesh import average_
+
 
 def step_decay_schedule(base_lr: float, decay: float, interval_epochs: int,
                         steps_per_epoch: int) -> Callable[[int], float]:
@@ -161,6 +163,11 @@ class TrainState:
                for v in st.values() if torch.is_tensor(v)]
         return ts + [self.lr, self.lr_d, self.adv_gate]
 
+    def all_parameters(self) -> List[torch.Tensor]:
+        """The model's, the loss module's and the classifiers' parameters."""
+        return self.trained_parameters() + [
+            p for c in self.classifiers() for p in c.parameters()]
+
     def trained_parameters(self) -> List[torch.Tensor]:
         """The parameters the backbone's loss trains: the model's and the
         loss module's (the classifiers train on their own loss)."""
@@ -169,18 +176,25 @@ class TrainState:
             ps += list(self.loss_module.parameters())
         return ps
 
-    def apply_gradients(self) -> None:
+    def apply_gradients(self, group=None) -> None:
         """One step of every optimizer at ``schedule(step)`` and
         ``schedule_d(step)``. A backbone parameter the loss does not reach
         (the logits' layers under an add-loss: ECAPA's ``fc7`` and ``bn7``,
         ResNet's and LCNN's ``fc_mu``, which feed only the logged CE) gets a zero gradient first: in JAX every parameter has
         one, so coupled L2 still moves it, while ``torch.optim.Adam`` skips
-        a parameter whose grad is None. Inside a CUDA graph's capture the
+        a parameter whose grad is None. With a data-parallel ``group``
+        (a ``torch.distributed`` process group) every gradient, the loss
+        module's and the classifiers' too, is then averaged over its ranks
+        in one all-reduce of one flat buffer (``parallel/mesh.average_``),
+        so every rank takes the same step. Inside a CUDA graph's capture the
         rates are not written: the graph's caller writes them before each
         replay."""
         for p in self.model.parameters():
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        if group is not None:
+            average_([p.grad for p in self.all_parameters()
+                      if p.grad is not None], group)
         if not (self.capturable and torch.cuda.is_current_stream_capturing()):
             self.set_rate()
         for opt in self.optimizers():

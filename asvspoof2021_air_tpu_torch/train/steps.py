@@ -37,20 +37,39 @@ streams), are a function of the run's seed and the step alone
 into its key: a step draws the same eagerly, in a graph's replay and after
 a resume.
 
+Data parallel over ``torch.distributed`` (``data_group``, one process per
+GPU, each with its contiguous rows of every global batch;
+``parallel/mesh.py``): with ``sync_bn`` (the default) the step computes
+what the one-process step computes on the global batch, as JAX's one
+logical program over a data mesh does (``grad_axis=None`` there): BN
+normalizes with the global batch's moments (``ops/bn_relu_vjp.
+batch_norm_group``), the augmenter's and the model's draws are made for the
+global batch from the same generators and sliced to the rank's rows, the
+gradients are averaged over the ranks (``TrainState.apply_gradients``) and
+so are the metrics. With ``sync_bn=False`` it is the JAX step's
+``grad_axis`` mode (the member x data ensemble mesh): BN normalizes with
+the rank's local moments, the draws are the rank's own (keyed by its index
+in the group), and the gradients, the metrics and the new running
+statistics are averaged over the ranks.
+
 ``remat_policy`` raises NotImplementedError.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from asvspoof2021_air_tpu_torch._device import resolve_device
 from asvspoof2021_air_tpu_torch.losses.basic import (
     binary_cross_entropy_with_logits, cross_entropy)
+from asvspoof2021_air_tpu_torch.ops.bn_relu_vjp import batch_norm_group
+from asvspoof2021_air_tpu_torch.parallel.mesh import average_, mean_metrics
 from asvspoof2021_air_tpu_torch.train.state import TrainState
 
 TRAINED_LOSSES = (None, "isolate", "iso_sq", "ang_iso", "p2sgrad")
@@ -94,19 +113,25 @@ FRONTEND_STREAM, MODEL_STREAM = 0, 1
 
 def step_generator(seed: int, step: int, device,
                    stream: int = FRONTEND_STREAM,
-                   member: Optional[int] = None) -> torch.Generator:
+                   member: Optional[int] = None,
+                   shard: Optional[int] = None) -> torch.Generator:
     """The generator of the draws of ``stream`` (the augmenter's, or the
     model's dropout and noise) at training step ``step`` of a run whose base
     seed is ``seed``: a fresh ``torch.Generator`` on ``device`` seeded from
-    (seed, step, stream) alone, and ensemble member ``member``'s from
-    (seed, step, stream, member) (``train/ensemble.py``). The draws are
+    (seed, step, stream) alone, ensemble member ``member``'s from
+    (seed, step, stream, member) (``train/ensemble.py``), and data shard
+    ``shard``'s of a per-replica step (``sync_bn=False``) from (seed, step,
+    stream, member, shard). The draws are
     made eagerly, outside any CUDA graph (a graph takes them as static
     inputs, like its batches), so a replayed step draws bit for bit what
     the same step draws eagerly."""
     key = [seed, step]
-    if stream != FRONTEND_STREAM or member is not None:
+    if stream != FRONTEND_STREAM or member is not None or shard is not None:
         key.append(stream)
-    if member is not None:
+    if shard is not None:
+        # (member + 1 or 0, shard, 1): a key of its own length
+        key += [0 if member is None else member + 1, shard, 1]
+    elif member is not None:
         key.append(member)
     s = np.random.SeedSequence(key).generate_state(1, np.uint64)[0]
     return torch.Generator(device=device).manual_seed(int(s) >> 1)
@@ -134,8 +159,35 @@ def _augmenter(frontend):
     return getattr(frontend, "augmenter", None)
 
 
+def group_index(group) -> tuple:
+    """(this rank's index in ``group``, the group's size); (0, 1) for
+    None."""
+    if group is None:
+        return 0, 1
+    return dist.get_rank(group), dist.get_world_size(group)
+
+
+def take_rows(draws, start: int, n: int, out=None):
+    """Rows ``start`` .. ``start + n - 1`` of every tensor of ``draws`` (a
+    tensor or a dict of them, rows on dim 0), copied into ``out``'s tensors
+    where given."""
+    if isinstance(draws, dict):
+        return {k: take_rows(v, start, n, None if out is None else out[k])
+                for k, v in draws.items()}
+    rows = draws[start:start + n]
+    return rows if out is None else out.copy_(rows)
+
+
+def _sync_running_stats(model: torch.nn.Module, group) -> None:
+    """The BN running statistics averaged over ``group`` (a per-replica
+    step's, as JAX pmeans its new batch_stats)."""
+    average_([b for name, b in model.named_buffers()
+              if name.endswith(("running_mean", "running_var"))], group)
+
+
 def make_train_step(config: StepConfig, frontend: Optional[Callable] = None,
-                    device="cuda") -> Callable:
+                    device="cuda", data_group=None,
+                    sync_bn: bool = True) -> Callable:
     """``step(state, batch, rng=None, adv_gate=0.0, frontend_params=None,
     draws=None, model_draws=None) -> metrics``.
 
@@ -150,24 +202,50 @@ def make_train_step(config: StepConfig, frontend: Optional[Callable] = None,
     ``model_draws`` are given. ``adv_gate``
     multiplies the adversarial term (0 in the first epoch, then 1). The
     step updates ``state`` in place (parameters, BN statistics, optimizer
-    states, step). ``step.draw(rng, step, batch, out=None)`` gives the
-    augmenter's draws it would make at ``step`` (None without an
-    augmenter) and ``step.draw_model(rng, step, model, batch, out=None,
-    member=None)`` the model's (None for a model that does not draw; an
+    states, step). ``step.draw(rng, step, batch, out=None, member=None)``
+    gives the augmenter's draws it would make at ``step`` (None without an
+    augmenter; an ensemble member's own under the member x data mesh) and
+    ``step.draw_model(rng, step, model, batch, out=None, member=None)``
+    the model's (None for a model that does not draw; an
     ensemble member's from its own stream), written into ``out``'s tensors
-    where given."""
+    where given.
+
+    ``data_group`` (a ``torch.distributed`` process group) makes it the
+    data-parallel step of the module docstring: ``batch`` is this rank's
+    contiguous 1/W of the global batch (``parallel/mesh.shard_batch``),
+    the draws are those of the global batch sliced to its rows (the rank's
+    own with ``sync_bn=False``), and the metrics come back averaged over
+    the group; ``step.groups`` lists the groups it communicates over."""
     _check(config)
     dev = resolve_device(device)
     augmenter = _augmenter(frontend)
+    index, size = group_index(data_group)
 
-    def draw(rng, step: int, batch: Dict[str, Any], out=None):
+    def sharded(make, n: int, rng, step: int, stream: int,
+                member: Optional[int], out):
+        """The draws of this rank's ``n`` rows by ``make(rows, generator,
+        out)``: one process's own; with a data group the global batch's
+        rows index n .. (index + 1) n - 1, or the shard's own stream
+        without ``sync_bn``; written into ``out`` where given."""
+        if data_group is not None and not sync_bn:
+            return make(n, step_generator(rng, step, dev, stream, member,
+                                          shard=index), out)
+        gen = step_generator(rng, step, dev, stream, member)
+        if size == 1:
+            return make(n, gen, out)
+        return take_rows(make(size * n, gen, None), index * n, n, out)
+
+    def draw(rng, step: int, batch: Dict[str, Any], out=None,
+             member: Optional[int] = None):
         if augmenter is None or "feat" in batch:
             return None
         if rng is None:
             raise ValueError("the channel augmenter draws from the run's "
                              "seed: pass rng")
-        return augmenter.draw(batch["wave"].shape,
-                              step_generator(rng, step, dev), out)
+        n, length = batch["wave"].shape
+        return sharded(lambda rows, gen, o: augmenter.draw((rows, length),
+                                                           gen, o),
+                       n, rng, step, FRONTEND_STREAM, member, out)
 
     def draw_model(rng, step: int, model, batch: Dict[str, Any], out=None,
                    member: Optional[int] = None):
@@ -183,9 +261,8 @@ def make_train_step(config: StepConfig, frontend: Optional[Callable] = None,
             n, frames = batch["feat"].shape[:2]
         else:
             n, frames = batch["wave"].shape[0], frontend.feat_len
-        return model.draw(n, frames, step_generator(rng, step, dev,
-                                                    MODEL_STREAM, member),
-                          out)
+        return sharded(lambda rows, gen, o: model.draw(rows, frames, gen, o),
+                       n, rng, step, MODEL_STREAM, member, out)
 
     def train_step(state: TrainState, batch: Dict[str, Any], rng=None,
                    adv_gate: float = 0.0, frontend_params=None,
@@ -202,33 +279,10 @@ def make_train_step(config: StepConfig, frontend: Optional[Callable] = None,
             if model_draws is None:
                 model_draws = draw_model(rng, state.step, state.model, batch)
         state.zero_grad()
-        feats, logits = (state.model(x) if model_draws is None
-                         else state.model(x, model_draws))
-        base, _ = base_loss_and_score(config.base_loss, logits, labels)
-        metrics = {"base_loss": base.detach()}
-        if config.add_loss is None:
-            total = base
-        elif config.add_loss in ("isolate", "iso_sq"):
-            add = state.loss_module(feats, labels)
-            total = add * config.weight_loss
-        else:
-            add, _scores = state.loss_module(feats, labels)
-            total = add if config.add_loss == "p2sgrad" \
-                else add * config.weight_loss
-        if config.add_loss is not None:
-            metrics[config.add_loss] = add.detach()
-        if config.adv_aug:
-            channel = batch["channel"].to(dev).long()
-            if config.add_loss == "ang_iso":
-                adv, acc = _channel_ce(state, config, feats, channel)
-                metrics["adv_loss"], metrics["adv_acc"] = adv.detach(), acc
-                total = total + state.gate(adv_gate) * adv
-            # the classifier phase: the same embeddings, detached, against
-            # the classifiers' parameters from before this step
-            clf_loss, clf_acc = _channel_ce(state, config, feats.detach(),
-                                            channel)
-            metrics["clf_loss"], metrics["clf_acc"] = (clf_loss.detach(),
-                                                       clf_acc)
+        with batch_norm_group(data_group if sync_bn else None):
+            metrics, total, clf_loss = _losses(state, config, x, labels,
+                                               batch, model_draws, adv_gate,
+                                               dev)
         # the backbone's loss trains the model and the loss module only
         # (JAX differentiates it w.r.t. params and loss_params); the
         # adversarial term's gradient reaches the classifiers' parameters
@@ -237,13 +291,52 @@ def make_train_step(config: StepConfig, frontend: Optional[Callable] = None,
         if config.adv_aug:
             clf_loss.backward(inputs=[p for c in state.classifiers()
                                       for p in c.parameters()])
-        state.apply_gradients()
+        state.apply_gradients(data_group)
+        if data_group is not None and not sync_bn:
+            _sync_running_stats(state.model, data_group)
         metrics["total_loss"] = total.detach()
-        return metrics
+        return mean_metrics(metrics, data_group)
 
     train_step.draw = draw
     train_step.draw_model = draw_model
+    train_step.groups = [] if data_group is None else [data_group]
+    train_step.frontend, train_step.sync_bn = frontend, sync_bn
     return train_step
+
+
+def _losses(state: TrainState, config: StepConfig, x: torch.Tensor,
+            labels: torch.Tensor, batch: Dict[str, Any], model_draws,
+            adv_gate, dev):
+    """(metrics, the backbone's loss, the classifiers' loss or None) of the
+    train-mode forward of ``x``."""
+    feats, logits = (state.model(x) if model_draws is None
+                     else state.model(x, model_draws))
+    base, _ = base_loss_and_score(config.base_loss, logits, labels)
+    metrics = {"base_loss": base.detach()}
+    if config.add_loss is None:
+        total = base
+    elif config.add_loss in ("isolate", "iso_sq"):
+        add = state.loss_module(feats, labels)
+        total = add * config.weight_loss
+    else:
+        add, _scores = state.loss_module(feats, labels)
+        total = add if config.add_loss == "p2sgrad" \
+            else add * config.weight_loss
+    if config.add_loss is not None:
+        metrics[config.add_loss] = add.detach()
+    clf_loss = None
+    if config.adv_aug:
+        channel = batch["channel"].to(dev).long()
+        if config.add_loss == "ang_iso":
+            adv, acc = _channel_ce(state, config, feats, channel)
+            metrics["adv_loss"], metrics["adv_acc"] = adv.detach(), acc
+            total = total + state.gate(adv_gate) * adv
+        # the classifier phase: the same embeddings, detached, against
+        # the classifiers' parameters from before this step
+        clf_loss, clf_acc = _channel_ce(state, config, feats.detach(),
+                                        channel)
+        metrics["clf_loss"], metrics["clf_acc"] = clf_loss.detach(), clf_acc
+    return metrics, total, clf_loss
 
 
 def _run_steps(train_step: Callable, state: TrainState,
@@ -257,6 +350,33 @@ def _run_steps(train_step: Callable, state: TrainState,
                      *((None, None) if draws is None else draws[i]))
           for i in range(n_steps)]
     return {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
+
+
+def _check_capturable_groups(train_step: Callable, n_steps: int) -> None:
+    """A CUDA graph captures NCCL's collectives only: a step that
+    communicates over another backend (gloo) raises by name."""
+    for g in getattr(train_step, "groups", []):
+        backend = dist.get_backend(g)
+        if backend != "nccl":
+            raise ValueError(
+                f"steps_per_call={n_steps} on the card captures the steps' "
+                f"all-reduces in a CUDA graph, which NCCL's allow and "
+                f"{backend}'s do not: run steps_per_call 1 over {backend}, "
+                "or the NCCL backend")
+
+
+@contextlib.contextmanager
+def _named_capture_failure(train_step: Callable, n_steps: int):
+    """A failed capture of steps that communicate re-raised with its cause
+    named; nothing falls back to eager steps."""
+    try:
+        yield
+    except RuntimeError as e:
+        if not getattr(train_step, "groups", []):
+            raise
+        raise RuntimeError(
+            f"capturing {n_steps} training steps with their NCCL "
+            f"all-reduces as one CUDA graph failed: {e}") from e
 
 
 class _GraphedSteps:
@@ -296,6 +416,7 @@ class _GraphedSteps:
                              "(create_train_state(capturable=True))")
         dev = state.lr.device
         if self.graph is None:
+            _check_capturable_groups(self.train_step, self.n_steps)
             # The first call's K steps run eagerly on a side stream: real
             # steps of the run, which also warm up what the capture needs
             # (Adam's state, the libraries' workspaces, cuFFT's plans).
@@ -313,7 +434,8 @@ class _GraphedSteps:
                 step, graph = state.step, torch.cuda.CUDAGraph()
                 self.draws = self._draws(state.model, rng, step,
                                          self.static)
-                with torch.cuda.graph(graph, stream=side):
+                with _named_capture_failure(self.train_step, self.n_steps), \
+                        torch.cuda.graph(graph, stream=side):
                     self.out = _run_steps(self.train_step, state,
                                           self.static, self.n_steps, rng,
                                           adv_gate, frontend_params,
@@ -356,7 +478,9 @@ def make_multi_step(train_step: Callable, n_steps: int) -> Callable:
     the augmenter's and the model's draws for its steps into the graph's
     static buffers, writes the learning rates and the gate (constant within
     a call) and replays. The batches must keep their shapes. A kernel launched inside
-    the graph counts its launch once, at the capture. A failed capture
+    the graph counts its launch once, at the capture. A data-parallel or
+    mesh step's all-reduces are captured with it: NCCL's only (the step's
+    ``groups`` over gloo raise ValueError). A failed capture
     raises; nothing falls back to eager steps."""
     graphed = _GraphedSteps(train_step, n_steps)
 
@@ -393,13 +517,15 @@ def eval_features(frontend: Optional[Callable], device) -> Callable:
 
 
 def make_eval_step(config: StepConfig, frontend: Optional[Callable] = None,
-                   device="cuda") -> Callable:
+                   device="cuda", data_group=None) -> Callable:
     """``step(state, batch, frontend_params=None) -> (metrics, score,
     feats)`` with the model in eval mode and no gradient, its input from
     :func:`eval_features`. Scores per ``add_loss`` as the JAX
     eval step (``steps.py:355-371``): the loss module's score for ang_iso
     and p2sgrad, the distance to the center for isolate and iso_sq, the
-    base loss's for None and amsoftmax."""
+    base loss's for None and amsoftmax. With a ``data_group`` the batch is
+    this rank's rows of the global one and the metrics come back averaged
+    over the group (the scores stay the rank's own)."""
     _check(config, train=False)
     dev = resolve_device(device)
     features = eval_features(frontend, dev)
@@ -420,6 +546,6 @@ def make_eval_step(config: StepConfig, frontend: Optional[Callable] = None,
             elif config.add_loss in ("ang_iso", "p2sgrad"):
                 add, score = state.loss_module(feats, labels)
                 metrics[config.add_loss] = add
-        return metrics, score, feats
+        return mean_metrics(metrics, data_group), score, feats
 
     return eval_step

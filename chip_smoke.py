@@ -197,6 +197,32 @@ Phases, each fatal on failure:
    scorer (1e-5), its ms a batch against the live scorer's and its bytes;
    the int8 export's parameter bytes and score deviation.
 
+7. drive the multi-GPU layer on the one card (``parallel/``): 7b, two
+   ranks spawned over gloo with CUDA tensors (NCCL refuses two ranks on
+   one device), the data-parallel f32 ECAPA-512 step on the fly at a
+   global B = 64 (32 a rank; B1, B4a and B4b in each rank) against the
+   one-process B = 64 step at phase 4's bars (the loss rtol 1e-4, each
+   gradient's error norm within max(1e-2, 4 x the one-process step's
+   spread, the batch reversed among it), each BN statistic by
+   ``bn_ulp_bars``), the two ranks' states bitwise equal; sharded scoring
+   of 2 B + 3 feature files (B2, B3 in each rank) against the one-process
+   file (1e-5, row for row); the member-parallel M = 2 step (one member a
+   rank) against the one-card ensemble step (rtol 1e-6, cuDNN's
+   deterministic algorithms, from a state one step on); 7c, four ranks
+   over gloo, two steps of the 2 x 2 member x data step from features at
+   B = 16 (8 a data shard): each member's replicas bitwise equal, the
+   members apart; the two rank groups run together while this process
+   computes their references. Then 7a in this process over NCCL at world
+   size 1: ``train()`` bf16 K = 8 on the fly (the NCCL all-reduces
+   captured in the CUDA graph; launch counts as phase 4b's), the eager
+   data-parallel step against the one-process step at phase 4b's bars, 8
+   replayed against 8 eager data-parallel steps (rtol 1e-6), and the
+   one-process and data-parallel K-step graphs' ms a step, in turns,
+   beside phase 4b's. Kernel launches count under ``train_dp``,
+   ``score_dp``, ``train_member_dp`` and ``train_member_data_dp``, summed
+   over the ranks; a rank that fails or hangs (killed after 300 s) fails
+   the phase.
+
 Each phase's seconds are printed.
 
 The line before the last is a JSON object with one entry per kernel; the
@@ -1619,7 +1645,8 @@ def train_bf16_path(torch, gpu: str, entries, f32_ms: float):
     """Phase 4b: bf16 training from cached, augmented LFCC feature files
     with 8 steps per call as a CUDA graph, resume, the eval-set EER; an
     on-the-fly bf16 run of the same kind; the graph against eager steps;
-    the bf16 step's kernels against their plain versions; times."""
+    the bf16 step's kernels against their plain versions; times. Returns
+    the on-the-fly bf16 K = 8 graph's ms a step."""
     import dataclasses
 
     from asvspoof2021_air_tpu_torch.data.datasets import (
@@ -1875,6 +1902,7 @@ def train_bf16_path(torch, gpu: str, entries, f32_ms: float):
               + f"bf16 K=1 {ms1:.3f} ms = {B / ms1 * 1e3:.1f} utt/s (peak "
               f"{peak1:.2f} GiB); bf16 K={K} graph {ms8:.3f} ms/step = "
               f"{B / ms8 * 1e3:.1f} utt/s (peak {peak8:.2f} GiB)")
+    return times["on the fly"][2]
 
 
 def _codes(torch, x, law: str):
@@ -3706,6 +3734,610 @@ def int8_export_path(torch, gpu: str, entries, fwd_ms: float):
             os.chdir(cwd)
 
 
+# ---------------------------------------------------------------- phase 7
+
+
+def sync(torch) -> None:
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def to_cpu(tree):
+    import torch
+
+    if torch.is_tensor(tree):
+        return tree.detach().cpu()
+    if isinstance(tree, dict):
+        return {k: to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_cpu(v) for v in tree)
+    return tree
+
+
+def state_hash(sd) -> str:
+    """A digest of every tensor of a state_dict (bitwise equality)."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+
+    def walk(x):
+        if torch.is_tensor(x):
+            h.update(x.detach().cpu().contiguous().view(-1).view(
+                torch.uint8).numpy().tobytes())
+        elif isinstance(x, dict):
+            for k in sorted(x):
+                h.update(str(k).encode())
+                walk(x[k])
+        elif isinstance(x, (list, tuple)):
+            for v in x:
+                walk(v)
+        else:
+            h.update(repr(x).encode())
+
+    walk(sd)
+    return h.hexdigest()
+
+
+def kernel_counts():
+    """Every kernel wrapper's launch count in this process."""
+    from asvspoof2021_air_tpu_torch.ops import attn_pool_cuda as ap
+    from asvspoof2021_air_tpu_torch.ops import attn_pool_vjp as vj
+    from asvspoof2021_air_tpu_torch.ops import lfcc_cuda as lc
+    from asvspoof2021_air_tpu_torch.ops import res2_chain_cuda as rc
+
+    return {"B1": lc.launches, "B2": rc.launches, "B3": ap.launches,
+            "B4a": vj.fwd_launches, "B4b": vj.bwd_launches}
+
+
+def zero_counts() -> None:
+    from asvspoof2021_air_tpu_torch.ops import attn_pool_cuda as ap
+    from asvspoof2021_air_tpu_torch.ops import attn_pool_vjp as vj
+    from asvspoof2021_air_tpu_torch.ops import lfcc_cuda as lc
+    from asvspoof2021_air_tpu_torch.ops import res2_chain_cuda as rc
+
+    lc.launches = rc.launches = ap.launches = 0
+    vj.fwd_launches = vj.bwd_launches = 0
+
+
+def step_record(torch, st, metrics):
+    """A train step's metrics, gradients (the loss module's as ``loss.*``)
+    and BN running statistics, copied."""
+    grads = {n: p.grad.detach().clone()
+             for n, p in st.model.named_parameters()}
+    grads.update({f"loss.{n}": p.grad.detach().clone()
+                  for n, p in st.loss_module.named_parameters()})
+    return {"metrics": {k: float(v) for k, v in metrics.items()},
+            "grads": grads,
+            "running": {k: v.detach().clone()
+                        for k, v in st.model.state_dict().items()
+                        if k.endswith(RUNNING)}}
+
+
+def check_dp_step(torch, got, cfg, frontend, live, batch, rng, tag: str,
+                  eps: float):
+    """A data-parallel step's record ``got`` (:func:`step_record`, the
+    gradients all-reduced) from state ``live`` on the global ``batch``
+    against the one-process step of ``cfg`` on it, at phase 4's bars: the
+    metrics rtol 1e-4 (bf16, ``eps`` 2^-7: one bf16 ulp, 2^-8, relative);
+    each gradient's error norm within max(1e-2, 4 x the one-process step's
+    own spread: two runs, and the batch reversed) of its norm, the
+    gradients that are zero there zero here; each BN statistic within
+    rtol and atol 1e-5, or one input ulp (``bn_ulp_bars``)."""
+    from asvspoof2021_air_tpu_torch.train.loop import setup_training
+
+    runs = []
+    flip = {k: v.flip(0) for k, v in batch.items()}
+    for b in (batch, batch, flip):
+        _, _, st, step, _ = setup_training(cfg, 4, frontend=frontend,
+                                           device=DEVICE)
+        st.load_state_dict(live)
+        runs.append(step_record(torch, st, step(st, b, rng)))
+    want, again, rev = runs
+    rtol = 1e-4 if eps < 1e-3 else 2.0 ** -8
+    for k, b in want["metrics"].items():
+        a = got["metrics"][k]
+        print(f"{tag}: {k} {a:.7f} vs one process {b:.7f} (rtol {rtol:.1e})")
+        check(abs(a - b) <= rtol * abs(b), f"{tag} {k}: {a} vs {b}")
+    g_p = want["grads"]
+    # the attention BN's bias: a gradient of rounding noise (softmax over
+    # T cancels its shift), held under 1e-4 of the largest element, or 4 x
+    # the one-process step's own reading where that is larger (step_vs_plain)
+    shift = "attention.2.bias"
+    top = max(float(g.abs().max()) for g in g_p.values())
+    noise = [float(r["grads"][shift].abs().max()) / top
+             for r in (got, want, again, rev)]
+    noise_bar = max(1e-4, 4 * max(noise[1:]))
+    print(f"{tag}: {shift} gradient {noise[0]:.3e} of the largest element "
+          f"(one process {max(noise[1:]):.3e}; bar {noise_bar:.1e})")
+    check(noise[0] <= noise_bar, f"{tag} {shift} gradient: {noise}")
+    names = [n for n in g_p if n != shift and g_p[n].abs().max() > 0]
+    norm_err = lambda g: max(
+        (float((g[n].to(g_p[n].device) - g_p[n]).norm() / g_p[n].norm()), n)
+        for n in names)
+    worst, spread = norm_err(got["grads"]), max(norm_err(again["grads"]),
+                                                norm_err(rev["grads"]))
+    bar = max(1e-2, 4 * spread[0])
+    print(f"{tag}: largest gradient error norm {worst[0]:.3e} of its "
+          f"tensor's ({worst[1]}; bar {bar:.3e}); the one-process step's "
+          f"spread {spread[0]:.3e} ({spread[1]})")
+    check(worst[0] <= bar, f"{tag} gradients disagree: {worst}")
+    for n in g_p:
+        if n != shift and float(g_p[n].abs().max()) == 0:
+            check(bool((got["grads"][n] == 0).all()),
+                  f"{tag} gradient {n} not zero")
+    s_p = want["running"]
+    before = {k: v.to(DEVICE) for k, v in live["model"].items()}
+    ulp = bn_ulp_bars(torch, st.model, before, s_p, eps)
+    worst_stat = max((max_err(got["running"][k].to(v.device), v), k)
+                     for k, v in s_p.items())
+    print(f"{tag}: BN statistics largest difference {worst_stat[0]:.3e} "
+          f"({worst_stat[1]}; rtol {rtol:.1e}, atol 1e-5, or one input ulp)")
+    for k, v in s_p.items():
+        bar_k = torch.maximum(rtol * v.abs() + 1e-5, ulp[k])
+        check(bool(((got["running"][k].to(v.device) - v).abs()
+                    <= bar_k).all()), f"{tag} BN statistic {k} disagrees")
+
+
+def check_members(torch, got, want, what: str) -> None:
+    """Member states ``got`` against ``want`` (``TrainState.state_dict``
+    each): model, loss module and Adam states, rtol 1e-6 and atol 1e-9, and
+    the step (phases 5b and 7b)."""
+    same = total = 0
+    for i, (g, w) in enumerate(zip(got, want)):
+        pairs = [(f"{part} {n}", v, w[part][n])
+                 for part in ("model", "loss_module")
+                 for n, v in g[part].items()]
+        pairs += [(f"optimizer {n} {k}", t, w["optimizer"][n][k])
+                  for n, st_ in g["optimizer"].items()
+                  for k, t in st_.items()]
+        pairs = [(n, a.cpu(), b.cpu()) for n, a, b in pairs]
+        same += sum(torch.equal(a, b) for _, a, b in pairs)
+        total += len(pairs)
+        bad = [n for n, a, b in pairs
+               if not torch.allclose(a, b, rtol=1e-6, atol=1e-9)]
+        check(not bad and g["step"] == w["step"],
+              f"member {i}: {what}: {bad[:5]}")
+    print(f"{what}: {same} of {total} tensors bitwise equal (bar rtol "
+          f"1e-6, atol 1e-9)")
+
+
+def dp_inputs(torch, tmp: str):
+    """Phase 7's states and batches at full width, written for the ranks:
+    an f32 ECAPA-512 state and a 2-member ensemble from seeds, a waveform
+    batch of B, a feature batch of B and two of 16, and a dev tree of 2 B
+    + 3 LFCC files."""
+    from asvspoof2021_air_tpu_torch.data.datasets import RawAudioDataset
+    from asvspoof2021_air_tpu_torch.data.pipeline import WaveformIterator
+    from asvspoof2021_air_tpu_torch.train.frontend import OnDeviceFrontend
+    from asvspoof2021_air_tpu_torch.train.loop import setup_training
+
+    write_corpus(tmp, B, seed=31, part="train")
+    fe = OnDeviceFrontend(feat_len=T, device=DEVICE)
+    raw = RawAudioDataset("LA", tmp, "train")
+    wave = next(iter(WaveformIterator(raw, B, fe.min_samples(), seed=5,
+                                      steps_per_epoch=1).epoch()))
+    feats = os.path.join(tmp, "feats")
+    write_feature_tree(os.path.join(feats, "dev", "LFCC"), 2 * B + 3, 32,
+                       True)
+    g = np.random.default_rng(33)
+    labels = (np.arange(B) % 2).astype(np.int32)
+    fbatch = {"feat": torch.from_numpy((g.standard_normal((B, T, 60))
+                                        + 0.5 * labels[:, None, None]
+                                        ).astype(np.float32)),
+              "label": torch.from_numpy(labels)}
+    lab16 = torch.arange(16, dtype=torch.int32) % 2
+    small = [{"feat": torch.from_numpy(g.standard_normal(
+        (16, T, 60)).astype(np.float32)) + 0.5 * lab16[:, None, None],
+        "label": lab16} for _ in range(2)]
+    cfg = dp_config()
+    live = setup_training(cfg, 4, device=DEVICE)[2].state_dict()
+    # the members one step on (Adam's first step, lr sign(g), would turn
+    # rounding noise in a near-zero gradient into a step of lr)
+    _, _, est, estep, _ = setup_training(dp_config(ensemble=2), 4,
+                                         device=DEVICE)
+    estep(est, {"feat": fbatch["feat"].flip(0), "label": fbatch["label"]})
+    ens = est.state_dict()
+    del est, estep
+    inputs = {"live": to_cpu(live), "ens_live": to_cpu(ens), "rng": 17,
+              "wave": {k: torch.from_numpy(wave[k])
+                       for k in ("wave", "length", "label")},
+              "fbatch": fbatch, "small": small, "feats": feats,
+              "t0": time.perf_counter()}
+    torch.save(inputs, os.path.join(tmp, "inputs.pt"))
+    return inputs
+
+
+def dp_config(**kw):
+    """Phase 7's ECAPA-TDNN-512 + ang_iso f32 configuration, batch B."""
+    from asvspoof2021_air_tpu_torch.train.loop import TrainConfig
+
+    fields = dict(model="ecapa", add_loss="ang_iso", batch_size=B,
+                  feat_len=T, C=C, ratio=1.0)
+    fields.update(kw)
+    return TrainConfig(**fields)
+
+
+def rank_7b(torch, rank: int, tmp: str, inputs):
+    """Rank ``rank`` of phase 7b's 2 ranks over gloo (CUDA tensors): the
+    data-parallel f32 step on the fly, sharded scoring, the member-parallel
+    M = 2 step."""
+    from asvspoof2021_air_tpu_torch.data.datasets import (
+        ASVspoof2019FeatureDataset)
+    from asvspoof2021_air_tpu_torch.parallel import make_mesh, shard_batch
+    from asvspoof2021_air_tpu_torch.scoring import (
+        make_score_fn, score_to_file)
+    from asvspoof2021_air_tpu_torch.train.ensemble import ensemble_mesh
+    from asvspoof2021_air_tpu_torch.train.frontend import OnDeviceFrontend
+    from asvspoof2021_air_tpu_torch.train.loop import setup_training
+
+    out = {"seconds": {}}
+    t0 = time.perf_counter()
+    mesh = make_mesh(DEVICE)
+    fe = OnDeviceFrontend(feat_len=T, device=DEVICE)
+    cfg = dp_config(on_the_fly=True)
+    _, _, st, step, _ = setup_training(cfg, 4, frontend=fe, device=DEVICE,
+                                       mesh=mesh)
+    st.load_state_dict(inputs["live"])
+    sync(torch)
+    zero_counts()
+    metrics = step(st, shard_batch(inputs["wave"], mesh), inputs["rng"])
+    sync(torch)
+    out["dp_counts"] = kernel_counts()
+    rec = step_record(torch, st, metrics)
+    out["dp"] = to_cpu(rec) if rank == 0 else None
+    out["dp_hash"] = state_hash(st.state_dict())
+    del st, step
+    out["seconds"]["dp"] = time.perf_counter() - t0
+
+    fn = make_score_fn(inputs["live"]["model"], device=DEVICE)
+    ds = ASVspoof2019FeatureDataset("LA", inputs["feats"], "dev")
+    zero_counts()
+    score_to_file(fn, ds, os.path.join(tmp, "sharded_scores.txt"), True,
+                  batch_size=B, feat_len=T, shard=mesh)
+    sync(torch)
+    out["score_counts"] = kernel_counts()
+    out["seconds"]["score"] = time.perf_counter() - t0
+
+    _, _, est, estep, _ = setup_training(
+        dp_config(ensemble=2), 4, device=DEVICE, mesh=ensemble_mesh(2, DEVICE))
+    est.load_state_dict(inputs["ens_live"])
+    sync(torch)
+    zero_counts()
+    torch.backends.cudnn.deterministic = True
+    estep(est, inputs["fbatch"])
+    torch.backends.cudnn.deterministic = False
+    sync(torch)
+    out["member_counts"] = kernel_counts()
+    out["member_ids"] = est.member_ids
+    out["members"] = to_cpu(est.state_dict()["members"])
+    out["seconds"]["member"] = time.perf_counter() - t0
+    return out
+
+
+def rank_7c(torch, rank: int, tmp: str, inputs):
+    """Rank ``rank`` of phase 7c's 4 ranks over gloo: 2 steps of the 2 x 2
+    member x data step from features, global B = 16 (8 a data shard)."""
+    from asvspoof2021_air_tpu_torch.train.ensemble import member_data_mesh
+    from asvspoof2021_air_tpu_torch.train.loop import setup_training
+
+    mesh = member_data_mesh(2, 2, DEVICE)
+    j = mesh.index("data")
+    _, _, est, estep, _ = setup_training(
+        dp_config(ensemble=2, batch_size=16), 4, device=DEVICE, mesh=mesh)
+    est.load_state_dict(inputs["ens_live"])
+    sync(torch)
+    zero_counts()
+    losses = [float(estep(est, {k: v[8 * j:8 * (j + 1)]
+                                for k, v in b.items()})["ang_iso"])
+              for b in inputs["small"]]
+    sync(torch)
+    sd = est.state_dict()
+    return {"counts": kernel_counts(), "coords": (mesh.index("model"), j),
+            "ids": est.member_ids, "losses": losses, "step": sd["step"],
+            "hash": state_hash(sd["members"]),
+            "conv1": sd["members"][0]["model"]["conv1.weight"].cpu()}
+
+
+def dp_rank(rank: int, world: int, port: int, tmp: str, task: str,
+            sizes: dict) -> None:
+    """One spawned rank of phase 7b or 7c: gloo over CUDA tensors on the
+    one card (NCCL refuses two ranks on one device), at the parent's
+    ``sizes`` (DEVICE, B, T, C, L); writes its results to
+    ``<tmp>/<task>_rank<r>.pt``; any failure exits non-zero."""
+    import traceback
+
+    globals().update(sizes)
+    try:
+        import torch
+        import torch.distributed as dist
+
+        from asvspoof2021_air_tpu_torch._device import disable_tf32
+        from asvspoof2021_air_tpu_torch.ops import _build
+        from asvspoof2021_air_tpu_torch.parallel import (
+            initialize_distributed)
+
+        os.environ["LOCAL_RANK"] = "0"      # every rank on the one card
+        disable_tf32()
+        initialize_distributed(f"127.0.0.1:{port}", world, rank,
+                               device=DEVICE, backend="gloo")
+        if DEVICE == "cuda":
+            _build.library()        # built by the parent: loaded
+        else:
+            torch.set_num_threads(1)
+        inputs = torch.load(os.path.join(tmp, "inputs.pt"),
+                            weights_only=False)
+        t0 = time.perf_counter()
+        out = {"7b": rank_7b, "7c": rank_7c}[task](torch, rank, tmp, inputs)
+        out["started_s"] = t0 - inputs["t0"]        # spawn and set-up
+        torch.save(out, os.path.join(tmp, f"{task}_rank{rank}.pt"))
+        dist.barrier()
+        dist.destroy_process_group()
+    except BaseException:
+        traceback.print_exc()
+        sys.stdout.flush()
+        os._exit(1)
+
+
+def start_ranks(task: str, world: int, tmp: str):
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    port = _free_port()
+    sizes = {"DEVICE": DEVICE, "B": B, "T": T, "C": C, "L": L}
+    procs = [ctx.Process(target=dp_rank,
+                         args=(r, world, port, tmp, task, sizes))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    return procs
+
+
+def join_ranks(torch, task: str, procs, tmp: str, timeout: float):
+    """Each rank's results; a rank that failed or outlived ``timeout``
+    (then killed, with the others) fails the phase."""
+    deadline = time.monotonic() + timeout
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    alive = [p for p in procs if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    check(not alive, f"phase 7 {task}: {len(alive)} rank(s) still running "
+                     f"after {timeout} s, killed")
+    codes = [p.exitcode for p in procs]
+    check(not any(codes), f"phase 7 {task}: ranks exited with {codes}")
+    return [torch.load(os.path.join(tmp, f"{task}_rank{r}.pt"),
+                       weights_only=False) for r in range(len(procs))]
+
+
+def add_counts(entries, path: str, counts) -> None:
+    for k, v in counts.items():
+        if v:
+            entries[k][f"launches_{path}"] = (
+                entries[k].get(f"launches_{path}", 0) + v)
+
+
+def data_parallel_path(torch, gpu: str, entries, bf16_ms):
+    """Phase 7: the multi-GPU layer on the one card. 7b and 7c run in
+    spawned ranks over gloo with CUDA tensors (2 and 4 processes on the
+    card; NCCL refuses two ranks on one device) while this process computes
+    their references; then 7a here over NCCL at world size 1, timed alone."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from asvspoof2021_air_tpu_torch.data.datasets import (
+        ASVspoof2019FeatureDataset, RawAudioDataset)
+    from asvspoof2021_air_tpu_torch.data.pipeline import WaveformIterator
+    from asvspoof2021_air_tpu_torch.parallel import (
+        initialize_distributed, make_mesh)
+    from asvspoof2021_air_tpu_torch.scoring import (
+        make_score_fn, score_to_file)
+    from asvspoof2021_air_tpu_torch.train.frontend import OnDeviceFrontend
+    from asvspoof2021_air_tpu_torch.train.loop import (
+        TrainConfig, setup_training, train)
+    from asvspoof2021_air_tpu_torch.train.steps import make_multi_step
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        inputs = dp_inputs(torch, tmp)
+        ranks_b = start_ranks("7b", 2, tmp)
+        ranks_c = start_ranks("7c", 4, tmp)
+
+        # ---- the references of 7b, meanwhile ----
+        fe = OnDeviceFrontend(feat_len=T, device=DEVICE)
+        live = inputs["live"]
+        fn = make_score_fn(live["model"], device=DEVICE)
+        one = score_to_file(fn, ASVspoof2019FeatureDataset(
+            "LA", inputs["feats"], "dev"), os.path.join(tmp, "one.txt"),
+            True, batch_size=B, feat_len=T)
+        _, _, est, estep, _ = setup_training(dp_config(ensemble=2), 4,
+                                             device=DEVICE)
+        est.load_state_dict(inputs["ens_live"])
+        torch.backends.cudnn.deterministic = True
+        estep(est, inputs["fbatch"])
+        torch.backends.cudnn.deterministic = False
+        want_members = to_cpu(est.state_dict()["members"])
+        del est, estep
+
+        refs_s = time.perf_counter() - t0
+        res_b = join_ranks(torch, "7b", ranks_b, tmp, 300)
+        res_c = join_ranks(torch, "7c", ranks_c, tmp, 300)
+        ranks_s = time.perf_counter() - t0
+        print(f"phase 7: inputs and this process's references "
+              f"{refs_s:.1f} s; ranks started their work after "
+              f"{[round(r['started_s'], 1) for r in res_b + res_c]} s; 7b "
+              f"ranks' seconds {[r['seconds'] for r in res_b]}; all ranks "
+              f"joined after {ranks_s:.1f} s")
+
+        # ---- 7b: data parallel, 2 ranks of 32 ----
+        check(res_b[0]["dp_hash"] == res_b[1]["dp_hash"],
+              "7b: the two ranks' states differ after the step")
+        wave = {k: v.to(DEVICE) for k, v in inputs["wave"].items()}
+        check_dp_step(torch, res_b[0]["dp"], dp_config(on_the_fly=True), fe,
+                      live, wave, inputs["rng"],
+                      "7b f32 2-rank step (gloo) vs one process B=64",
+                      2.0 ** -23)
+        with open(one) as f:
+            want_rows = [r.split() for r in f]
+        with open(os.path.join(tmp, "sharded_scores.txt")) as f:
+            got_rows = [r.split() for r in f]
+        check(len(got_rows) == len(want_rows) == 2 * B + 3
+              and all(a[0] == b[0] and a[2] == b[2]
+                      for a, b in zip(got_rows, want_rows)),
+              "7b sharded score file: names or keys differ")
+        diff = max(abs(float(a[1]) - float(b[1]))
+                   for a, b in zip(got_rows, want_rows))
+        print(f"7b sharded scoring of {2 * B + 3} files over 2 ranks vs one "
+              f"process: largest score difference {diff:.3e} (bar 1e-5)")
+        check(diff <= 1e-5, f"7b sharded scores: {diff}")
+        got = {r["member_ids"][0]: r["members"][0] for r in res_b}
+        check(sorted(got) == [0, 1], f"7b members {sorted(got)}")
+        check_members(torch, [got[0], got[1]], want_members,
+                      "7b member-parallel M=2 (one member a rank) vs the "
+                      "one-card ensemble step")
+        for path, key in (("train_dp", "dp_counts"),
+                          ("score_dp", "score_counts"),
+                          ("train_member_dp", "member_counts")):
+            counts = {k: sum(r[key][k] for r in res_b) for k in res_b[0][key]}
+            print(f"7b {path} launches over both ranks: {counts}")
+            add_counts(entries, path, counts)
+        nb = -(-(2 * B + 3) // B)
+        check(sum(r["score_counts"]["B2"] for r in res_b) == 2 * 3 * nb
+              and sum(r["score_counts"]["B3"] for r in res_b) == 2 * nb,
+              "7b score_dp launch counts")
+        check(all(r["dp_counts"]["B1"] == 1 and r["dp_counts"]["B4b"] == 1
+                  for r in res_b), "7b train_dp launch counts")
+        check(all(r["member_counts"]["B4b"] == 1 for r in res_b),
+              "7b train_member_dp launch counts")
+
+        # ---- 7c: member x data 2 x 2 ----
+        by_member = {}
+        for r, res in enumerate(res_c):
+            check(tuple(res["coords"]) == (r // 2, r % 2)
+                  and list(res["ids"]) == [r // 2]
+                  and res["step"] == inputs["ens_live"]["step"] + 2
+                  and all(np.isfinite(res["losses"])),
+                  f"7c rank {r}: {res['coords']}, {res['ids']}, "
+                  f"{res['losses']}")
+            by_member.setdefault(r // 2, set()).add(res["hash"])
+        check(all(len(h) == 1 for h in by_member.values()),
+              "7c: a member's replicas differ across its data shards")
+        check(by_member[0] != by_member[1]
+              and not torch.equal(res_c[0]["conv1"], res_c[2]["conv1"]),
+              "7c: the two members are equal")
+        counts = {k: sum(r["counts"][k] for r in res_c)
+                  for k in res_c[0]["counts"]}
+        check(counts["B4b"] == 4 * 2, f"7c launches {counts}")
+        add_counts(entries, "train_member_data_dp", counts)
+        print(f"7c 2 x 2 member x data, 2 steps: each member's replicas "
+              f"bitwise equal on its 2 data shards, the members apart; "
+              f"losses {[res_c[0]['losses'], res_c[2]['losses']]}; "
+              f"launches over the 4 ranks {counts}")
+
+        # ---- 7a: NCCL at world size 1 in this process ----
+        initialize_distributed(f"127.0.0.1:{_free_port()}", 1, 0,
+                               device=DEVICE)
+        check(DEVICE != "cuda" or dist.get_backend() == "nccl",
+              "7a: not NCCL")
+        try:
+            K, n_otf = 8, 16
+            write_corpus(tmp, B, seed=34, part="dev")
+            cfg = dp_config(out_fold=os.path.join(tmp, "dp_run"),
+                            path_to_database=tmp, on_the_fly=True,
+                            num_epochs=1, compute_dtype="bfloat16",
+                            steps_per_call=K)
+            raw = Repeat(RawAudioDataset("LA", tmp, "train"), n_otf)
+            sync(torch)
+            zero_counts()
+            summary, state = train(cfg, train_set=raw,
+                                   dev_set=RawAudioDataset("LA", tmp, "dev"),
+                                   device=DEVICE, return_state=True)
+            sync(torch)
+            counts = kernel_counts()
+            counted, run, replays = graph_launches(n_otf, K, 1)
+            print(f"7a train() over NCCL at world 1, bf16, K={K}: "
+                  f"{n_otf} steps (one capture, {replays} replay(s)) and a "
+                  f"dev batch: launches {counts}; per kernel of the step "
+                  f"counted {counted}, run {run}; {summary}")
+            check({k: counts[k] for k in ("B1", "B4a", "B4b")}
+                  == {"B1": counted + 1, "B4a": counted + 1,
+                      "B4b": counted}, f"7a launch counts {counts}")
+            add_counts(entries, "train_dp", counts)
+            live = state.state_dict()
+            del state
+            mesh = make_mesh(DEVICE)
+            waves = [{k: torch.from_numpy(b[k]) for k in ("wave", "length",
+                                                          "label")}
+                     for b in WaveformIterator(raw, B, fe.min_samples(),
+                                               seed=5,
+                                               steps_per_epoch=2 * K).epoch()]
+            k1 = dataclasses.replace(cfg, steps_per_call=1)
+            _, _, st, step, _ = setup_training(k1, 4, frontend=fe,
+                                               device=DEVICE, mesh=mesh)
+            st.load_state_dict(live)
+            rec = step_record(torch, st, step(st, waves[0], 3))
+            del st
+            check_dp_step(torch, rec, k1, fe, live, waves[0], 3,
+                          "7a bf16 data-parallel step (NCCL, world 1) vs "
+                          "the one-process step", 2.0 ** -7)
+            stack = lambda bs: {k: torch.stack([b[k] for b in bs])
+                                for k in bs[0]}
+            torch.backends.cudnn.deterministic = True
+            _, _, st, step, _ = setup_training(cfg, 4, frontend=fe,
+                                               device=DEVICE, mesh=mesh)
+            st.load_state_dict(live)
+            multi = make_multi_step(step, K)
+            multi(st, stack(waves[:K]), 3)         # eager K, then capture
+            st.load_state_dict(live)
+            m_graph = multi(st, stack(waves[K:]), 3)
+            after_graph = copy.deepcopy(st.state_dict())
+            st.load_state_dict(live)
+            m_eager = [step(st, b, 3) for b in waves[K:]]
+            after_eager = st.state_dict()
+            torch.backends.cudnn.deterministic = False
+            check_replay(torch, m_graph, after_graph, m_eager, after_eager,
+                         live["step"], K, "the data-parallel step with its "
+                         "NCCL all-reduces captured")
+            # ms a step: the one-process and the data-parallel K-step
+            # graphs in turns
+            _, _, st1, step1, _ = setup_training(cfg, 4, frontend=fe,
+                                                 device=DEVICE)
+            st1.load_state_dict(live)
+            multi1 = make_multi_step(step1, K)
+            batches = stack(waves[:K])
+            runs = {"one process": lambda: multi1(st1, batches, 3),
+                    "data parallel": lambda: multi(st, batches, 3)}
+            times = {k: [] for k in runs}
+            for name in ("one process", "data parallel", "data parallel",
+                         "one process"):
+                times[name].append(time_ms(torch, runs[name], iters=3) / K)
+            ms = {k: float(np.mean(v)) for k, v in times.items()}
+            print(f"7a bf16 K={K} on the fly [{gpu}] (B={B}, T={T}, C={C}; "
+                  f"CUDA events, in turns): one process "
+                  f"{ms['one process']:.3f} ms/step, data parallel over "
+                  f"NCCL at world 1 {ms['data parallel']:.3f} ms/step "
+                  f"(runs {times}); phase 4b's on the fly "
+                  f"{bf16_ms:.3f} ms/step")
+            del st, st1, multi, multi1
+        finally:
+            dist.destroy_process_group()
+    print(f"phase 7: ranks of 7b and 7c (spawn, CUDA set-up, work, their "
+          f"references) {ranks_s:.1f} s")
+
+
+
 def main() -> int:
     try:
         import torch
@@ -3742,13 +4374,14 @@ def main() -> int:
     fwd_ms = phase("3", main_path, torch, gpu, entries)
     phase("3b", score_path, torch, gpu, entries)
     f32_ms, _ = phase("4", train_path, torch, gpu, entries)
-    phase("4b", train_bf16_path, torch, gpu, entries, f32_ms)
+    bf16_ms = phase("4b", train_bf16_path, torch, gpu, entries, f32_ms)
     phase("4c", train_adv_path, torch, gpu, entries)
     phase("4d", train_families_path, torch, gpu, entries)
     phase("4e", train_new_families_path, torch, gpu, entries)
     phase("5", preprocess_path, torch, gpu, entries)
     phase("5b", train_ensemble_path, torch, gpu, entries)
     phase("6", int8_export_path, torch, gpu, entries, fwd_ms)
+    phase("7", data_parallel_path, torch, gpu, entries, bf16_ms)
     print(f"phase seconds: { {k: round(v, 1) for k, v in seconds.items()} }")
 
     kernels = []
@@ -3761,7 +4394,8 @@ def main() -> int:
             "train_resnet_otf", "train_lcnn_otf", "train_res2net_otf",
             "train_cnn_otf", "train_rawnet_otf", "preprocess",
             "train_ensemble", "train_ensemble_otf", "score_ensemble",
-            "serve_int8", "export")
+            "serve_int8", "export", "train_dp", "score_dp",
+            "train_member_dp", "train_member_data_dp")
             if f"launches_{p}" in e}
         launches = sum(by_path.values())
         print(f"{e['name']} [{gpu}]: max_abs_err {e['max_abs_err']:.3e}, "

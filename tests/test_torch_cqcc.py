@@ -34,6 +34,7 @@ from asvspoof2021_air_tpu.train.frontend import (
 from asvspoof2021_air_tpu_torch.ops.cqcc import (
     CQCC, CQCCConfig, cq_kernels, halfband_fir, uniform_resample_matrix)
 from asvspoof2021_air_tpu_torch.train.frontend import OnDeviceFrontend
+from torch_threads import one_thread  # noqa: F401
 
 B, L = 3, 16000
 LENS = np.array([16000, 9000, 12345])

@@ -18,6 +18,7 @@ from asvspoof2021_air_tpu_torch.serving.ecapa_serving import (
     ServingECAPA,
     ecapa_apply_serving,
 )
+from torch_threads import one_thread  # noqa: F401
 
 C, SCALE, ENC = 64, 8, 32
 

@@ -66,6 +66,7 @@ from test_torch_train import _write_part
 from test_torch_train_families import (
     B, ENC, FRAMES, K, LR, WARM, _fast_jax_init, _write_features,
     check_trajectory, jax_model, port_draws, port_model, recorder)
+from torch_threads import one_thread  # noqa: F401
 
 M = 2
 T = FRAMES["lcnn"]

@@ -390,3 +390,35 @@ def test_family_slice_entry_points_default_to_cuda_and_refuse_the_cpu(
                  WaveformFrontend):
         with pytest.raises(RuntimeError, match="cuda"):
             make()
+
+
+def test_parallel_slice_entry_points_default_to_cuda_and_refuse_the_cpu(
+        monkeypatch):
+    """The multi-GPU layer (parallel/, the ensemble meshes) is among the
+    modules the import guards above cover; its entry points that take a
+    device default to the GPU and raise without one unless asked for the
+    CPU, initialize_distributed included once the environment names a
+    world (it never goes on in one process or on the CPU)."""
+    from asvspoof2021_air_tpu_torch.parallel import (
+        Mesh, initialize_distributed, make_mesh)
+    from asvspoof2021_air_tpu_torch.train.ensemble import (
+        ensemble_mesh, member_data_mesh)
+
+    assert {f"asvspoof2021_air_tpu_torch.parallel.{m}"
+            for m in ("mesh", "distributed")} <= set(MODULES)
+    for k in ("WORLD_SIZE", "RANK", "LOCAL_RANK"):
+        monkeypatch.delenv(k, raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (make_mesh, lambda: ensemble_mesh(2),
+                 lambda: member_data_mesh(1, 1),
+                 lambda: Mesh(("data",), (1,), {"data": 0}, {"data": None},
+                              "cuda")):
+        with pytest.raises(RuntimeError, match="cuda"):
+            make()
+    assert make_mesh("cpu").device.type == "cpu"
+    assert ensemble_mesh(2, "cpu").size("model") == 1
+    initialize_distributed()        # no world named: nothing to join
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(RuntimeError, match="cuda"):
+        initialize_distributed()
+    assert not torch.distributed.is_initialized()

@@ -30,6 +30,7 @@ from asvspoof2021_air_tpu_torch.data.pipeline import RatioMixIterator
 from asvspoof2021_air_tpu_torch.scoring import build_task_dataset
 from test_torch_cqcc import float64_cqcc
 from test_torch_frontends import melspec_float64, stft_float64
+from torch_threads import one_thread  # noqa: F401
 
 N, PART, BATCH = 7, "dev", 4
 LFCC_BAR = 5e-4

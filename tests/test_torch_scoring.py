@@ -25,6 +25,7 @@ from asvspoof2021_air_tpu_torch.losses.one_class import OCSoftmax
 from asvspoof2021_air_tpu_torch.metrics.eer import eer_from_score_file
 from asvspoof2021_air_tpu_torch.scoring import score_raw_to_file, score_rule
 from asvspoof2021_air_tpu_torch.train.frontend import OnDeviceFrontend
+from torch_threads import one_thread  # noqa: F401
 
 ENC = 32
 

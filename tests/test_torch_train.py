@@ -44,6 +44,7 @@ from asvspoof2021_air_tpu_torch.train.loop import (
 from asvspoof2021_air_tpu_torch.train.state import (
     create_train_state, step_decay_schedule)
 from asvspoof2021_air_tpu_torch.train.steps import StepConfig, make_train_step
+from torch_threads import one_thread  # noqa: F401
 
 # Small ECAPA: C=32, scale 4, embedding 16. Batch 8, not 2: train-mode BN
 # over a 2-sample batch has near-zero variances that amplify sum-order

@@ -23,6 +23,7 @@ from asvspoof2021_air_tpu_torch.train.loop import (
 from asvspoof2021_air_tpu_torch.train.steps import make_multi_step
 
 from test_torch_train import _jax_summary_keys, _write_part
+from torch_threads import one_thread  # noqa: F401
 
 C, SCALE, ENC, B, T = 32, 4, 16, 8, 40
 CHANNEL = "amr[br=5k9]"
