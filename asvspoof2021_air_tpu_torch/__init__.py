@@ -11,6 +11,13 @@ hand-written CUDA C++ for sm_90a (``csrc/``), each beside a plain PyTorch
 version that runs for CPU tensors only.
 """
 
-from asvspoof2021_air_tpu_torch._device import resolve_device
-
 __all__ = ["resolve_device"]
+
+
+def __getattr__(name):
+    # imported on first use, so that a host-only module of the package
+    # (``cli.degrade``'s workers, ``data.augment_host``) loads without torch
+    if name == "resolve_device":
+        from asvspoof2021_air_tpu_torch._device import resolve_device
+        return resolve_device
+    raise AttributeError(name)

@@ -39,8 +39,8 @@ card or the CPU. ``-m`` takes the JAX CLI's choices, all six. RawNet2's
 ``--num_centers`` is taken and unused, as in the JAX CLI; ``--test_only``
 prints and returns, as there; ``--fused_pool``/``--fused_bn`` take
 auto|on (the port always trains through B4a/B4b and the recompute VJPs)
-and refuse off; ``--visualize`` reaches ``train/loop.check_supported``,
-which refuses it by name. As in the JAX CLI, ``--add_loss ocsoftmax`` from
+and refuse off; ``--visualize`` writes the embeddings' t-SNE/PCA figure
+every third epoch (``visualize.py``). As in the JAX CLI, ``--add_loss ocsoftmax`` from
 a ``--config`` file is ``ang_iso`` and an add-loss that does not train
 (amsoftmax) is refused, and ``--test_on_eval`` scores only an
 ``eval_set`` handed to ``train()``; the CLI hands none.
@@ -104,7 +104,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--num_centers", type=int, default=3,
                    help="taken and unused, as in the JAX CLI")
     p.add_argument("--visualize", action="store_true",
-                   help="refused: visualization is not ported")
+                   help="t-SNE/PCA figure of the dev (and eval) "
+                        "embeddings every third epoch")
     p.add_argument("--test_only", action="store_true",
                    help="print and return (score with cli.generate_score)")
     p.add_argument("--early_stop_patience", type=int, default=500)

@@ -9,7 +9,8 @@
  * data).
  *
  * Built with the host C++ compiler at first use
- * (ops/_build.host_library(), c++ -O2 -shared -fPIC); no nvcc is needed.
+ * (ops/_host_build.host_library(), c++ -O2 -shared -fPIC); no nvcc is
+ * needed.
  */
 
 #include <cstddef>

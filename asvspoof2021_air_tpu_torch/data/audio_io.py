@@ -5,7 +5,8 @@ package.
 The port's own copy of the JAX package's ``data/audio_io.py``. FLAC is
 decoded by the port's copy of the JAX package's native decoder
 (``csrc/host/flac_decode.cc``), a host C++ library that
-``ops/_build.host_library`` builds with the host compiler at first use.
+``ops/_host_build.host_library`` builds with the host compiler at first
+use.
 """
 
 from __future__ import annotations
@@ -84,7 +85,7 @@ def flac_decode(data: bytes) -> Tuple[np.ndarray, int, int]:
     """Decode a FLAC stream: (samples (n, channels) int32 at the stream's
     bit depth, sample_rate, bits_per_sample); ValueError on malformed
     input."""
-    from asvspoof2021_air_tpu_torch.ops._build import host_library
+    from asvspoof2021_air_tpu_torch.ops._host_build import host_library
 
     lib = host_library()
     buf = np.frombuffer(data, dtype=np.uint8)

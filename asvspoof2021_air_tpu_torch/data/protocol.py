@@ -8,7 +8,8 @@ score files:
   subset);
 - labels spoof=1 / bonafide=0;
 - the LA codec channel vocabulary (60 entries), the DF compression
-  vocabulary (7) and the device impulse-response vocabulary (13).
+  vocabulary (7), the device impulse-response vocabulary (13) and the
+  full device and space IR inventories (74 and 15 stems).
 """
 
 from __future__ import annotations
@@ -114,3 +115,49 @@ def protocol_path(
         database_root, access_type, f"ASVspoof2019_{access_type}_cm_protocols"
     )
     return os.path.join(root, f"ASVspoof2019.{access_type}.cm.{part}.trl.txt")
+
+
+# Full IR inventories of the reference device/space augmentation
+# (the reference's ir-device-file-list.txt: 74 device IRs,
+# ir-space-file-list.txt: 15 space IRs) — filename stems only (the recorded
+# IRs are not shipped by the reference either; ``cli.degrade make-irs``
+# synthesizes a stand-in bank under these names).
+DEVICE_IR_INVENTORY: List[str] = [
+    "Carradiowide-16000", "BlaupunkttuberadioC-16000",
+    "ErrestuberadioC-16000", "ironboxmono-16000", "Errestuberadiov21-16000",
+    "Errestuberadiov22-16000", "Ironspeaker2-16000", "Ironspeaker1-16000",
+    "Verysmallspeakermono-16000", "Smallportable-16000",
+    "Smallspeaker2-16000", "Smallspeaker1-16000", "Carradioclose-16000",
+    "70sPhilipsboxstereo-16000", "walkmanEQ-16000",
+    "Blaupunkttuberadio-16000", "telephone90sC-16000",
+    "telephonehornT65C-16000", "Smallspeakermono-16000",
+    "Verysmallspeaker2-16000", "Verysmallspeaker1-16000",
+    "Smallportableambient-16000", "walkman-16000", "70sPhilipsboxmono-16000",
+    "BehritoneirRecording-16000", "iPhoneirRecording-16000",
+    "iPadirRecording-16000", "OktavaML19-16000", "RCAPB90-16000",
+    "Doremi-16000", "ResloSR1-16000", "ResloRBRedLabel-16000",
+    "SonyC37Fet-16000", "ResloRB250-16000", "AKSPKRSRadio001-16000",
+    "AKSPKRS009-16000", "AKSPKRS003-16000", "AKSPKRS016-16000",
+    "AKSPKRS012-16000", "AKSPKRS008-16000", "AKSPKRS002-16000",
+    "AKSPKRS010-16000", "AKSPKRS014-16000", "AKSPKRSSpeaker002-16000",
+    "AKSPKRSSpeaker001-16000", "AKSPKRS004-16000", "AKSPKRS001-16000",
+    "AKSPKRS80sUs002-16000", "AKSPKRS80sUs001-16000", "AKSPKRS017-16000",
+    "AKSPKRS006-16000", "AKSPKRS013-16000", "AKSPKRS005-16000",
+    "AKSPKRS018-16000", "AKSPKRSModUk001-16000", "AKSPKRSModUk002-16000",
+    "AKSPKRSModUs001-16000", "AKSPKRSModUs004-16000",
+    "AKSPKRSModUs003-16000", "AKSPKRSModUs002-16000", "AKSPKRS019-16000",
+    "AKSPKRS015-16000", "AKSPKRS007-16000", "AKSPKRS80sUk002-16000",
+    "AKSPKRS80sUk001-16000", "AKSPKRS011-16000", "AKSPKRSVinUk002-16000",
+    "AKSPKRSVinUk001-16000", "AKSPKRSVinUs002-16000",
+    "AKSPKRSVinUs001-16000", "DirectCabinetN3-16000",
+    "DirectCabinetN2-16000", "DirectCabinetN1-16000",
+    "DirectCabinetN4-16000"
+]
+
+SPACE_IR_INVENTORY: List[str] = [
+    "smallroom3-16000", "smallplace6-16000", "clearroom1-16000",
+    "AKSROOMS001-16000", "AKSROOMS016-16000", "AKSROOMS006-16000",
+    "AKSROOMS007-16000", "SmallDrumRoom-16000", "BottleHall-16000",
+    "CementBlocks2-16000", "CementBlocks1-16000", "TrigRoom-16000",
+    "NiceDrumRoom-16000", "SmallPrehistoricCave-16000", "BlockInside-16000"
+]

@@ -26,10 +26,8 @@ flax names) into the port's state_dict (reference names):
   (an affine-free BN has only the statistics)
 
 :func:`random_flax_variables` makes a seeded tree with exactly the names
-and shapes the JAX model's ``init`` gives (ECAPA, ResNet18, LCNN), so a
-full-width model can be built without JAX or a checkpoint; the other
-families start from ``models/registry.build_model`` with a seeded
-generator.
+and shapes the JAX model's ``init`` gives, for every family, so a
+full-width model can be built without JAX or a checkpoint.
 
 :func:`from_flax_classifier` does the same for the JAX
 ``ChannelClassifier`` (``Dense_0``/``Dense_1`` -> ``classifier.0``/``.3``).
@@ -43,7 +41,7 @@ imports nothing of JAX.
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -310,20 +308,23 @@ def _subband_from_flax(variables, num_nodes: int
 def random_flax_variables(seed: int, C: int = 512, model_scale: int = 8,
                           n_feat: int = 60, enc_dim: int = 256,
                           n_out: int = 2, stat_noise: float = 0.05,
-                          model: str = "ecapa", feat_len: int = 750):
+                          model: str = "ecapa", feat_len: int = 750,
+                          model_kwargs: Optional[Dict[str, Any]] = None):
     """Seeded numpy variables of the JAX ``model`` in the flax tree's names
     and shapes (ECAPA: ``C``, ``model_scale``; ResNet18 and LCNN at their
     fixed widths; LCNN's head sized for ``feat_len``; ``n_feat`` the input's
-    frequency dim).
+    frequency dim). SE-Res2Net50 ("res2net"), ConvNet ("cnn"), RawNet2
+    ("rawnet") and Subband ("subband") take their shapes from the port's
+    model built on the CPU with ``model_kwargs`` (ConvNet's
+    ``subband_attention``, RawNet2's ``d_args``, Subband's
+    ``subband_num``; ``n_out``, ``enc_dim``, ``n_feat`` and ``feat_len``
+    where the family takes them), mapped back to the flax names and
+    layouts that :func:`from_flax_variables` reads.
 
     Kernels are lecun-normal (std 1/sqrt(fan_in)), biases small; BatchNorm
     scales, biases and running statistics are perturbed by ``stat_noise``
     so the inference affine is not the identity."""
-    if model not in ("ecapa", "resnet", "lcnn"):
-        raise ValueError(
-            f"random_flax_variables makes ecapa, resnet and lcnn trees, not "
-            f"{model!r}: build that family with models/registry.build_model "
-            "and a seeded generator")
+    _check_model(model)
     g = np.random.default_rng(seed)
     width = C // model_scale
 
@@ -348,6 +349,11 @@ def random_flax_variables(seed: int, C: int = 512, model_scale: int = 8,
         return _random_resnet(kernel, conv, bn, enc_dim, n_out, n_feat)
     if model == "lcnn":
         return _random_lcnn(conv, bn_stats, enc_dim, n_out, n_feat, feat_len)
+    if model != "ecapa":
+        shapes = _port_shapes(model, n_out, enc_dim, n_feat, feat_len,
+                              model_kwargs or {})
+        return _FlaxFromShapes(shapes, kernel, vec, bn, bn_stats).build(
+            model, n_feat, feat_len)
     params: Dict = {"Conv_0": conv(5, n_feat, C)}
     stats: Dict = {}
     params["BatchNorm_0"], stats["BatchNorm_0"] = bn(C)
@@ -419,6 +425,175 @@ def _random_lcnn(conv, bn_stats, enc_dim, n_out, n_feat, feat_len):
     params["Dense_1"] = conv(80, enc_dim)
     params["Dense_2"] = conv(enc_dim, n_out)
     return {"params": params, "batch_stats": batch_stats}
+
+
+def _port_shapes(model: str, n_out: int, enc_dim: int, n_feat: int,
+                 feat_len: int, kwargs: Dict[str, Any]) -> Dict[str, tuple]:
+    """name -> shape of the port model's state_dict, built on the CPU."""
+    from asvspoof2021_air_tpu_torch.models import (
+        ConvNet, RawNet, SERes2Net50, Subband)
+    if model == "res2net":
+        net = SERes2Net50(num_classes=n_out, device="cpu", **kwargs)
+    elif model == "cnn":
+        net = ConvNet(num_classes=n_out, enc_dim=enc_dim, feat_dim=n_feat,
+                      feat_len=feat_len, device="cpu", **kwargs)
+    elif model == "rawnet":
+        net = RawNet(device="cpu", **kwargs)
+    else:
+        net = Subband(num_nodes=n_feat, enc_dim=enc_dim, num_classes=n_out,
+                      feat_len=feat_len, device="cpu", **kwargs)
+    return {k: tuple(v.shape) for k, v in net.state_dict().items()}
+
+
+class _FlaxFromShapes:
+    """A seeded flax tree whose every leaf maps, by the layouts of
+    :func:`from_flax_variables`, onto the port state_dict ``shapes``."""
+
+    def __init__(self, shapes, kernel, vec, bn, bn_stats):
+        self.shapes, self.kernel, self.vec = shapes, kernel, vec
+        self.bn_, self.bn_stats = bn, bn_stats
+
+    def _bias(self, name, d):
+        if name + ".bias" in self.shapes:
+            d["bias"] = self.vec(self.shapes[name + ".bias"][0])
+        return d
+
+    def conv2d(self, name):
+        o, i, kh, kw = self.shapes[name + ".weight"]
+        return self._bias(name, {"kernel": self.kernel(kh, kw, i, o)})
+
+    def conv1d(self, name):
+        o, i, k = self.shapes[name + ".weight"]
+        return self._bias(name, {"kernel": self.kernel(k, i, o)})
+
+    def dense(self, name):
+        o, i = self.shapes[name + ".weight"]
+        return self._bias(name, {"kernel": self.kernel(i, o)})
+
+    def bn(self, name):
+        """(params or None for an affine-free BN, batch stats)."""
+        n = self.shapes[name + ".running_mean"][0]
+        if name + ".weight" in self.shapes:
+            return self.bn_(n)
+        return None, self.bn_stats(n)
+
+    def has(self, name) -> bool:
+        return name + ".weight" in self.shapes
+
+    def build(self, model: str, n_feat: int, feat_len: int):
+        return getattr(self, "_" + model)(n_feat, feat_len)
+
+    def _put_bn(self, params, stats, key, name):
+        p, st = self.bn(name)
+        if p is not None:
+            params[key] = p
+        stats[key] = st
+
+    def _res2net(self, n_feat, feat_len):
+        params: Dict = {}
+        stats: Dict = {}
+        for i, (c, b) in enumerate((("conv1.0", "conv1.1"),
+                                    ("conv1.3", "conv1.4"),
+                                    ("conv1.6", "bn1"))):
+            params[f"Conv_{i}"] = self.conv2d(c)
+            self._put_bn(params, stats, f"BatchNorm_{i}", b)
+        i = 0
+        for stage in range(4):
+            b = 0
+            while self.has(f"layer{stage + 1}.{b}.conv1"):
+                t = f"layer{stage + 1}.{b}."
+                nums = sum(1 for k in self.shapes
+                           if k.startswith(t + "convs.")
+                           and k.endswith(".weight"))
+                names = (["conv1"] + [f"convs.{j}" for j in range(nums)]
+                         + ["conv3"])
+                bns = ["bn1"] + [f"bns.{j}" for j in range(nums)] + ["bn3"]
+                if self.has(t + "downsample.1"):
+                    names.append("downsample.1")
+                    bns.append("downsample.2")
+                bp: Dict = {}
+                bs: Dict = {}
+                for j, (c, n) in enumerate(zip(names, bns)):
+                    bp[f"Conv_{j}"] = self.conv2d(t + c)
+                    self._put_bn(bp, bs, f"BatchNorm_{j}", t + n)
+                bp["SELayer2D_0"] = {"Dense_0": self.dense(t + "se.fc.0"),
+                                     "Dense_1": self.dense(t + "se.fc.2")}
+                params[f"SEBottle2neck_{i}"] = bp
+                stats[f"SEBottle2neck_{i}"] = bs
+                i += 1
+                b += 1
+        params["Dense_0"] = self.dense("cls_layer")
+        return {"params": params, "batch_stats": stats}
+
+    def _cnn(self, n_feat, feat_len):
+        params: Dict = {}
+        stats: Dict = {}
+        attention = "attention.att_weights" in self.shapes
+        for i in range(5 if attention else 4):
+            params[f"Conv_{i}"] = self.conv2d(f"layer{i + 1}.0")
+            self._put_bn(params, stats, f"BatchNorm_{i}", f"layer{i + 1}.1")
+        dense = ["fc2", "fc3"]
+        if attention:
+            h = self.shapes["attention.att_weights"][1]
+            params["SelfAttentionPooling_0"] = {
+                "att_weights": self.kernel(h, 1)}
+        else:
+            dense.insert(0, "fc1")
+        for j, name in enumerate(dense):
+            params[f"Dense_{j}"] = self.dense(name)
+        return {"params": params, "batch_stats": stats}
+
+    def _rawnet(self, n_feat, feat_len):
+        params: Dict = {}
+        stats: Dict = {}
+        self._put_bn(params, stats, "BatchNorm_0", "first_bn")
+        for i in range(6):
+            t = f"block{i}.0"
+            bp: Dict = {}
+            bs: Dict = {}
+            bns = ["bn2"] if i == 0 else ["bn1", "bn2"]
+            for j, name in enumerate(bns):
+                self._put_bn(bp, bs, f"BatchNorm_{j}", f"{t}.{name}")
+            for j, name in enumerate(("conv1", "conv2", "conv_downsample")):
+                if self.has(f"{t}.{name}"):
+                    bp[f"Conv_{j}"] = self.conv1d(f"{t}.{name}")
+            params[f"ResidualBlock_{i}"] = bp
+            stats[f"ResidualBlock_{i}"] = bs
+            params[f"FMSAttention_{i}"] = {
+                "Dense_0": self.dense(f"fc_attention{i}.0")}
+        self._put_bn(params, stats, "BatchNorm_1", "bn_before_gru")
+        k = 0
+        while f"gru.weight_ih_l{k}" in self.shapes:
+            h3, c = self.shapes[f"gru.weight_ih_l{k}"]
+            params[f"GRULayer_{k}"] = {
+                "wi": self.kernel(c, h3), "wh": self.kernel(h3 // 3, h3),
+                "bi": self.vec(h3), "bh": self.vec(h3)}
+            k += 1
+        params["Dense_0"] = self.dense("fc1_gru")
+        params["Dense_1"] = self.dense("fc2_gru")
+        return {"params": params, "batch_stats": stats}
+
+    def _subband(self, n_feat, feat_len):
+        params: Dict = {}
+        stats: Dict = {}
+        i = 1
+        while f"sub{i}.fc_mu.weight" in self.shapes:
+            band = {k[len(f"sub{i}."):]: v for k, v in self.shapes.items()
+                    if k.startswith(f"sub{i}.")}
+            sub = _FlaxFromShapes(band, self.kernel, self.vec, self.bn_,
+                                  self.bn_stats)
+            bp: Dict = {f"Conv_{j}": sub.conv2d(f"conv{j + 1}.0")
+                        for j in range(9)}
+            bp["Dense_0"] = sub.dense("out.1")
+            bp["Dense_1"] = sub.dense("out.3")
+            bp["Dense_2"] = sub.dense("fc_mu")
+            bs = {f"BatchNorm_{j}": sub.bn(src)[1] for j, src in enumerate(
+                ("conv2.2", "conv3.3", "conv4.2", "conv6.2", "conv7.2",
+                 "conv8.2"))}
+            params[f"LCNN_{i - 1}"] = bp
+            stats[f"LCNN_{i - 1}"] = bs
+            i += 1
+        return {"params": params, "batch_stats": stats}
 
 
 def from_flax_classifier(params) -> Dict[str, torch.Tensor]:

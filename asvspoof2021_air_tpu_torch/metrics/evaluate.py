@@ -63,11 +63,11 @@ def compute_eer_and_tdcf(
     The ASV operating point is fixed at the EER threshold of the
     organizers' ASV score file; min-tDCF is taken for whichever CM score
     polarity gives the lower EER. min-tDCF is None when there is no ASV
-    score file."""
-    if plot:
-        raise NotImplementedError(
-            "plot=True: the score histograms come with the port of the "
-            "visualize module (ROADMAP Queue A, the tooling item)")
+    score file. ``plot`` (with an ASV score file) writes the score
+    histograms to ``<prefix>1.png`` and the t-DCF curve to
+    ``<prefix>2.png``, the prefix the score file's path without ``.txt``
+    unless ``plot_path_prefix`` names one (matplotlib on the host, Agg,
+    imported only then)."""
     if asv_score_file is None and path_to_database is not None:
         asv_score_file = os.path.join(
             path_to_database, "LA/ASVspoof2019_LA_asv_scores/"
@@ -99,10 +99,16 @@ def compute_eer_and_tdcf(
             b, s = bona_cm, spoof_cm
         else:
             b, s = -bona_cm, -spoof_cm
-        tdcf_curve, _thresholds = compute_tDCF(
+        tdcf_curve, cm_thresholds = compute_tDCF(
             b, s, pfa_asv, pmiss_asv, pmiss_spoof_asv,
             ASVSPOOF2019_COST_MODEL)
-        min_tdcf = float(tdcf_curve[int(np.argmin(tdcf_curve))])
+        min_idx = int(np.argmin(tdcf_curve))
+        min_tdcf = float(tdcf_curve[min_idx])
+        if plot:
+            _plot_score_histograms_and_tdcf(
+                tar_asv, non_asv, spoof_asv, asv_threshold, bona_cm,
+                spoof_cm, tdcf_curve, cm_thresholds, min_idx,
+                plot_path_prefix or cm_score_file[:-4])
 
     print("\nCM SYSTEM")
     print("   EER            = {:8.5f} % (Equal error rate for "
@@ -111,3 +117,47 @@ def compute_eer_and_tdcf(
         print("\nTANDEM")
         print("   min-tDCF       = {:8.5f}".format(min_tdcf))
     return eer, min_tdcf
+
+
+def _plot_score_histograms_and_tdcf(
+    tar_asv, non_asv, spoof_asv, asv_threshold,
+    bona_cm, spoof_cm, tdcf_curve, cm_thresholds, min_idx, prefix,
+):
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    fig = plt.figure()
+    plt.subplot(121)
+    plt.hist(tar_asv, histtype="step", density=True, bins=50, label="Target")
+    plt.hist(non_asv, histtype="step", density=True, bins=50, label="Nontarget")
+    plt.hist(spoof_asv, histtype="step", density=True, bins=50, label="Spoof")
+    plt.plot(asv_threshold, 0, "o", markersize=10, mfc="none", mew=2,
+             clip_on=False, label="EER threshold")
+    plt.legend()
+    plt.xlabel("ASV score")
+    plt.ylabel("Density")
+    plt.title("ASV score histogram")
+
+    plt.subplot(122)
+    plt.hist(bona_cm, histtype="step", density=True, bins=50, label="Bona fide")
+    plt.hist(spoof_cm, histtype="step", density=True, bins=50, label="Spoof")
+    plt.legend()
+    plt.xlabel("CM score")
+    plt.title("CM score histogram")
+    fig.savefig(prefix + "1.png")
+    plt.close(fig)
+
+    fig = plt.figure()
+    plt.plot(cm_thresholds, tdcf_curve)
+    plt.plot(cm_thresholds[min_idx], tdcf_curve[min_idx], "o", markersize=10,
+             mfc="none", mew=2)
+    plt.xlabel("CM threshold index (operating point)")
+    plt.ylabel("Norm t-DCF")
+    plt.title("Normalized tandem t-DCF")
+    plt.plot([np.min(cm_thresholds), np.max(cm_thresholds)], [1, 1], "--",
+             color="black")
+    plt.xlim([np.min(cm_thresholds), np.max(cm_thresholds)])
+    plt.ylim([0, 1.5])
+    fig.savefig(prefix + "2.png")
+    plt.close(fig)

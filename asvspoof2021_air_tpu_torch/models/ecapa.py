@@ -17,7 +17,8 @@ reference on the card; the serving graph with the CUDA kernels is
 ``serving/ecapa_serving.py``. Train mode is the JAX model with
 ``fused_pool=True, fused_bn=True``: batch-statistics BN with the JAX
 running-statistics rule, every ReLU -> BN pair through the recompute VJP
-(``ops/bn_relu_vjp.py``), the Res2 chain as seven plain convs, and the
+(``ops/bn_relu_vjp.py``), the Res2 chain as seven plain convs (or, with
+``fused_chain``, through ``ops/res2_chain_vjp.py``), and the
 attention tail through :class:`~asvspoof2021_air_tpu_torch.ops.attn_pool_vjp.FusedSoftmaxStats`
 (kernels B4a/B4b on the card). With ``fused_pool`` the eval forward also
 pools through B4a, as the JAX eval step does. Weights start as flax
@@ -46,16 +47,22 @@ from asvspoof2021_air_tpu_torch._device import disable_tf32, resolve_device
 from asvspoof2021_air_tpu_torch.models.common import (
     BatchNorm1d, SEModule1D, conv, conv1d, dense, init_flax_like_)
 from asvspoof2021_air_tpu_torch.ops.attn_pool_vjp import fused_softmax_stats
+from asvspoof2021_air_tpu_torch.ops.res2_chain_vjp import (
+    chain_params, res2_chain_train, update_running_stats)
 
 
 class Bottle2neck(nn.Module):
-    """SE-Res2 block over (B, C, T)."""
+    """SE-Res2 block over (B, C, T); ``fused_chain`` runs the train-mode
+    conv chain through ``ops/res2_chain_vjp.res2_chain_train``."""
 
     def __init__(self, planes: int, kernel_size: int = 3, dilation: int = 1,
-                 scale: int = 8, dtype: Optional[torch.dtype] = None):
+                 scale: int = 8, dtype: Optional[torch.dtype] = None,
+                 fused_chain: bool = False):
         super().__init__()
         width = int(math.floor(planes / scale))
         self.width, self.scale, self.dtype = width, scale, dtype
+        self.fused_chain = fused_chain and kernel_size == 3
+        self.dilation = dilation
         self.conv1 = nn.Conv1d(planes, width * scale, kernel_size=1)
         self.bn1 = BatchNorm1d(width * scale, dtype=dtype)
         pad = (kernel_size // 2) * dilation
@@ -71,14 +78,21 @@ class Bottle2neck(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
         out = self.bn1.relu_bn(conv(self.conv1, x, dt))
-        groups = torch.split(out, self.width, dim=1)
-        outs, sp = [], None
-        for i in range(self.scale - 1):
-            sp = groups[i] if i == 0 else sp + groups[i]
-            sp = self.bns[i].relu_bn(conv(self.convs[i], sp, dt))
-            outs.append(sp)
-        outs.append(groups[self.scale - 1])
-        out = self.bn3.relu_bn(conv(self.conv3, torch.cat(outs, dim=1), dt))
+        if self.fused_chain and self.training:
+            out, mus, vrs = res2_chain_train(
+                out, *chain_params(self.convs, self.bns), self.dilation,
+                self.bns[0].eps)
+            update_running_stats(self.bns, mus, vrs)
+        else:
+            groups = torch.split(out, self.width, dim=1)
+            outs, sp = [], None
+            for i in range(self.scale - 1):
+                sp = groups[i] if i == 0 else sp + groups[i]
+                sp = self.bns[i].relu_bn(conv(self.convs[i], sp, dt))
+                outs.append(sp)
+            outs.append(groups[self.scale - 1])
+            out = torch.cat(outs, dim=1)
+        out = self.bn3.relu_bn(conv(self.conv3, out, dt))
         return self.se(out) + x
 
 
@@ -86,13 +100,21 @@ class ECAPA_TDNN(nn.Module):
     """Canonical instantiation: C=512, model_scale=8, n_out=2, n_feat=60,
     enc_dim=256. Built on ``device`` (the GPU unless the caller asks for
     the CPU), initialized from ``generator`` (a CPU generator; torch's
-    global one when None); ``dtype`` is the compute dtype (None: f32)."""
+    global one when None); ``dtype`` is the compute dtype (None: f32);
+    ``fused_chain`` (the JAX model's flag) runs each block's train-mode
+    Res2 chain through ``ops/res2_chain_vjp`` (the same values and
+    statistics; eval mode is unchanged). It is kept for parity with the
+    JAX model's API, set by no CLI flag or ``TrainConfig`` field, and
+    loses on time: one f32 step at B = 64, T = 750 takes 4-9% longer for
+    a 6% lower peak (3.46 GiB against 3.68; ``chip_smoke.py`` phase 8c
+    on an NVIDIA H100 80GB HBM3 at 700 W)."""
 
     def __init__(self, C: int = 512, model_scale: int = 8, n_out: int = 2,
                  n_feat: int = 60, enc_dim: int = 256,
                  fused_pool: bool = False,
                  generator: Optional[torch.Generator] = None, device="cuda",
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None,
+                 fused_chain: bool = False):
         super().__init__()
         dev = resolve_device(device)
         if dtype not in (None, torch.bfloat16):
@@ -104,9 +126,9 @@ class ECAPA_TDNN(nn.Module):
         self.fused_pool, self.dtype = fused_pool, dtype
         self.conv1 = nn.Conv1d(n_feat, C, kernel_size=5, padding=2)
         self.bn1 = BatchNorm1d(C, dtype=dtype)
-        self.layer1 = Bottle2neck(C, 3, 2, model_scale, dtype)
-        self.layer2 = Bottle2neck(C, 3, 3, model_scale, dtype)
-        self.layer3 = Bottle2neck(C, 3, 4, model_scale, dtype)
+        self.layer1 = Bottle2neck(C, 3, 2, model_scale, dtype, fused_chain)
+        self.layer2 = Bottle2neck(C, 3, 3, model_scale, dtype, fused_chain)
+        self.layer3 = Bottle2neck(C, 3, 4, model_scale, dtype, fused_chain)
         self.layer4 = nn.Conv1d(3 * C, 1536, kernel_size=1)
         self.attention = nn.Sequential(
             nn.Conv1d(3 * 1536, 128, kernel_size=1),

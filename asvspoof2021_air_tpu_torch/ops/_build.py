@@ -8,33 +8,28 @@ of the sources and flags, so a changed source rebuilds and an unchanged one
 loads at once. Nothing is built at import time: the first wrapper that
 launches a kernel on a CUDA tensor builds it.
 
-:func:`host_library` does the same for the host C++ sources under
-``csrc/host/`` (the FLAC decoder), with the host C++ compiler: it needs no
-``nvcc`` and runs on any machine.
+The host C++ libraries (the FLAC decoder and the native codec library) are
+built by ``ops/_host_build.py``, which imports no torch and shares the build
+directory and lock with this module.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
 import shutil
 import subprocess
 import tempfile
-import threading
 import time
 from pathlib import Path
 
 import torch
 
-_PKG = Path(__file__).resolve().parent.parent
-CSRC = _PKG / "csrc"
-BUILD_DIR = _PKG / "build"
+from asvspoof2021_air_tpu_torch.ops._host_build import (
+    BUILD_DIR, CSRC, _digest, lock)
+
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", *ARCH_FLAGS]
-HOST_SRC = CSRC / "host"
-HOST_FLAGS = ["-std=c++17", "-O2", "-shared", "-fPIC"]
-
 # Element-type codes of the C entry points (csrc/common.cuh ScalarCode).
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -53,18 +48,7 @@ SIGNATURES = {
 }
 RESTYPES = {"attn_pool_workspace": ctypes.c_longlong}
 
-U8P = ctypes.POINTER(ctypes.c_uint8)
-IP = ctypes.POINTER(ctypes.c_int)
-# Host entry points of csrc/host/ -> (argument types, result type).
-HOST_SIGNATURES = {
-    "flac_stream_info": ([U8P, ctypes.c_size_t, IP, IP, IP], ctypes.c_long),
-    "flac_decode": ([U8P, ctypes.c_size_t, ctypes.POINTER(ctypes.c_int32),
-                     ctypes.c_size_t, IP, IP, IP], ctypes.c_long),
-}
-
-_lock = threading.Lock()
 _lib = None
-_host_lib = None
 build_seconds = None   # wall time of the build this process ran, if any
 
 
@@ -78,14 +62,6 @@ def _nvcc() -> str:
 
 def _sources():
     return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
-
-
-def _digest(flags, sources) -> str:
-    h = hashlib.sha256(" ".join(flags).encode())
-    for path in sources:
-        h.update(path.name.encode())
-        h.update(path.read_bytes())
-    return h.hexdigest()[:16]
 
 
 def _compile(target: Path) -> None:
@@ -114,47 +90,10 @@ def _compile(target: Path) -> None:
         os.replace(tmp_lib, target)   # atomic: a concurrent loader sees all or none
 
 
-def _cxx() -> str:
-    for cand in (os.environ.get("CXX"), "c++", "g++"):
-        path = cand and shutil.which(cand)
-        if path:
-            return path
-    raise RuntimeError("no host C++ compiler found (set CXX or put c++ on "
-                       "PATH)")
-
-
-def host_library() -> ctypes.CDLL:
-    """The host C++ library of ``csrc/host/*.cc``, built on first use with
-    the host compiler into ``build/libasv_host_<hash>.so``."""
-    global _host_lib
-    with _lock:
-        if _host_lib is None:
-            sources = sorted(HOST_SRC.glob("*.cc"))
-            target = (BUILD_DIR
-                      / f"libasv_host_{_digest(HOST_FLAGS, sources)}.so")
-            if not target.exists():
-                BUILD_DIR.mkdir(parents=True, exist_ok=True)
-                with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-                    tmp_lib = Path(tmp) / target.name
-                    out = subprocess.run(
-                        [_cxx(), *HOST_FLAGS, *map(str, sources), "-o",
-                         str(tmp_lib)], capture_output=True, text=True)
-                    if out.returncode != 0:
-                        raise RuntimeError("host C++ build failed:\n"
-                                           + out.stdout + out.stderr)
-                    os.replace(tmp_lib, target)
-            lib = ctypes.CDLL(str(target))
-            for name, (argtypes, restype) in HOST_SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes, fn.restype = argtypes, restype
-            _host_lib = lib
-        return _host_lib
-
-
 def library() -> ctypes.CDLL:
     """The kernels' shared library, built on first use."""
     global _lib, build_seconds
-    with _lock:
+    with lock:
         if _lib is None:
             cu, cuh = _sources()
             target = (BUILD_DIR

@@ -42,8 +42,9 @@ eer``) as the JAX loop does, and returns the same summary dict.
 ``ensemble`` M > 1 trains M systems in one step (``train/ensemble.py``):
 one checkpoint holds every member and the shared step, and the dev and
 eval scores are the members' mean. ``feat="CQCC"`` on the fly runs the
-CQCC front-end. ``visualize`` raises NotImplementedError
-(``check_supported``). ``ADV_AUG`` trains from
+CQCC front-end. ``visualize`` writes the t-SNE/PCA figure of the dev
+(and, with ``test_on_eval``, eval) embeddings and the loss centers every
+third epoch (``visualize.py``, on the host). ``ADV_AUG`` trains from
 augmented feature files only: on the fly the JAX loop's batches carry no
 channel ids, so its step fails there; the port refuses the pair. RawNet2
 reads waveforms, so it trains on the fly only (from feature files the JAX
@@ -189,11 +190,10 @@ def _aug_flag(config: TrainConfig) -> bool:
 
 
 def check_supported(config: TrainConfig) -> None:
-    """Raise NotImplementedError for ``visualize``, which this port does not
-    train with (ROADMAP Queue A), and ValueError for ADV_AUG without
-    augmented feature files, for rawnet from feature files and, as the JAX
-    package does, for rawnet with an add-loss and for an on-the-fly
-    feature other than LFCC and CQCC (the JAX front-end's refusal)."""
+    """Raise ValueError for ADV_AUG without augmented feature files, for
+    rawnet from feature files and, as the JAX package does, for rawnet
+    with an add-loss and for an on-the-fly feature other than LFCC and
+    CQCC (the JAX front-end's refusal)."""
     c = config
     if c.model == "rawnet" and c.add_loss is not None:
         raise ValueError(
@@ -212,9 +212,6 @@ def check_supported(config: TrainConfig) -> None:
             and c.feat not in ("LFCC", "CQCC")):
         raise ValueError(f"on-the-fly front-end supports LFCC/CQCC, got "
                          f"{c.feat}")
-    if c.visualize:
-        raise NotImplementedError("not covered by the port's training "
-                                  "slice: visualize")
 
 
 def _prepare_out_fold(config: TrainConfig) -> None:
@@ -423,15 +420,24 @@ def _local_rows(batch: Dict[str, Any], mesh: Mesh) -> Dict[str, Any]:
 
 
 def _evaluate(step, state, batch: Dict[str, Any], mesh: Mesh,
-              frontend_params=None):
+              frontend_params=None, feats_out: Optional[list] = None):
     """(metrics, the global batch's scores on the host, an ensemble's
     fused) of the eval ``step`` on this rank's rows of ``batch``: the
     scores gathered over "data" (rows) and "model" (members), the metrics
-    (averaged over "data" by the step) averaged over "model"."""
-    metrics, score, _ = step(state, _tensors(_local_rows(batch, mesh)),
-                             frontend_params)
+    (averaged over "data" by the step) averaged over "model". With
+    ``feats_out``, the batch's embeddings (an ensemble's first local
+    member's), gathered over "data", are appended to it on the host."""
+    metrics, score, feats = step(state, _tensors(_local_rows(batch, mesh)),
+                                 frontend_params)
     score = score.float()
     data, model = _axis_group(mesh, "data"), _axis_group(mesh, "model")
+    if feats_out is not None:
+        feats = feats.float()
+        if feats.dim() == 3:                 # an ensemble's (M, B, E)
+            feats = feats[0]
+        if data is not None:
+            feats = torch.cat(gather(feats, data).unbind(), dim=0)
+        feats_out.append(feats.cpu().numpy())
     if data is not None:
         score = torch.cat(gather(score, data).unbind(), dim=-1)
     if model is not None:
@@ -441,31 +447,62 @@ def _evaluate(step, state, batch: Dict[str, Any], mesh: Mesh,
 
 
 def _eval_set_eer(config: TrainConfig, eval_set, state, eval_step,
-                  mesh: Mesh, frontend=None) -> float:
+                  mesh: Mesh, frontend=None, embed: bool = False):
     """The eval-set EER of ``state``, scored as the JAX loop's
     ``test_on_eval`` scores it: on the fly, sequential waveform batches
     with the wrapped tail trimmed by count; from features,
     ``SequentialIterator`` batches with their ``valid`` mask; each batch
-    over the mesh as :func:`_evaluate`."""
+    over the mesh as :func:`_evaluate`. With ``embed``, (EER, the
+    trials' embeddings, their labels)."""
     B = config.batch_size
-    scores, labels = [], []
+    scores, labels, feats = [], [], []
+    keep = []
+    out = feats if embed else None
     if frontend is not None:
         n = len(eval_set)
         batches = WaveformIterator(eval_set, B, frontend.min_samples(),
                                    ratio=1.0, shuffle=False,
                                    steps_per_epoch=-(-n // B)).epoch()
         for i, batch in enumerate(batches):
-            _m, score = _evaluate(eval_step, state, batch, mesh)
-            take = min(n - i * B, B)
-            scores.append(score[:take])
-            labels.append(batch["label"][:take])
+            _m, score = _evaluate(eval_step, state, batch, mesh,
+                                  feats_out=out)
+            keep.append(slice(0, min(n - i * B, B)))
+            scores.append(score[keep[-1]])
+            labels.append(batch["label"][keep[-1]])
     else:
         for batch in SequentialIterator(eval_set, B, config.feat_len,
                                         config.padding):
-            _m, score = _evaluate(eval_step, state, batch, mesh)
-            scores.append(score[batch["valid"]])
-            labels.append(batch["label"][batch["valid"]])
-    return _eer(np.concatenate(scores), np.concatenate(labels))
+            _m, score = _evaluate(eval_step, state, batch, mesh,
+                                  feats_out=out)
+            keep.append(batch["valid"])
+            scores.append(score[keep[-1]])
+            labels.append(batch["label"][keep[-1]])
+    eer = _eer(np.concatenate(scores), np.concatenate(labels))
+    if not embed:
+        return eer
+    return (eer, np.concatenate([f[k] for f, k in zip(feats, keep)]),
+            np.concatenate(labels))
+
+
+def _visualize(config: TrainConfig, state, dev_feats, dev_labels,
+               eval_feats, eval_labels, epoch: int) -> str:
+    """``embedding_vis_epoch<epoch>.pdf`` in the run folder: the loss
+    center(s) of a one-class add-loss (an ensemble's first member's), else
+    the bona fide dev embeddings' mean."""
+    from asvspoof2021_air_tpu_torch.visualize import visualize_dev_and_eval
+
+    if config.add_loss in ("isolate", "iso_sq", "ang_iso"):
+        loss_module = state.loss_module
+        if isinstance(loss_module, (list, tuple)):
+            loss_module = loss_module[0]
+        center = loss_module.center.detach().float().cpu().numpy()
+        if config.ensemble > 1 and center.ndim == 3:
+            center = center[0]
+    else:
+        center = dev_feats[dev_labels == 0].mean(0, keepdims=True)
+    return visualize_dev_and_eval(
+        dev_feats, dev_labels, eval_feats, eval_labels, center,
+        seed=config.seed, out_fold=config.out_fold, epoch=epoch)
 
 
 def _to_cpu(tree):
@@ -657,9 +694,13 @@ def train(config: TrainConfig, train_set=None, dev_set=None, eval_set=None,
         # ---- validation (through the augmenter under dev_aug) ----
         dev_log = defaultdict(list)
         scores, labels = [], []
+        # the reference plots every third epoch, the first included
+        plot = config.visualize and (epoch + 1) % 3 == 1
+        dev_feats = [] if plot else None
         for batch in dev_iter.epoch():
             metrics, score = _evaluate(eval_step.dev_eval_step, state,
-                                       batch, mesh, frontend_params)
+                                       batch, mesh, frontend_params,
+                                       feats_out=dev_feats)
             for k, v in metrics.items():
                 dev_log[k].append(float(v))
             scores.append(score)
@@ -672,13 +713,23 @@ def train(config: TrainConfig, train_set=None, dev_set=None, eval_set=None,
                 f.write(f"{epoch}\t{val_loss}\t{eer}\n")
 
         # ---- eval-set EER ----
+        eval_feats = eval_labels = None
         if config.test_on_eval and eval_set is not None:
             test_eer = _eval_set_eer(config, eval_set, state, eval_step,
-                                     mesh, frontend)
+                                     mesh, frontend, embed=plot)
+            if plot:
+                test_eer, eval_feats, eval_labels = test_eer
             if lead:
                 with open(os.path.join(config.out_fold, "test_loss.log"),
                           "a") as f:
                     f.write(f"{epoch}\t{test_eer}\n")
+
+        # ---- embedding visualization: dev and eval panels, dev only
+        # without test_on_eval (t-SNE and PCA on the host) ----
+        if plot and lead:
+            _visualize(config, state, np.concatenate(dev_feats),
+                       np.concatenate(labels), eval_feats, eval_labels,
+                       epoch + 1)
 
         # ---- checkpoints and model selection (rank 0 writes) ----
         ckpt = _checkpoint_state(state, mesh)

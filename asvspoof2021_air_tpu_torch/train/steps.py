@@ -52,7 +52,22 @@ the rank's local moments, the draws are the rank's own (keyed by its index
 in the group), and the gradients, the metrics and the new running
 statistics are averaged over the ranks.
 
-``remat_policy`` raises NotImplementedError.
+``remat_policy="conv_dot"`` (the JAX step's ``jax.checkpoint`` policy)
+runs the model's forward under ``torch.utils.checkpoint`` with a selective
+policy that saves the outputs of convolutions and matrix products
+(``aten.convolution``/``mm``/``addmm``/``bmm``) and recomputes everything
+else (the elementwise and BN chains, the softmax) in the backward, the
+recompute Functions of ``ops/bn_relu_vjp.py``, ``ops/res2_chain_vjp.py``
+and B4a included. The recompute re-runs each BN's running-statistics
+update, so the step restores the statistics the forward left. Other
+values raise ValueError, as in JAX; on the card the K-step CUDA graph
+(``make_multi_step``) refuses it by name. It is a switch kept for parity
+with the JAX step's API, set by no CLI flag or ``TrainConfig`` field, and
+it loses on this port: the recompute Functions above already keep only
+their inputs and statistics, so it saves no memory (peak 3.68 GiB with
+and without it) and the step takes 52-129% longer (one f32 ECAPA-TDNN-512
+step at B = 64, T = 750; ``chip_smoke.py`` phase 8c on an NVIDIA H100
+80GB HBM3 at 700 W).
 """
 
 from __future__ import annotations
@@ -82,9 +97,7 @@ class StepConfig:
     weight_loss: float = 1.0
     adv_aug: bool = False
     dual_classifier: bool = False         # codec + device classifiers
-    # The JAX StepConfig's switch that the port does not train with yet
-    # (ROADMAP Queue A); set, it raises.
-    remat_policy: Optional[str] = None
+    remat_policy: Optional[str] = None    # None | "conv_dot"
 
 
 def _check(config: StepConfig, train: bool = True) -> None:
@@ -94,8 +107,41 @@ def _check(config: StepConfig, train: bool = True) -> None:
                          f"choices: {TRAINED_LOSSES}")
     if config.base_loss not in ("ce", "bce"):
         raise ValueError(f"base_loss {config.base_loss!r}")
-    if config.remat_policy is not None:
-        raise NotImplementedError("remat_policy is not ported")
+    if config.remat_policy not in (None, "conv_dot"):
+        raise ValueError(config.remat_policy)
+
+
+_CONV_DOT_OPS = (torch.ops.aten.convolution.default,
+                 torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+                 torch.ops.aten.bmm.default)
+
+
+def _conv_dot_policy(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy: save convolution and matrix-product
+    outputs, recompute the rest."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    return (CheckpointPolicy.MUST_SAVE if op in _CONV_DOT_OPS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _forward(model: torch.nn.Module, x: torch.Tensor, model_draws,
+             remat_policy: Optional[str]):
+    """The train-mode forward (embedding, logits); with ``remat_policy``
+    under the selective checkpoint of the module docstring."""
+    args = (x,) if model_draws is None else (x, model_draws)
+    if remat_policy is None:
+        return model(*args)
+    from torch.utils.checkpoint import (
+        checkpoint, create_selective_checkpoint_contexts)
+    return checkpoint(
+        model, *args, use_reentrant=False,
+        context_fn=lambda: create_selective_checkpoint_contexts(
+            _conv_dot_policy))
+
+
+def _running_stats(model: torch.nn.Module) -> List[torch.Tensor]:
+    return [b for name, b in model.named_buffers()
+            if name.endswith(("running_mean", "running_var"))]
 
 
 def base_loss_and_score(base_loss: str, logits: torch.Tensor,
@@ -283,11 +329,18 @@ def make_train_step(config: StepConfig, frontend: Optional[Callable] = None,
             metrics, total, clf_loss = _losses(state, config, x, labels,
                                                batch, model_draws, adv_gate,
                                                dev)
-        # the backbone's loss trains the model and the loss module only
-        # (JAX differentiates it w.r.t. params and loss_params); the
-        # adversarial term's gradient reaches the classifiers' parameters
-        # too, and is not accumulated there
-        total.backward(inputs=state.trained_parameters())
+            stats = None
+            if config.remat_policy is not None:
+                stats = [b.clone() for b in _running_stats(state.model)]
+            # the backbone's loss trains the model and the loss module
+            # only (JAX differentiates it w.r.t. params and loss_params);
+            # the adversarial term's gradient reaches the classifiers'
+            # parameters too, and is not accumulated there
+            total.backward(inputs=state.trained_parameters())
+        if stats is not None:      # undo the recompute's second update
+            with torch.no_grad():
+                for b, v in zip(_running_stats(state.model), stats):
+                    b.copy_(v)
         if config.adv_aug:
             clf_loss.backward(inputs=[p for c in state.classifiers()
                                       for p in c.parameters()])
@@ -301,6 +354,7 @@ def make_train_step(config: StepConfig, frontend: Optional[Callable] = None,
     train_step.draw_model = draw_model
     train_step.groups = [] if data_group is None else [data_group]
     train_step.frontend, train_step.sync_bn = frontend, sync_bn
+    train_step.remat_policy = config.remat_policy
     return train_step
 
 
@@ -309,8 +363,8 @@ def _losses(state: TrainState, config: StepConfig, x: torch.Tensor,
             adv_gate, dev):
     """(metrics, the backbone's loss, the classifiers' loss or None) of the
     train-mode forward of ``x``."""
-    feats, logits = (state.model(x) if model_draws is None
-                     else state.model(x, model_draws))
+    feats, logits = _forward(state.model, x, model_draws,
+                             config.remat_policy)
     base, _ = base_loss_and_score(config.base_loss, logits, labels)
     metrics = {"base_loss": base.detach()}
     if config.add_loss is None:
@@ -410,6 +464,12 @@ class _GraphedSteps:
     def __call__(self, state: TrainState, batches: Dict[str, torch.Tensor],
                  rng=None, adv_gate: float = 0.0,
                  frontend_params=None) -> Dict[str, torch.Tensor]:
+        if getattr(self.train_step, "remat_policy", None) is not None:
+            raise ValueError(
+                f"remat_policy={self.train_step.remat_policy!r} with "
+                f"steps_per_call={self.n_steps} on the card: the K-step "
+                "CUDA graph does not capture the checkpointed backward; "
+                "run steps_per_call 1")
         if not state.capturable:
             raise ValueError("a CUDA graph of training steps needs a "
                              "capturable TrainState "

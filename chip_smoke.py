@@ -223,7 +223,34 @@ Phases, each fatal on failure:
    over the ranks; a rank that fails or hangs (killed after 300 s) fails
    the phase.
 
-Each phase's seconds are printed.
+8. drive the augmented pipeline without JAX (the degraded corpus): 8a,
+   on the host, 32 + 32 synthetic WAVs of 3.0-4.0 s (train, dev) through
+   ``cli.degrade`` channel ``--sampling random --fidelity native`` at
+   -j 1 and -j 4 (the trees byte-equal), compression, make-irs and device
+   with 3 IRs; every output named as the CLI names it, of its source's
+   length, finite and unlike its source; utterances/s of each mode;
+   whether the system codec tier (libavcodec + libopus) is present, and
+   ``--fidelity system`` over 4 files only where it is (an absent tier
+   is printed as such and checks nothing); 8b, ``cli.preprocess`` of the
+   original and degraded parts through B1 (``preprocess_aug``), ADV_AUG's
+   channel labels read back as the degraded names' codecs, ``train()``
+   of ECAPA-TDNN-512 + ang_iso in bf16 at K = 8 with LA_aug + ADV_AUG
+   from those trees (B = 8, 16 steps, B4a/B4b counted under
+   ``train_laaug``), one step at B = 64 through B4a/B4b against their
+   plain versions (phase 4c's ADV step at gate 1, phase 4b's bars), then
+   ``cli.generate_score -t 19laaugdev`` (B2, B3 under ``score_laaug``),
+   its first 8 scores against the CPU's (1e-4); ms a step (an 8-step
+   replay of K batches of 64, the tree's 32 originals and 32 degraded
+   files reshuffled and cropped anew each batch: the other training
+   cells' batch) and ms a batch of the f32 scorer by CUDA events; 8c,
+   one f32 ECAPA-TDNN-512 step at B = 64, T = 750 plain, with
+   ``fused_chain`` and with ``remat_policy="conv_dot"`` from one state
+   and batch: loss,
+   gradients and BN statistics at phase 4's bars against the plain step,
+   each one's ms and ``torch.cuda.max_memory_allocated``.
+
+The native codec library is built from ``native/augment`` after the
+kernels, its time printed. Each phase's seconds are printed.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is the device JSON. The script imports only the port, torch and
@@ -884,11 +911,12 @@ def write_flac_files(items, sr: int = 16000, block: int = 4096) -> None:
 
 
 def write_corpus(root: str, n: int, seed: int, part: str = "eval",
-                 fmt: str = "wav", lengths=None):
+                 fmt: str = "wav", lengths=None, spoof_tag: str = "A07"):
     """ASVspoof2019-layout corpus part of n utterances (bona fide: noise,
-    spoof: a tone + noise), mostly 7.49 s, a few shorter and two longer
-    (or of the given ``lengths`` in samples), as 16-bit WAVs under ``wav/``
-    or FLACs under ``flac/``. Returns {filename: int16 samples written}."""
+    spoof: a tone + noise, tagged ``spoof_tag``), mostly 7.49 s, a few
+    shorter and two longer (or of the given ``lengths`` in samples), as
+    16-bit WAVs under ``wav/`` or FLACs under ``flac/``. Returns
+    {filename: int16 samples written}."""
     from asvspoof2021_air_tpu_torch.data.audio_io import write_wav
 
     g = np.random.default_rng(seed)
@@ -920,7 +948,7 @@ def write_corpus(root: str, n: int, seed: int, part: str = "eval",
             flacs.append((path, pcm))
         else:
             write_wav(path, wav)
-        lines.append(f"LA_0001 {fname} - {'A07' if label else '-'} "
+        lines.append(f"LA_0001 {fname} - {spoof_tag if label else '-'} "
                      f"{'spoof' if label else 'bonafide'}")
     write_flac_files(flacs)
     with open(os.path.join(proto_dir, f"ASVspoof2019.LA.cm.{part}.trl.txt"),
@@ -1323,7 +1351,7 @@ RUNNING = ("running_mean", "running_var")
 def step_vs_plain(torch, fresh_state, live, step, fbatch, tag: str):
     """One training step from state ``live`` on ``fbatch`` through B4a/B4b
     against the same step through their plain versions (phases 4, 4b,
-    4c)."""
+    4c, 8b)."""
     runs = []
     # The kernel step twice (its own spread), the plain step, and the
     # plain step with its sums over T reversed (the spread of the same
@@ -4338,6 +4366,380 @@ def data_parallel_path(torch, gpu: str, entries, bf16_ms):
 
 
 
+# Phase 8: utterances a part of the degraded corpus, the training batch
+DEG_N, DEG_B = 32, 8
+
+
+def _wav_tree_check(out_dir: str, sources, names, what: str) -> None:
+    """Every file of ``out_dir`` one of ``names``, of its source's length,
+    finite and unlike its source (``sources``: stem -> samples)."""
+    from asvspoof2021_air_tpu_torch.data.audio_io import read_wav
+
+    got = sorted(os.listdir(out_dir))
+    check(got == sorted(names), f"{what}: files {got[:4]}... not the names "
+                                f"expected {sorted(names)[:4]}...")
+    for f in got:
+        w, sr = read_wav(os.path.join(out_dir, f))
+        src = sources[f[:12]]
+        check(sr == 16000 and w.size == src.size
+              and bool(np.isfinite(w).all()), f"{what}: {f} malformed")
+        check(not np.array_equal(w, src), f"{what}: {f} equals its source")
+
+
+def _same_tree(a: str, b: str) -> bool:
+    import filecmp
+
+    names = sorted(os.listdir(a))
+    return names == sorted(os.listdir(b)) and all(
+        filecmp.cmp(os.path.join(a, n), os.path.join(b, n), shallow=False)
+        for n in names)
+
+
+def degraded_corpus_path(torch, gpu: str, entries):
+    """Phase 8: the augmented pipeline without JAX. 8a: ``cli.degrade``
+    of a synthetic corpus on the host (channel at -j 1 and -j 4, byte-equal;
+    compression; make-irs and device); 8b: ``cli.preprocess`` of the
+    original and degraded trees through B1, ``train()`` bf16 K = 8 with
+    LA_aug and ADV_AUG from them, ``cli.generate_score -t 19laaugdev``
+    through B2 and B3; 8c: one f32 ECAPA step with ``fused_chain``, with
+    ``remat_policy="conv_dot"`` and with neither."""
+    import dataclasses
+    import io
+
+    from asvspoof2021_air_tpu_torch.cli import degrade, generate_score
+    from asvspoof2021_air_tpu_torch.cli import preprocess
+    from asvspoof2021_air_tpu_torch.data import system_codecs
+    from asvspoof2021_air_tpu_torch.data.audio_io import read_wav
+    from asvspoof2021_air_tpu_torch.data.datasets import (
+        AugmentedFeatureDataset)
+    from asvspoof2021_air_tpu_torch.data.pipeline import (
+        RatioMixIterator, SequentialIterator)
+    from asvspoof2021_air_tpu_torch.ops import attn_pool_cuda as ap
+    from asvspoof2021_air_tpu_torch.ops import attn_pool_vjp as vj
+    from asvspoof2021_air_tpu_torch.ops import lfcc_cuda as lc
+    from asvspoof2021_air_tpu_torch.ops import res2_chain_cuda as rc
+    from asvspoof2021_air_tpu_torch.scoring import make_score_fn
+    from asvspoof2021_air_tpu_torch.train.loop import (
+        TrainConfig, setup_training, train)
+    from asvspoof2021_air_tpu_torch.train.steps import make_multi_step
+
+    quiet = lambda: contextlib.redirect_stdout(io.StringIO())
+    K, E, Bt = 8, 2, DEG_B
+    counts = lambda: {"B1": lc.launches, "B2": rc.launches, "B3": ap.launches,
+                      "B4a": vj.fwd_launches, "B4b": vj.bwd_launches}
+
+    def zero():
+        lc.launches = rc.launches = ap.launches = 0
+        vj.fwd_launches = vj.bwd_launches = 0
+
+    lengths = np.random.default_rng(80).integers(48000, 64001, 2 * DEG_N)
+    with tempfile.TemporaryDirectory() as tmp:
+        db = os.path.join(tmp, "db")
+        for i, part in enumerate(("train", "dev")):
+            # the training tags of ASVspoof 2019 LA (A01 - A06)
+            write_corpus(db, DEG_N, 81 + i, part, "wav",
+                         lengths[i * DEG_N:(i + 1) * DEG_N], "A01")
+        wav_dir = lambda part: os.path.join(db, "LA",
+                                            f"ASVspoof2019_LA_{part}", "wav")
+        sources = {f[:-4]: read_wav(os.path.join(wav_dir(p), f))[0]
+                   for p in ("train", "dev") for f in os.listdir(wav_dir(p))}
+        protdir = os.path.join(db, "LA", "ASVspoof2019_LA_cm_protocols")
+        secs = float(lengths.mean()) / 16000
+
+        # ---- 8a: the corpus, on the host ----
+        aug = os.path.join(tmp, "aug_wavs")
+        rates = {}
+
+        def run(argv, what, n_files):
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                degrade.main(argv)
+            rates[what] = n_files / (time.perf_counter() - t0)
+            return buf.getvalue()
+
+        out = run(["channel", "-i", wav_dir("train"), "-o",
+                   os.path.join(aug, "train"), "--sampling", "random",
+                   "--fidelity", "native", "--seed", "3", "-j", "1"],
+                  "channel -j 1", DEG_N)
+        check("fidelity native -> native (silk tier)" in out,
+              f"cli.degrade did not name its tier: {out!r}")
+        run(["channel", "-i", wav_dir("train"), "-o",
+             os.path.join(tmp, "aug_j4"), "--sampling", "random",
+             "--fidelity", "native", "--seed", "3", "-j", "4"],
+            "channel -j 4", DEG_N)
+        check(_same_tree(os.path.join(aug, "train"),
+                         os.path.join(tmp, "aug_j4")),
+              "cli.degrade channel: -j 1 and -j 4 trees differ")
+        run(["channel", "-i", wav_dir("dev"), "-o", os.path.join(aug, "dev"),
+             "--sampling", "random", "--fidelity", "native", "--seed", "4",
+             "-j", "4"], "channel dev -j 4", DEG_N)
+        vocabulary = (degrade.LANDLINE + degrade.VOIP + degrade.CELLULAR
+                      + degrade.COMMON)
+        for part in ("train", "dev"):
+            names = os.listdir(os.path.join(aug, part))
+            check(len(names) == DEG_N and all(
+                n[:12] in sources and n[13:-4] in vocabulary
+                for n in names), f"channel {part}: names {names[:3]}")
+            _wav_tree_check(os.path.join(aug, part), sources, names,
+                            f"channel {part}")
+        codecs = sorted(n[13:-4] for n in os.listdir(os.path.join(
+            aug, "train")))
+        run(["compression", "-i", wav_dir("dev"), "-o",
+             os.path.join(tmp, "compressed"), "--sampling", "random",
+             "--seed", "5", "-j", "4"], "compression -j 4", DEG_N)
+        names = os.listdir(os.path.join(tmp, "compressed"))
+        check(all(n[13:-4] in degrade.COMPRESSION for n in names),
+              f"compression names {names[:3]}")
+        _wav_tree_check(os.path.join(tmp, "compressed"), sources, names,
+                        "compression")
+        irs = os.path.join(tmp, "irs")
+        run(["make-irs", "-o", irs, "--seed", "6"], "make-irs", 89)
+        bank = os.path.join(tmp, "bank3")
+        os.makedirs(bank)
+        picked = sorted(os.listdir(os.path.join(irs, "devices")))[:3]
+        for f in picked:
+            shutil.copy(os.path.join(irs, "devices", f), bank)
+        run(["device", "-i", wav_dir("dev"), "-o",
+             os.path.join(tmp, "device"), "--ir_dir", bank, "-j", "4"],
+            "device (3 IRs) -j 4", DEG_N)
+        _wav_tree_check(os.path.join(tmp, "device"), sources,
+                        [f"{s}{ir[:-4]}.wav" for s in sources
+                         if s.startswith("LA_D") for ir in picked],
+                        "device")
+        system = system_codecs.available()
+        if system:
+            four = os.path.join(tmp, "four")
+            os.makedirs(four)
+            for f in sorted(os.listdir(wav_dir("dev")))[:4]:
+                shutil.copy(os.path.join(wav_dir("dev"), f), four)
+            out = run(["channel", "-i", four, "-o", os.path.join(tmp, "sys"),
+                       "--fidelity", "system", "-j", "4"],
+                      "channel parallel --fidelity system -j 4", 4)
+            check("-> system" in out, f"system tier not taken: {out!r}")
+            _wav_tree_check(os.path.join(tmp, "sys"), sources,
+                            os.listdir(os.path.join(tmp, "sys")), "system")
+            print("system codec tier: present (libavcodec + libopus); "
+                  "channel --fidelity system over 4 files, 21 codecs each")
+        else:
+            print("system codec tier: NOT present on this machine "
+                  "(libavcodec/libopus not loadable); --fidelity system "
+                  "not run, and not counted as checked")
+        print(f"degrade on the host [{os.cpu_count()} CPUs] ({DEG_N} "
+              f"utterances a run, {secs:.2f} s mean): "
+              + ", ".join(f"{k} {v:.1f} utt/s" for k, v in rates.items())
+              + f"; -j 1 and -j 4 trees byte-equal; train codecs {codecs}")
+
+        # ---- 8b: preprocess -> train -> 19laaugdev, on the card ----
+        feats, aug_feats = (os.path.join(tmp, d) for d in ("feats",
+                                                           "aug_feats"))
+        torch.cuda.synchronize()
+        zero()
+        for part in ("train", "dev"):
+            with quiet():
+                preprocess.main(["-d", db, "-o", feats, "--part", part,
+                                 "--batch_size", "32", "--device", DEVICE])
+                preprocess.main(["--dataset", "aug", "--aug_wav_dir", aug,
+                                 "--path_to_protocol", protdir, "-o",
+                                 aug_feats, "--part", part, "--batch_size",
+                                 "32", "--device", DEVICE])
+        torch.cuda.synchronize()
+        got = counts()
+        want_b1 = 4 * -(-DEG_N // 32)
+        print(f"preprocess_aug: 2 parts x (original, degraded) of {DEG_N} "
+              f"utterances, launches {got}")
+        check(got == {"B1": want_b1, "B2": 0, "B3": 0, "B4a": 0, "B4b": 0},
+              f"preprocess_aug launches {got}, B1 expected {want_b1}")
+        entries["B1"]["launches_preprocess_aug"] = got["B1"]
+        ds = AugmentedFeatureDataset(feats, aug_feats, "train")
+        labels = sorted(ds.channel[ds[i][4]]
+                        for i in range(ds.num_original, len(ds)))
+        check(labels == codecs, "ADV_AUG's channel labels are not the "
+                                "degraded names' codecs")
+
+        cfg = TrainConfig(
+            out_fold=os.path.join(tmp, "runs", "laaug"),
+            path_to_features=feats, path_to_aug_features=aug_feats,
+            LA_aug=True, ADV_AUG=True, ratio=0.5, model="ecapa",
+            add_loss="ang_iso", batch_size=Bt, feat_len=T, num_epochs=E,
+            C=C, compute_dtype="bfloat16", steps_per_call=K)
+        spe = -(-DEG_N // (Bt // 2))
+        torch.cuda.synchronize()
+        zero()
+        summary, state = train(cfg, device=DEVICE, return_state=True)
+        torch.cuda.synchronize()
+        got = counts()
+        counted, ran, replays = graph_launches(spe, K, E)
+        evals = E * -(-2 * DEG_N // Bt)
+        print(f"train_laaug: ECAPA-TDNN C={C} bf16 K={K} LA_aug + ADV_AUG, "
+              f"{E * spe} steps ({replays} replay(s)) and {E} dev passes: "
+              f"launches {got}; B4b counted {counted}, run {ran}; summary "
+              f"{summary}")
+        check(got == {"B1": 0, "B2": 0, "B3": 0, "B4a": counted + evals,
+                      "B4b": counted}, f"train_laaug launches {got}")
+        for k in ("B4a", "B4b"):
+            entries[k]["launches_train_laaug"] = got[k]
+        with open(os.path.join(cfg.out_fold, "train_loss.log")) as f:
+            losses = np.array([float(r.split()[2])
+                               for r in f.readlines()[1:]])
+        check(len(losses) == E * spe and bool(np.isfinite(losses).all()),
+              f"train_laaug losses {losses}")
+        live = state.state_dict()
+        del state
+
+        # the step's time by CUDA events (an 8-step replay) at the batch
+        # of the other training cells, B: K batches of the whole tree,
+        # half originals, half degraded, reshuffled and cropped anew each
+        # batch; and one step through B4a/B4b against the same step
+        # through their plain versions at gate 1 (phase 4c's ADV step,
+        # phase 4b's bars)
+        it = RatioMixIterator(ds, B, 0.5, feat_len=T, seed=7,
+                              steps_per_epoch=K).epoch()
+        fb = [{k: torch.from_numpy(b[k]) for k in ("feat", "label",
+                                                    "channel")}
+              for b in it]
+        timed = dataclasses.replace(cfg, batch_size=B)
+        _, _, st, step, _ = setup_training(timed, spe, device=DEVICE)
+        st.load_state_dict(live)
+        multi = make_multi_step(step, K)
+        stacked = {k: torch.stack([b[k] for b in fb]) for k in fb[0]}
+        multi(st, stacked, None, 1.0)              # eager K, then capture
+        step_ms = time_ms(torch, lambda: multi(st, stacked, None, 1.0),
+                          iters=3, warmup=1) / K
+        del st, multi
+        k1 = dataclasses.replace(timed, steps_per_call=1)
+        step1 = setup_training(k1, spe, device=DEVICE)[3]
+        step_vs_plain(torch, lambda: setup_training(k1, spe,
+                                                    device=DEVICE)[2],
+                      live, lambda s, b: step1(s, b, None, 1.0),
+                      {"feat": fb[0]["feat"].to(DEVICE),
+                       "label": fb[0]["label"], "channel": fb[0]["channel"]},
+                      "bf16 LA_aug ADV_AUG")
+
+        cwd = os.getcwd()
+        os.chdir(tmp)
+        try:
+            torch.cuda.synchronize()
+            zero()
+            with quiet():
+                path = generate_score.main([
+                    "--model_folder", os.path.join(tmp, "runs"), "-n",
+                    "laaug", "-t", "19laaugdev", "--ori_features", feats,
+                    "--aug_features", aug_feats, "--batch_size", str(B),
+                    "--device", DEVICE])
+            torch.cuda.synchronize()
+            got = counts()
+            path = os.path.abspath(path)    # 19* tasks write to ./scores
+        finally:
+            os.chdir(cwd)
+        with open(path) as f:
+            rows = [r.split() for r in f]
+        n_batches = -(-2 * DEG_N // B)
+        print(f"score_laaug: 19laaugdev, {len(rows)} trials in {n_batches} "
+              f"batch(es), launches {got}")
+        check(got == {"B1": 0, "B2": 3 * n_batches, "B3": n_batches,
+                      "B4a": 0, "B4b": 0}, f"score_laaug launches {got}")
+        for k in ("B2", "B3"):
+            entries[k]["launches_score_laaug"] = got[k]
+        scores = np.array([float(r[1]) for r in rows])
+        check(len(rows) == 2 * DEG_N and bool(np.isfinite(scores).all())
+              and {r[2] for r in rows} <= {"bonafide", "spoof"},
+              "19laaugdev score file")
+        dev = AugmentedFeatureDataset(feats, aug_feats, "dev")
+        batch = next(iter(SequentialIterator(dev, 8, T)))
+        sd, lm, _c = generate_score.load_system(cfg.out_fold, device="cpu")
+        ref = -make_score_fn(sd, lm, "ang_iso", device="cpu")(batch["feat"])
+        err = float(np.abs(scores[:8] - ref.numpy()).max())
+        print(f"score_laaug: card vs CPU on the first 8 trials {err:.2e} "
+              "(bar 1e-4)")
+        check(err <= 1e-4, "19laaugdev scores off the CPU's")
+        fn = make_score_fn(sd, lm, "ang_iso", device=DEVICE)
+        full = next(iter(SequentialIterator(dev, B, T)))["feat"]
+        batch_ms = time_ms(torch, lambda: fn(full), iters=5)
+        print(f"augmented pipeline [{gpu}]: train_laaug {step_ms:.3f} ms a "
+              f"step (B={B}, T={T}, bf16, K={K} replay; CUDA events), "
+              f"score_laaug {batch_ms:.3f} ms a batch (B={B}, T={T}, f32 "
+              f"scorer; CUDA events)")
+
+    # ---- 8c: fused_chain and remat_policy, one f32 step at B, T ----
+    fused_chain_steps(torch, gpu)
+
+
+def fused_chain_steps(torch, gpu: str) -> None:
+    """Phase 8c: one f32 ECAPA-TDNN-512 + OC-Softmax training step at (B,
+    T) from one state and batch: plain, ``fused_chain=True`` and
+    ``remat_policy="conv_dot"``; loss rtol 1e-4, each gradient's error
+    norm within 1e-2 of its tensor's, BN statistics rtol 1e-4 / atol
+    1e-5 against the plain step (phase 4's bars); peak memory and ms."""
+    from asvspoof2021_air_tpu_torch.interop.flax_weights import (
+        from_flax_variables, random_flax_variables)
+    from asvspoof2021_air_tpu_torch.losses.one_class import OCSoftmax
+    from asvspoof2021_air_tpu_torch.models.ecapa import ECAPA_TDNN
+    from asvspoof2021_air_tpu_torch.train.state import (
+        create_train_state, step_decay_schedule)
+    from asvspoof2021_air_tpu_torch.train.steps import (
+        StepConfig, make_train_step)
+
+    sd = from_flax_variables(random_flax_variables(
+        90, C=C, model_scale=8, enc_dim=256), model_scale=8)
+    g = torch.Generator().manual_seed(91)
+    batch = {"feat": torch.randn(B, T, 60, generator=g).to(DEVICE),
+             "label": torch.arange(B) % 2}
+    center = torch.rand(1, 256, generator=g) * 2 - 1
+
+    def fresh(fused_chain: bool):
+        st = create_train_state(
+            ECAPA_TDNN(C=C, fused_pool=True, fused_chain=fused_chain,
+                       device=DEVICE),
+            OCSoftmax(feat_dim=256, device=DEVICE),
+            step_decay_schedule(5e-4, 0.5, 1, 10))
+        st.model.load_state_dict(sd)
+        with torch.no_grad():
+            st.loss_module.center.copy_(center)
+        return st
+
+    runs = {}
+    for name, fused_chain, policy in (("plain", False, None),
+                                      ("fused_chain", True, None),
+                                      ("conv_dot", False, "conv_dot")):
+        st = fresh(fused_chain)
+        step = make_train_step(StepConfig(add_loss="ang_iso",
+                                          remat_policy=policy),
+                               device=DEVICE)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        m = step(st, batch)
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        grads = {n: p.grad.clone() for n, p in st.model.named_parameters()
+                 if p.grad is not None}
+        stats = {k: v.clone() for k, v in st.model.state_dict().items()
+                 if k.endswith(RUNNING)}
+        ms = time_ms(torch, lambda: step(st, batch), iters=3, warmup=1)
+        runs[name] = (float(m["ang_iso"]), grads, stats, peak, ms)
+        del st, step
+    loss0, g0, s0, _, _ = runs["plain"]
+    for name in ("fused_chain", "conv_dot"):
+        loss, gr, stats, _, _ = runs[name]
+        worst = max((float((gr[n] - g0[n]).norm() / g0[n].norm()), n)
+                    for n in g0 if g0[n].norm() > 0)
+        stat = max((max_err(stats[k], s0[k]), k) for k in s0)
+        print(f"8c {name} vs plain f32 step [{gpu}]: loss {loss:.7f} vs "
+              f"{loss0:.7f} (rtol 1e-4), largest gradient error norm "
+              f"{worst[0]:.3e} ({worst[1]}; bar 1e-2), BN statistics "
+              f"{stat[0]:.3e} ({stat[1]}; rtol 1e-4, atol 1e-5)")
+        check(abs(loss - loss0) <= 1e-4 * abs(loss0), f"8c {name} loss")
+        check(worst[0] <= 1e-2, f"8c {name} gradients: {worst}")
+        check(all(torch.allclose(stats[k], s0[k], rtol=1e-4, atol=1e-5)
+                  for k in s0), f"8c {name} BN statistics: {stat}")
+    for name, (_, _, _, peak, ms) in runs.items():
+        print(f"8c f32 step {name} [{gpu}] (B={B}, T={T}; CUDA events): "
+              f"{ms:.3f} ms, peak {peak:.2f} GiB above the state "
+              "(torch.cuda.max_memory_allocated)")
+
+
+
 def main() -> int:
     try:
         import torch
@@ -4347,7 +4749,7 @@ def main() -> int:
         fail("torch.cuda.is_available() is False: this smoke run needs a GPU")
     try:
         from asvspoof2021_air_tpu_torch._device import disable_tf32
-        from asvspoof2021_air_tpu_torch.ops import _build
+        from asvspoof2021_air_tpu_torch.ops import _build, _host_build
     except ImportError as e:
         fail(f"the port package is not beside chip_smoke.py ({e})")
 
@@ -4358,6 +4760,10 @@ def main() -> int:
     _build.library()
     print(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s "
           f"(nvcc: {_build.build_seconds})")
+    t0 = time.perf_counter()
+    _host_build.codec_library()
+    print(f"native codec library (native/augment, the host C++ compiler) "
+          f"built and loaded in {time.perf_counter() - t0:.1f} s")
 
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     seconds = {}
@@ -4382,6 +4788,7 @@ def main() -> int:
     phase("5b", train_ensemble_path, torch, gpu, entries)
     phase("6", int8_export_path, torch, gpu, entries, fwd_ms)
     phase("7", data_parallel_path, torch, gpu, entries, bf16_ms)
+    phase("8", degraded_corpus_path, torch, gpu, entries)
     print(f"phase seconds: { {k: round(v, 1) for k, v in seconds.items()} }")
 
     kernels = []
@@ -4395,7 +4802,8 @@ def main() -> int:
             "train_cnn_otf", "train_rawnet_otf", "preprocess",
             "train_ensemble", "train_ensemble_otf", "score_ensemble",
             "serve_int8", "export", "train_dp", "score_dp",
-            "train_member_dp", "train_member_data_dp")
+            "train_member_dp", "train_member_data_dp", "preprocess_aug",
+            "train_laaug", "score_laaug")
             if f"launches_{p}" in e}
         launches = sum(by_path.values())
         print(f"{e['name']} [{gpu}]: max_abs_err {e['max_abs_err']:.3e}, "

@@ -13,7 +13,7 @@ from asvspoof2021_air_tpu.data.datasets import RawAudioDataset as JRaw
 from asvspoof2021_air_tpu_torch.data import audio_io
 from asvspoof2021_air_tpu_torch.data.audio_io import flac_decode, load_audio
 from asvspoof2021_air_tpu_torch.data.datasets import RawAudioDataset
-from asvspoof2021_air_tpu_torch.ops import _build
+from asvspoof2021_air_tpu_torch.ops import _host_build
 from tests.flac_encoder import crc8, crc16, encode_flac
 
 STREAMINFO_BYTES = 42     # "fLaC", the metadata block header, STREAMINFO
@@ -118,11 +118,11 @@ def test_flac_needs_no_soundfile_and_refuses_malformed_streams(
 
 
 def test_flac_decoder_is_a_host_library_in_build():
-    lib = _build.host_library()
-    assert lib is _build.host_library()
+    lib = _host_build.host_library()
+    assert lib is _host_build.host_library()
     assert any(p.name.startswith("libasv_host_")
-               for p in _build.BUILD_DIR.glob("*.so"))
-    src = (_build.HOST_SRC / "flac_decode.cc").read_text()
+               for p in _host_build.BUILD_DIR.glob("*.so"))
+    src = (_host_build.HOST_SRC / "flac_decode.cc").read_text()
     assert "augment.h" not in src and 'extern "C"' in src
 
 

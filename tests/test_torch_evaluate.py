@@ -6,6 +6,7 @@ evaluate_tdcf, prepare4matlab and score_fusion CLIs (the same printed
 values and written files). Every number to rtol 1e-12."""
 
 import ast
+import os
 
 import numpy as np
 import pytest
@@ -98,8 +99,12 @@ def test_eer_and_min_tdcf_equal_jax(tmp_path, shift):
     assert tdcf is not None and np.isfinite(tdcf)
     np.testing.assert_allclose([eer, tdcf], [want_eer, want_tdcf], rtol=RTOL)
     assert pe.compute_eer_and_tdcf(cm)[1] is None
-    with pytest.raises(NotImplementedError, match="visualize"):
-        pe.compute_eer_and_tdcf(cm, asv_score_file=asv, plot=True)
+    # plot=True writes the JAX function's two figures and the same numbers
+    prefix = str(tmp_path / f"plot{shift}_")
+    assert pe.compute_eer_and_tdcf(cm, asv_score_file=asv, plot=True,
+                                   plot_path_prefix=prefix) == (eer, tdcf)
+    for k in (1, 2):
+        assert os.path.getsize(f"{prefix}{k}.png") > 1000
 
 
 def test_tdcf_curve_and_asv_error_rates_equal_jax():

@@ -8,10 +8,15 @@ numpy rounded to f32). STFT and Melspec: JAX computes the power as
 ``torch.fft.rfft``. Each bar is read in the test from JAX's own distance
 to a float64 reference on the same input (numpy's float64 ``rfft`` of the
 same frames and f32 window): the port within twice that distance of
-JAX's output, and the port's own distance to float64 no larger than
-JAX's. Readings at these seeds: JAX's STFT 1.0e-4 - 1.3e-4 from float64
+JAX's output, and the port's own distance to float64 within twice JAX's.
+Readings at these seeds: JAX's STFT 1.0e-4 - 1.3e-4 from float64
 (powers up to 390), its Melspec 4.7e-6 - 1.3e-5 (up to 33); the port's
-own distance 0.48 - 0.70 of JAX's, the port to JAX 0.95 - 1.27 of it."""
+own distance 0.48 - 0.70 of JAX's, the port to JAX 0.95 - 1.27 of it, on
+one host; on another the port's STFT read 1.12 of JAX's distance
+(1.153e-4 against 1.029e-4 at seed 1, padded: about 4 f32 ulps of the
+largest power either way), as the CPU's FFT path rounds otherwise. Both
+packages sit within a few ulps of float64, so the bar on the port's own
+distance is 2 of JAX's, not 1."""
 
 import numpy as np
 import pytest
@@ -25,6 +30,8 @@ from asvspoof2021_air_tpu.ops.lfcc import Melspec as JMelspec
 from asvspoof2021_air_tpu.ops.lfcc import STFT as JSTFT
 from asvspoof2021_air_tpu_torch.ops import dsp
 from asvspoof2021_air_tpu_torch.ops.lfcc import STFT, Melspec
+
+from torch_threads import one_thread  # noqa: F401
 
 B, L = 3, 12000
 
@@ -71,7 +78,7 @@ def check_by_jax_distance(port: np.ndarray, jax_out: np.ndarray,
     d_port = float(np.abs(port - ref).max())
     assert d_jax > 0
     assert float(np.abs(port - jax_out).max()) <= 2 * d_jax
-    assert d_port <= d_jax, (d_port, d_jax)
+    assert d_port <= 2 * d_jax, (d_port, d_jax)
 
 
 def test_mel_filterbank_equals_jax():

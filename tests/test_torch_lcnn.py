@@ -20,9 +20,9 @@ from asvspoof2021_air_tpu_torch.interop.flax_weights import (
     from_flax_variables, random_flax_variables)
 from asvspoof2021_air_tpu_torch.models.common import MaxFeatureMap
 from asvspoof2021_air_tpu_torch.ops.bn_relu_vjp import bn_train
-from test_torch_resnet import (  # noqa: F401  (the fixture)
-    ENC, RUNNING, _two_threads, check_bf16, check_bn_vjp, check_f32,
-    jax_model, run_pair)
+from test_torch_resnet import (
+    ENC, RUNNING, check_bf16, check_bn_vjp, check_f32, jax_model, run_pair)
+from test_torch_train_families import _two_threads  # noqa: F401
 
 T = 48
 

@@ -21,7 +21,7 @@ import asvspoof2021_air_tpu_torch as port
 from asvspoof2021_air_tpu.models.ecapa import ECAPA_TDNN as JECAPA
 from asvspoof2021_air_tpu_torch.interop.flax_weights import (
     random_flax_variables)
-from asvspoof2021_air_tpu_torch.ops import _build
+from asvspoof2021_air_tpu_torch.ops import _build, _host_build
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_DIR = Path(port.__file__).resolve().parent
@@ -302,17 +302,17 @@ def test_scoring_cli_runs_with_jax_blocked():
 
 def test_host_entry_points_match_ctypes_signatures():
     """Each extern "C" function of csrc/host/ has as many parameters as its
-    ctypes argtypes in ``_build.HOST_SIGNATURES``."""
+    ctypes argtypes in ``_host_build.HOST_SIGNATURES``."""
     found = {}
-    for src in sorted(_build.HOST_SRC.glob("*.cc")):
+    for src in sorted(_host_build.HOST_SRC.glob("*.cc")):
         text = src.read_text()
         body = text[text.index('extern "C" {'):]
         for name, params in re.findall(r"\nlong (\w+)\(([^)]*)\)", body):
             found[name] = [p.strip() for p in params.split(",")]
-    assert set(found) == set(_build.HOST_SIGNATURES) == {
+    assert set(found) == set(_host_build.HOST_SIGNATURES) == {
         "flac_stream_info", "flac_decode"}
     for name, params in found.items():
-        argtypes, _restype = _build.HOST_SIGNATURES[name]
+        argtypes, _restype = _host_build.HOST_SIGNATURES[name]
         assert len(params) == len(argtypes), name
 
 
@@ -422,3 +422,162 @@ def test_parallel_slice_entry_points_default_to_cuda_and_refuse_the_cpu(
     with pytest.raises(RuntimeError, match="cuda"):
         initialize_distributed()
     assert not torch.distributed.is_initialized()
+
+
+def _header_declarations():
+    """name -> parameter list of every function native/augment/augment.h
+    declares."""
+    text = (_host_build.NATIVE_DIR / "augment" / "augment.h").read_text()
+    text = re.sub(r"/\*.*?\*/", "", text, flags=re.S)
+    decls = re.findall(r"\n\s*(?:void|long|size_t|uint8_t|int16_t)\s+"
+                       r"(\w+)\(([^)]*)\);", text)
+    return {name: [p.strip() for p in params.split(",")]
+            for name, params in decls}
+
+
+def _native_definitions():
+    """name -> parameter list of every extern "C" function the native
+    sources define."""
+    found = {}
+    for src in _host_build.codec_sources()[0]:
+        text = src.read_text()
+        for block in text.split('extern "C" {')[1:]:
+            for name, params in re.findall(
+                    r"\n(?:void|long|size_t|uint8_t|int16_t) (\w+)\("
+                    r"([^)]*)\)", block):
+                found[name] = [p.strip() for p in params.split(",")]
+    return found
+
+
+def test_codec_entry_points_match_ctypes_signatures():
+    """``_host_build.CODEC_SIGNATURES`` holds every one of augment.h's 37
+    declarations and the entry points of the native sources the host tier
+    calls beyond them; each has as many argument types as its C
+    prototype, a pointer exactly where the prototype has one, and a
+    result type where the function returns a value."""
+    header = _header_declarations()
+    assert len(header) == 37
+    assert set(header) <= set(_host_build.CODEC_SIGNATURES)
+    defined = _native_definitions()
+    assert set(_host_build.CODEC_SIGNATURES) <= set(defined)
+    for name, (argtypes, restype) in _host_build.CODEC_SIGNATURES.items():
+        params = header.get(name, defined[name])
+        assert len(params) == len(argtypes), name
+        for p, t in zip(params, argtypes):
+            assert ("*" in p) == hasattr(t, "contents"), (name, p)
+        text = (_host_build.NATIVE_DIR / "augment" / "augment.h").read_text()
+        assert (restype is None) == bool(
+            re.search(rf"\nvoid {name}\(", text)
+            or (name not in header and name in ("amrwb_roundtrip_mode",
+                                                "amrwb_roundtrip_dtx_mode",
+                                                "g729_roundtrip"))), name
+
+
+def test_degradation_tier_is_host_only_and_visualize_defaults_to_the_card(
+        monkeypatch, tmp_path):
+    """``cli.degrade`` and ``data.augment_host`` (and the system codec
+    tier) take no device and import no torch (a degrade worker process
+    loads without it): they run with CUDA unavailable; ``cli.visualize``
+    embeds on the card by default and raises without one unless asked for
+    the CPU. All are among the modules the import guards above cover."""
+    import inspect
+
+    from asvspoof2021_air_tpu_torch.cli import degrade, visualize
+    from asvspoof2021_air_tpu_torch.data import augment_host, system_codecs
+
+    assert {f"asvspoof2021_air_tpu_torch.{m}" for m in (
+        "cli.degrade", "cli.visualize", "data.augment_host",
+        "data.system_codecs", "interop.avcodec", "visualize",
+        "ops.res2_chain_vjp")} <= set(MODULES)
+    for mod in (degrade, augment_host, system_codecs):
+        src = inspect.getsource(mod)
+        for word in ("import torch", "resolve_device", "cuda"):
+            assert word not in src, (mod.__name__, word)
+    # what a degrade worker process imports, and the codec library's
+    # build, load without torch
+    code = ("import sys\n"
+            "import asvspoof2021_air_tpu_torch.cli.degrade\n"
+            "import asvspoof2021_air_tpu_torch.interop.avcodec\n"
+            "from asvspoof2021_air_tpu_torch.data import augment_host\n"
+            "augment_host.get_lib()\n"
+            "print('torch' in sys.modules)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0 and out.stdout.strip() == "False", (
+        out.stdout, out.stderr)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    wav = tmp_path / "wav"
+    wav.mkdir()
+    from asvspoof2021_air_tpu_torch.data.audio_io import write_wav
+    write_wav(str(wav / "LA_T_0000001.wav"),
+              0.1 * np.sin(np.arange(4000, dtype=np.float32) / 7))
+    degrade.main(["channel", "-i", str(wav), "-o", str(tmp_path / "o"),
+                  "--fidelity", "native", "--sampling", "random"])
+    assert len(list((tmp_path / "o").iterdir())) == 1
+    with pytest.raises(SystemExit):
+        degrade.main(["channel", "-i", str(wav), "-o", "x", "--device",
+                      "cpu"])          # no such flag: host only
+    run = tmp_path / "run"
+    run.mkdir()
+    (run / "args.json").write_text('{"model": "lcnn"}')
+    with pytest.raises(RuntimeError, match="cuda"):
+        visualize.main(["--model_folder", str(tmp_path), "-n", "run", "-f",
+                        str(tmp_path)])
+
+
+@pytest.mark.parametrize("family", ["res2net", "cnn", "cnn_att", "rawnet",
+                                    "subband"])
+def test_weight_maker_matches_flax_init_tree_of_every_family(family):
+    """``random_flax_variables`` of the four families it gained: the names
+    and shapes of the JAX model's ``init`` tree (at the JAX family tests'
+    sizes), seeded and f32, and the port's model loads its mapping
+    (``from_flax_variables``) strictly."""
+    from asvspoof2021_air_tpu.models.convnet import ConvNet as JConvNet
+    from asvspoof2021_air_tpu.models.rawnet import RawNet as JRawNet
+    from asvspoof2021_air_tpu.models.res2net import SERes2Net50 as JRes2Net
+    from asvspoof2021_air_tpu.models.subband import Subband as JSubband
+    from asvspoof2021_air_tpu_torch.interop.flax_weights import (
+        from_flax_variables)
+    from asvspoof2021_air_tpu_torch.models import (
+        ConvNet, RawNet, SERes2Net50, Subband)
+
+    tiny = {"nb_samp": 6400, "first_conv": 129, "in_channels": 1,
+            "filts": [4, [4, 4], [4, 8], [8, 8]], "blocks": [2, 4],
+            "nb_fc_node": 16, "gru_node": 16, "nb_gru_layer": 1,
+            "nb_classes": 2}
+    T, enc = 32, 16
+    x = jnp.zeros((2, T, 60))
+    if family == "res2net":
+        jm, kw, port = JRes2Net(), {}, lambda: SERes2Net50(device="cpu")
+    elif family in ("cnn", "cnn_att"):
+        att = family == "cnn_att"
+        nodes = 6 if att else 512
+        jm = JConvNet(enc_dim=enc, subband_attention=att, num_nodes=nodes)
+        kw = {"subband_attention": att, "num_nodes": nodes}
+        port = lambda: ConvNet(enc_dim=enc, feat_len=T, device="cpu", **kw)
+    elif family == "rawnet":
+        jm, kw = JRawNet(d_args=tiny), {"d_args": tiny}
+        x = jnp.zeros((2, tiny["nb_samp"]))
+        port = lambda: RawNet(tiny, device="cpu")
+    else:
+        jm, kw = JSubband(num_nodes=60, enc_dim=enc, subband_num=2), {
+            "subband_num": 2}
+        port = lambda: Subband(enc_dim=enc, subband_num=2, feat_len=T,
+                               device="cpu")
+    want = jax.eval_shape(lambda: jm.init(
+        {"params": jax.random.PRNGKey(0), "dropout": jax.random.PRNGKey(1),
+         "noise": jax.random.PRNGKey(2)}, x, False))
+    name = "cnn" if family == "cnn_att" else family
+    got = random_flax_variables(0, model=name, enc_dim=enc, feat_len=T,
+                                model_kwargs=kw)
+    shapes = lambda tree: {
+        jax.tree_util.keystr(p): tuple(np.shape(v))
+        for p, v in jax.tree_util.tree_flatten_with_path(tree)[0]}
+    assert shapes(got) == shapes(want)
+    leaves = jax.tree_util.tree_leaves(got)
+    assert all(v.dtype == np.float32 for v in leaves)
+    again = random_flax_variables(0, model=name, enc_dim=enc, feat_len=T,
+                                  model_kwargs=kw)
+    for a, b in zip(leaves, jax.tree_util.tree_leaves(again)):
+        np.testing.assert_array_equal(a, b)
+    port().load_state_dict(from_flax_variables(got, model=name))

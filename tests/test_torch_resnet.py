@@ -20,9 +20,10 @@ from asvspoof2021_air_tpu_torch.interop.flax_weights import (
     from_flax_variables, random_flax_variables)
 from asvspoof2021_air_tpu_torch.models.resnet import pooled_frames
 from asvspoof2021_air_tpu_torch.ops.bn_relu_vjp import bn_relu_train
-from test_torch_train_families import (  # noqa: F401  (the fixture)
-    B, ENC, _two_threads, family_input, family_variables, flax_name,
-    jax_model, port_draws, port_model, recorder)
+from test_torch_train_families import (
+    B, ENC, family_input, family_variables, flax_name, given_draws,
+    jax_model, port_draws, port_model, recorder, reversed_draw)
+from torch_threads import one_thread  # noqa: F401
 
 RUNNING = ("running_mean", "running_var")
 
@@ -74,17 +75,22 @@ def _np(t):
 
 
 def run_pair(family: str, T: int, seed: int, train: bool, dtype=None,
-             with_grads: bool = False):
+             with_grads: bool = False, reverse: bool = False):
     """The JAX model (fused_bn=True) and the port's on the same seeded
     weights and inputs (``family_variables``, ``family_input``):
     {quantity: (port, jax)} of the embedding, the logits and, in train
     mode, every BN running statistic after the forward (the port's names)
     and, ``with_grads``, every parameter gradient of sum emb^2 + sum
     logits^2 (a parameter the loss does not reach has a zero gradient).
-    Train mode injects the JAX model's own draw, if it makes one."""
+    Train mode injects the JAX model's own draw, if it makes one.
+    ``reverse`` runs both on the batch with its rows (and the draw's rows)
+    reversed, which leaves the statistics and gradients unchanged in exact
+    arithmetic."""
     g = np.random.default_rng(seed)
     x = family_input(family, g, T)
     v = family_variables(family, x, seed, T)
+    if reverse:
+        x = np.ascontiguousarray(x[::-1])
     jm = jax_model(family, T, jnp.bfloat16 if dtype else None)
     model = port_model(family, T, dtype)
     name = flax_name(family)
@@ -99,8 +105,16 @@ def run_pair(family: str, T: int, seed: int, train: bool, dtype=None,
         return {"emb": (_np(pe), e), "logits": (_np(pl), lg)}
     rng = jax.random.PRNGKey(seed + 100)
     draw = recorder(jm)(v, jnp.asarray(x), rng)
+    if reverse and draw is not None:
+        draw = reversed_draw(np.array(draw))
 
     def loss(params):
+        if reverse and draw is not None:
+            with given_draws(jnp.asarray(draw)):
+                return forward(params)
+        return forward(params)
+
+    def forward(params):
         (e, lg), mut = jm.apply(
             {"params": params, "batch_stats": v["batch_stats"]},
             jnp.asarray(x), True, mutable=["batch_stats"],
@@ -139,18 +153,21 @@ def norm_err(got, want) -> float:
 
 
 def check_f32(pairs, bar: float = 1e-4, grad_bar: float = 1e-4,
-              grad_norm_bar: float = None) -> None:
+              grad_norm_bar: float = None, spread: dict = None) -> None:
     """Each quantity within ``bar`` of its largest magnitude; gradients
     within ``grad_bar`` of their largest or, with ``grad_norm_bar``, each
-    tensor's error within that fraction of its norm; a quantity that is
-    zero in JAX zero in the port."""
+    tensor's error within that fraction of its norm, or within 4
+    ``spread[name]`` of it where ``spread`` gives a larger one; a quantity
+    that is zero in JAX zero in the port."""
     for name, (got, want) in pairs.items():
         if not np.any(want):        # a parameter the loss does not reach
             assert not np.any(got), name
             continue
         if name.startswith("grad ") and grad_norm_bar is not None:
-            err = norm_err(got, want)
-            assert err <= grad_norm_bar, (name, err)
+            err, limit = norm_err(got, want), grad_norm_bar
+            if spread is not None:
+                limit = max(limit, 4 * spread[name])
+            assert err <= limit, (name, err, limit)
             continue
         limit = grad_bar if name.startswith("grad ") else bar
         assert rel_err(got, want) <= limit, (name, rel_err(got, want))
@@ -218,16 +235,25 @@ def test_resnet_train_mode_matches_jax_with_its_noise():
     """Train mode, JAX's pooling noise injected: embedding, logits and the
     BN running statistics after the forward within 1e-4 of their largest
     magnitude; every parameter gradient of sum emb^2 + sum logits^2
-    within 5e-3 of its norm (read: 1.9e-3 at most, in layer1/2, median
-    1.2e-5). Not per element: a pre-activation ReLU whose input the two
+    within max(5e-3, 4 (s_jax + s_port)) of its norm, s being each
+    package's own spread: its gradient against its gradient of the same
+    batch and noise with the rows reversed, which are equal in exact
+    arithmetic (the bar of tests/test_torch_res2net.py). On one host
+    bn1.weight's gradient read 7.6e-3 of its norm from JAX's against the
+    old 5e-3. Not per element: a pre-activation ReLU whose input the two
     packages round to opposite sides of zero moves single elements of the
     first stages' gradients, up to 1.1e-2 of a tensor's largest here (the
     JAX model's jitted and eager gradients differ so too), where one
     wrong term of the backward moves a whole tensor."""
     pairs = run_pair("resnet", 32, 2, train=True, with_grads=True)
+    rev = run_pair("resnet", 32, 2, train=True, with_grads=True,
+                   reverse=True)
     assert sum(k.endswith(RUNNING) for k in pairs) == 2 * 18
     assert sum(k.startswith("grad ") for k in pairs) == 63
-    check_f32(pairs, grad_norm_bar=5e-3)
+    spread = {n: norm_err(rev[n][1], want) + norm_err(rev[n][0], got)
+              for n, (got, want) in pairs.items()
+              if n.startswith("grad ") and np.any(want)}
+    check_f32(pairs, grad_norm_bar=5e-3, spread=spread)
     assert pooled_frames(32) == 4 and pooled_frames(750) == 94
 
 

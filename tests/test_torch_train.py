@@ -55,14 +55,15 @@ LR = 5e-4
 disable_tf32()
 
 
-def _jmodel():
+def _jmodel(fused_chain: bool = False):
     return JECAPA(C=C, model_scale=SCALE, n_out=2, n_feat=60, enc_dim=ENC,
-                  fused_pool=True, pool_interpret=True, fused_bn=True)
+                  fused_pool=True, pool_interpret=True, fused_bn=True,
+                  fused_chain=fused_chain)
 
 
-def _port_model():
+def _port_model(fused_chain: bool = False):
     return ECAPA_TDNN(C=C, model_scale=SCALE, enc_dim=ENC, fused_pool=True,
-                      device="cpu")
+                      device="cpu", fused_chain=fused_chain)
 
 
 def _params_only(sd):
@@ -198,11 +199,16 @@ WARM, K = 2, 4
 
 @pytest.fixture(scope="module")
 def trajectory():
+    return ecapa_trajectory()
+
+
+def ecapa_trajectory(remat_policy=None, fused_chain: bool = False):
     """WARM JAX steps from init (so the Adam moments and the count are
     non-trivial), the state carried across by from_flax_train_state, then
     K steps in each package on the same batches. The learning rate halves
     every 2 steps (steps_per_epoch 2, interval 1), so the schedule changes
-    inside the K steps."""
+    inside the K steps. ``remat_policy`` and ``fused_chain`` are set in
+    both packages' K steps (the JAX step's and model's switches)."""
     g = np.random.default_rng(0)
     labels = (np.arange(B) % 2).astype(np.int32)
     feats = g.standard_normal((WARM + K, B, T, 60)).astype(np.float32)
@@ -225,6 +231,10 @@ def trajectory():
     for s in range(WARM):
         state, _ = step(state, batch(s), key)
     start = from_flax_train_state(jax.device_get(state), SCALE)
+    if remat_policy is not None or fused_chain:
+        model = _jmodel(fused_chain)
+        step = jax.jit(j_make_step(model, loss_mod, btx, ltx, JStepConfig(
+            add_loss="ang_iso", remat_policy=remat_policy)))
     j_losses = []
     for s in range(WARM, WARM + K):
         state, metrics = step(state, batch(s), key)
@@ -232,11 +242,13 @@ def trajectory():
     end = from_flax_train_state(jax.device_get(state), SCALE)
 
     pstate = create_train_state(
-        _port_model(), OCSoftmax(feat_dim=ENC, r_real=0.9, r_fake=0.2,
-                                 alpha=20.0, device="cpu"),
+        _port_model(fused_chain), OCSoftmax(
+            feat_dim=ENC, r_real=0.9, r_fake=0.2, alpha=20.0, device="cpu"),
         step_decay_schedule(LR, 0.5, 1, 2))
     pstate.load_state_dict(start)
-    pstep = make_train_step(StepConfig(add_loss="ang_iso"), device="cpu")
+    pstep = make_train_step(StepConfig(add_loss="ang_iso",
+                                       remat_policy=remat_policy),
+                            device="cpu")
     p_losses = []
     for s in range(WARM, WARM + K):
         m = pstep(pstate, {"feat": torch.from_numpy(feats[s]),
@@ -250,7 +262,11 @@ def test_trajectory_losses_stats_and_params_track_jax(trajectory):
     """Losses rtol 2e-3 (tests/test_training_parity.py:123); BN running
     statistics and the center atol 5e-3; params within 2 lr K, since Adam
     turns noise-level gradient differences into steps of up to lr."""
-    t = trajectory
+    check_ecapa_trajectory(trajectory)
+
+
+def check_ecapa_trajectory(t) -> None:
+    """The bars of ``test_trajectory_losses_stats_and_params_track_jax``."""
     np.testing.assert_allclose(t["p_losses"], t["j_losses"], rtol=2e-3)
     assert t["got"]["step"] == t["end"]["step"] == WARM + K
     want, got = t["end"]["model"], t["got"]["model"]
@@ -419,9 +435,9 @@ def test_cli_loads_a_jax_config_file_and_refuses_fused_off(tmp_path):
 
 
 def test_unsupported_flags_raise(tmp_path):
-    """The flag the port still refuses, named in the error (visualize:
-    ROADMAP Queue A); ``ensemble`` now passes (tests/test_torch_ensemble.py
-    trains it); the ones it trains with (bf16, K steps
+    """No flag is refused by name any more: ``visualize`` passes
+    ``check_supported`` (tests/test_torch_visualize.py trains with it), as
+    ``ensemble`` does (tests/test_torch_ensemble.py trains it); the ones it trains with (bf16, K steps
     per call, feature files with or without an aug flag, resume,
     test_on_eval, profile, ADV_AUG and the channel augmenter, all six
     model families and every add-loss that trains) are held by
@@ -434,8 +450,7 @@ def test_unsupported_flags_raise(tmp_path):
     from feature files (it reads waveforms). AMSoftmax does not train: the
     step raises ValueError, as the JAX step does."""
     base = dict(out_fold=str(tmp_path / "o"), model="ecapa", on_the_fly=True)
-    with pytest.raises(NotImplementedError, match="visualize"):
-        train(TrainConfig(**{**base, "visualize": True}), device="cpu")
+    check_supported(TrainConfig(**{**base, "visualize": True}))
     check_supported(TrainConfig(**{**base, "ensemble": 2}))
     for model in ("cnn", "resnet", "lcnn", "res2net", "ecapa", "rawnet"):
         check_supported(TrainConfig(**{**base, "model": model}))

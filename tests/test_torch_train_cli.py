@@ -2,8 +2,8 @@
 ``cli/train.py``: the JAX parser's whole flag set, read from its
 ``_actions``, parses in the port and reaches the same values;
 ``--test_only`` prints and returns as the JAX CLI does; ``--fused_pool``/
-``--fused_bn`` take auto and on and refuse off by name; ``--visualize``
-is refused by name; ``--ensemble`` and ``--num_centers`` are taken.
+``--fused_bn`` take auto and on and refuse off by name; ``--visualize``,
+``--ensemble`` and ``--num_centers`` are taken.
 No tolerances: parsed values are compared exactly."""
 
 import argparse
@@ -18,7 +18,7 @@ from asvspoof2021_air_tpu_torch.cli.train import parse_args
 from asvspoof2021_air_tpu_torch.train.loop import check_supported
 
 # flags whose JAX values the port refuses (tested below on their own)
-REFUSED = {"--visualize"}
+REFUSED = set()
 
 
 def _value(action: argparse.Action):
@@ -38,7 +38,7 @@ def _value(action: argparse.Action):
 
 def _jax_argv(out: str):
     """Every optional flag of the JAX parser once, with a value, and the
-    flags that take none (``--visualize`` aside)."""
+    flags that take none."""
     argv = ["-o", out]
     for action in j_build_parser()._actions:
         flag = next((s for s in action.option_strings if s.startswith("--")),
@@ -68,7 +68,7 @@ def test_every_jax_flag_parses_in_the_port(tmp_path):
     assert set(port_args) - set(jax_args) == {
         "C", "model_scale", "device", "early_stop_patience"}
     cfg = config_from_args(parse_args(argv + ["--add_loss", "ang_iso"]))
-    assert (cfg.ensemble, cfg.test_only, cfg.visualize) == (3, True, False)
+    assert (cfg.ensemble, cfg.test_only, cfg.visualize) == (3, True, True)
 
 
 @pytest.mark.parametrize("flag", ["fused_pool", "fused_bn"])
@@ -91,10 +91,14 @@ def test_test_only_prints_and_returns(tmp_path, capsys):
 
 
 def test_visualize_is_refused_by_name_and_ensemble_is_taken(tmp_path):
+    """``--visualize`` is no longer refused: it parses and passes
+    ``check_supported`` (tests/test_torch_visualize.py trains with it);
+    ``--ensemble`` and ``--num_centers`` are taken."""
     base = ["-o", str(tmp_path / "o"), "-f", str(tmp_path / "none"),
             "-m", "ecapa", "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="visualize"):
-        main(base + ["--visualize"])
+    cfg = config_from_args(parse_args(base + ["--visualize"]))
+    assert cfg.visualize
+    check_supported(cfg)
     cfg = config_from_args(parse_args(base + ["--ensemble", "3",
                                               "--num_centers", "5"]))
     assert cfg.ensemble == 3 and not hasattr(cfg, "num_centers")

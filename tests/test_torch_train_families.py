@@ -15,6 +15,7 @@ LCNN's dropout, ``jax.random.normal`` for ResNet's pooling noise), in one
 jitted forward per step that returns them; the draws do not depend on the
 parameters, and JAX's PRNG gives the same bits jitted or not."""
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -246,30 +247,87 @@ def recorder(model):
     return _RECORDERS[repr(model)]
 
 
+def trajectory_batches(family: str):
+    """The WARM + K seeded batches of :func:`trajectory` and their labels,
+    the bona fide rows shifted by 0.5."""
+    g = np.random.default_rng(0)
+    labels = (np.arange(B) % 2).astype(np.int32)
+    feats = family_input(family, g, FRAMES[family], lead=(WARM + K, B))
+    feats += 0.5 * labels.reshape((1, B) + (1,) * (feats.ndim - 2))
+    return feats, labels
+
+
+@contextlib.contextmanager
+def given_draws(draw):
+    """While open, the JAX model's ``jax.random.normal`` and
+    ``jax.random.bernoulli`` return ``draw`` (one array, or a tuple in the
+    order the forward draws them) in place of drawing; inside a function
+    being jitted, ``draw`` may be its argument."""
+    queue = list(draw) if isinstance(draw, tuple) else [draw]
+    normal, bernoulli = jax.random.normal, jax.random.bernoulli
+    jax.random.normal = jax.random.bernoulli = lambda *a, **k: queue.pop(0)
+    try:
+        yield
+    finally:
+        jax.random.normal, jax.random.bernoulli = normal, bernoulli
+
+
+def reversed_draw(draw):
+    """A recorded draw (None, an array or a tuple) with its batch rows in
+    reverse order."""
+    if draw is None:
+        return None
+    if isinstance(draw, tuple):
+        return tuple(reversed_draw(d) for d in draw)
+    return np.ascontiguousarray(np.asarray(draw)[::-1])
+
+
+def _port_steps(family: str, add_loss, weight_loss: float, start: dict,
+                batches, draws):
+    """The port's steps from ``start`` over ``batches`` ((feat, label)
+    arrays) with JAX's ``draws``: (the train state's state_dict, the
+    metrics of each step)."""
+    pstate = create_train_state(
+        port_model(family, FRAMES[family]),
+        build_loss(add_loss, enc_dim=EMB[family], r_real=0.9, r_fake=0.2,
+                   alpha=20.0, device="cpu"),
+        step_decay_schedule(LR, 0.5, 1, 2))
+    pstate.load_state_dict(start)
+    pstep = make_train_step(StepConfig(add_loss=add_loss,
+                                       weight_loss=weight_loss),
+                            device="cpu")
+    metrics = []
+    for (f, lab), d in zip(batches, draws):
+        m = pstep(pstate, {"feat": torch.from_numpy(f),
+                           "label": torch.from_numpy(lab)},
+                  model_draws=port_draws(family, d))
+        metrics.append({k: float(v) for k, v in m.items()})
+    return pstate.state_dict(), metrics
+
+
 def trajectory(family: str, add_loss, weight_loss: float = 1.0,
-               jit: bool = True):
+               jit: bool = True, spread: bool = False):
     """WARM JAX steps from init (non-trivial Adam moments and loss
     parameters), the state carried across by ``from_flax_train_state``,
     then K steps in each package on the same batches, the port's steps
     given the JAX step's own draws. The rate halves every 2 steps, so the
     schedule changes inside the K steps. ``jit=False`` runs the JAX step
     eagerly (RawNet2: XLA's jitted gradient of the JAX model is off, see
-    tests/test_torch_rawnet.py)."""
-    T, enc = FRAMES[family], EMB[family]
-    g = np.random.default_rng(0)
-    labels = (np.arange(B) % 2).astype(np.int32)
-    feats = family_input(family, g, T, lead=(WARM + K, B))
-    feats += 0.5 * labels.reshape((1, B) + (1,) * (feats.ndim - 2))
+    tests/test_torch_rawnet.py). ``spread`` runs the K steps again in each
+    package from the same state on every batch with its rows (and the
+    draws' rows) reversed, the same steps in exact arithmetic: the model
+    after them under "rev_end" (JAX) and "rev_got" (the port)."""
+    T = FRAMES[family]
+    feats, labels = trajectory_batches(family)
     model = jax_model(family, T)
-    loss_mod = j_build_loss(add_loss, enc_dim=enc, r_real=0.9, r_fake=0.2,
-                            alpha=20.0)
+    loss_mod = j_build_loss(add_loss, enc_dim=EMB[family], r_real=0.9,
+                            r_fake=0.2, alpha=20.0)
     sched = jstate.step_decay_schedule(LR, 0.5, 1, 2)
     state, btx, ltx = jax_state(model, loss_mod, jnp.asarray(feats[0]),
-                                jnp.asarray(labels), sched, enc)
+                                jnp.asarray(labels), sched, EMB[family])
     cfg = JStepConfig(add_loss=add_loss, weight_loss=weight_loss)
-    step = j_make_step(model, loss_mod, btx, ltx, cfg)
-    if jit:
-        step = jax.jit(step)
+    j_step = j_make_step(model, loss_mod, btx, ltx, cfg)
+    step = jax.jit(j_step) if jit else j_step
     record = recorder(model)
     key = jax.random.PRNGKey(1)
     batch = lambda s: {"feat": jnp.asarray(feats[s]),
@@ -278,6 +336,7 @@ def trajectory(family: str, add_loss, weight_loss: float = 1.0,
         state, _ = step(state, batch(s), key)
     name = flax_name(family)
     start = from_flax_train_state(jax.device_get(state), model=name)
+    mid = state
     j_metrics, draws = [], []
     for s in range(WARM, WARM + K):
         variables = {"params": state.params,
@@ -288,24 +347,30 @@ def trajectory(family: str, add_loss, weight_loss: float = 1.0,
         state, m = step(state, batch(s), key)
         j_metrics.append({k: float(v) for k, v in m.items()})
     end = from_flax_train_state(jax.device_get(state), model=name)
+    ks = range(WARM, WARM + K)
+    got, p_metrics = _port_steps(family, add_loss, weight_loss, start,
+                                 [(feats[s], labels) for s in ks], draws)
+    out = dict(start=start, end=end, got=got, j_metrics=j_metrics,
+               p_metrics=p_metrics, draws=draws)
+    if spread:
+        def given(state, b, key, draw):
+            with given_draws(draw):
+                return j_step(state, b, key)
 
-    pstate = create_train_state(
-        port_model(family, T),
-        build_loss(add_loss, enc_dim=enc, r_real=0.9, r_fake=0.2,
-                   alpha=20.0, device="cpu"),
-        step_decay_schedule(LR, 0.5, 1, 2))
-    pstate.load_state_dict(start)
-    pstep = make_train_step(StepConfig(add_loss=add_loss,
-                                       weight_loss=weight_loss),
-                            device="cpu")
-    p_metrics = []
-    for i, s in enumerate(range(WARM, WARM + K)):
-        m = pstep(pstate, {"feat": torch.from_numpy(feats[s]),
-                           "label": torch.from_numpy(labels)},
-                  model_draws=port_draws(family, draws[i]))
-        p_metrics.append({k: float(v) for k, v in m.items()})
-    return dict(start=start, end=end, got=pstate.state_dict(),
-                j_metrics=j_metrics, p_metrics=p_metrics, draws=draws)
+        given = jax.jit(given) if jit else given
+        rows = [(np.ascontiguousarray(feats[s][::-1]), labels[::-1].copy())
+                for s in ks]
+        rev_draws = [reversed_draw(d) for d in draws]
+        state = mid
+        for (f, lab), d in zip(rows, rev_draws):
+            b = {"feat": jnp.asarray(f), "label": jnp.asarray(lab)}
+            state, _ = (step(state, b, key) if d is None
+                        else given(state, b, key, d))
+        out["rev_end"] = from_flax_train_state(jax.device_get(state),
+                                               model=name)["model"]
+        out["rev_got"] = _port_steps(family, add_loss, weight_loss, start,
+                                     rows, rev_draws)[0]["model"]
+    return out
 
 
 def _norm(t: torch.Tensor) -> float:
@@ -368,7 +433,10 @@ def check_trajectory(t, add_loss, moments: bool = True,
     and Adam moments by :func:`check_updates` (the moments not with
     ``moments=False``; each tensor's update norm within ``norm_bar`` of
     JAX's; the tensors named in ``noise``, whose gradient is zero in exact
-    arithmetic, only by the parameters' bar)."""
+    arithmetic, only by the parameters' bar). Where ``t`` holds the runs
+    with the batches reversed (``trajectory(spread=True)``), a BN
+    statistic's bar is max(5e-3, 4 (s_jax + s_port)), s being each
+    package's own spread: its largest change under the reversal."""
     names = set(t["j_metrics"][0])
     assert names == set(t["p_metrics"][0]) == (
         {"base_loss", "total_loss"} | ({add_loss} if add_loss else set()))
@@ -380,8 +448,12 @@ def check_trajectory(t, add_loss, moments: bool = True,
     want, got = t["end"]["model"], t["got"]["model"]
     assert set(got) == set(want)
     for k, w in want.items():
-        atol = 5e-3 if k.endswith(("running_mean", "running_var")) \
-            else 2 * LR * K
+        stat = k.endswith(("running_mean", "running_var"))
+        atol = 5e-3 if stat else 2 * LR * K
+        if stat and "rev_end" in t:
+            s_jax = float((t["rev_end"][k] - w).abs().max())
+            s_port = float((t["rev_got"][k] - got[k]).abs().max())
+            atol = max(atol, 4 * (s_jax + s_port))
         np.testing.assert_allclose(got[k].numpy(), w.numpy(), rtol=0,
                                    atol=atol, err_msg=k)
     if add_loss is None:
