@@ -43,27 +43,73 @@
 // traffic it saves is not what bounds the kernel). At T = 750 it also runs
 // 512 blocks, 1.94 waves of 264.
 //
-// f32 (the f32 check and ServingECAPA(dtype=float32); res2_chain_fma_kernel)
-// keeps the port's first design: f32 FMAs from shared memory, 4 channels x
-// 8 rows a thread, bound by the FMA rate.
+// f32, the default of the feature-file scorers and ServingECAPA(dtype=
+// float32) (res2_chain_tf32_kernel): the same product on mma.sync m16n8k8
+// in 3xTF32. Every operand v is split as it is read into big = rna-TF32(v)
+// and small = v - big (tensor_core.cuh's split), and a w is taken as
+// a_small w_big + a_big w_small + a_big w_big: 2^-21 of each operand, f32's
+// accuracy. The two small terms go to one accumulator and a_big w_big to
+// another, added in the epilogue: the tensor cores' f32 accumulation
+// truncates, and the small terms are then not accumulated at the sum's
+// magnitude, which halves the error against the plain f32 chain (2.5e-5 to
+// 1.3e-5 at (64, 750, 512), bar 1e-4) at the same speed. The tiling is the
+// bf16 kernel's, in f32: u's 256-byte rows are XOR-swizzled by 16-byte
+// chunks (swz_f32) so ldmatrix (b16 pairs load TF32 A fragments) reads the
+// shifted taps at any d and the epilogue's float2 accesses without bank
+// conflicts; W_i (49 KB) in swizzled rows (swz_w) gives conflict-free
+// scalar B reads. Three row buffers, two W buffers and the BN constants
+// take 220 KB at d = 4: one block of 16 warps per SM. It is persistent: it walks its tiles conv
+// after conv, so the next tile's first loads ride under this one's last
+// convs, and a warp's job is 16 rows x 32 channels (12-18 jobs a conv at
+// d = 4, against 6-10 of 32 rows). Bound: bytes, x in and out in f32
+// (196.6 MB, 0.0588 ms at 3.35 TB/s) against 3 x 8.26 GFLOP at the TF32
+// rate (0.050 ms); mma.sync reaches 314 TFLOP/s of TF32 on this card
+// (tools/torch_mma_rate.py), so the products alone take 0.09-0.10 ms with
+// the halo.
+// Measured with tools/torch_kernel_turns.py (an H100 SXM at 700 W, ms a
+// launch at (64, 750, 512), d = 2 / 3 / 4, each alternative in the same
+// call as this design, which read 0.244-0.248 / 0.259 / 0.268-0.269; the
+// first, FMA design read 0.527 / 0.806-0.810 / 0.864-0.868):
+//   A by four 32-bit loads instead of ldmatrix   0.269 / 0.280 / 0.291
+//   64-row tiles                                  0.289 / 0.297 / 0.306
+//   one tile per block, not persistent            0.250 / 0.265 / 0.277
+//   8 warps an SM (256 threads)                   0.265 / 0.274 / 0.283
+//   loads waited in the conv that issues them     0.270 / 0.283 / 0.292
+//   one accumulator for all three products        0.248 / 0.264 / 0.273
+//   no split, one TF32 product (wrong; a bound)   0.148 / 0.151 / 0.158
+// 32-row jobs read 0.260 / 0.273 / 0.282 against 0.250 / 0.264 / 0.276 for
+// 16-row ones in an earlier call. What bounds it: the split (the last row:
+// 0.10 ms of the 0.26), then the per-conv barrier, whose epilogue and
+// copies the warps of a block cannot overlap with products. Splitting u
+// once in the epilogue, or W once per conv, needs a second plane of each
+// (another 49 KB for W, 39 KB per row buffer at d = 4): it does not fit
+// beside the double-buffered W and three row buffers. wgmma (TF32, A from
+// registers) was not tried: its B operand must be split in shared memory,
+// the same planes that do not fit.
 //
-// Bound: bytes. x in + out, 2 * B * T * 512 elements (98 MB in bf16 at B=64,
-// T=750, 0.03 ms at 3.35 TB/s) against 8.3 GFLOP of conv products per
-// launch (0.008 ms at the bf16 tensor-core rate).
+// Bound (bf16): bytes. x in + out, 2 * B * T * 512 elements (98 MB in bf16
+// at B=64, T=750, 0.03 ms at 3.35 TB/s) against 8.3 GFLOP of conv products
+// per launch (0.008 ms at the bf16 tensor-core rate).
 
 #include "tensor_core.cuh"
 
 namespace {
 
 constexpr int WIDTH = 64;
-constexpr int TT = 96;         // output rows per block (measured against 64 and 128)
+constexpr int TT = 96;         // bf16: output rows per block (measured against 64 and 128)
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
-constexpr int USTRIDE = WIDTH + 1;   // f32 kernel: padded row stride of u
+constexpr int TT_F32 = 96;     // f32: output rows per tile
+constexpr int F32_THREADS = 512;
+constexpr int F32_WARPS = F32_THREADS / 32;
 
 using bf16 = __nv_bfloat16;
+using asv::tc::FragA;
+using asv::tc::FragB;
 using asv::tc::ldsm4;
 using asv::tc::mma_bf16;
+using asv::tc::mma_tf32;
+using asv::tc::split;
 
 // ---- bf16: the convs on the tensor cores ----
 
@@ -201,143 +247,240 @@ res2_chain_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
   }
 }
 
-// ---- f32: the first design, FMAs from shared memory ----
+// ---- f32: the convs on the tensor cores in 3xTF32 ----
 
-__global__ void __launch_bounds__(THREADS)
-res2_chain_fma_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                      const float* __restrict__ cb, const float* __restrict__ ca,
-                      const float* __restrict__ cbias, float* __restrict__ out,
-                      int Tlen, int valid, int dil, int scale) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int H = (scale - 1) * dil;
-  const int R = TT + 2 * H;
-  const int C = WIDTH * scale;
-  float* ws = smem;                      // 3*WIDTH x WIDTH conv weights
-  float* u = ws + 3 * WIDTH * WIDTH;     // R x USTRIDE chain input
-  float* s = u + R * USTRIDE;            // R x WIDTH chain output
+// Element (r, c) of a tile of 64-channel f32 rows (256 bytes): 16-byte chunk
+// c / 4 of row r sits at chunk (c / 4) ^ key(r), key(r) = 2 (r % 4) + (r / 4)
+// % 2. Any 8 consecutive rows get 8 keys (ldmatrix's 8-row reads at any
+// shift), and any 4 consecutive rows keys that differ in bits 1-2, so a
+// half-warp's float2 accesses of the epilogue (4 rows x 2 chunks) hit 8
+// distinct chunk positions.
+__device__ __forceinline__ int swz_f32(int r, int c) {
+  return r * WIDTH + ((((c >> 2) ^ (((r & 3) << 1) | ((r >> 2) & 1))) << 2) | (c & 3));
+}
 
-  const int tid = threadIdx.x;
-  const int b = blockIdx.y;
-  const int t0 = blockIdx.x * TT;
-  const int r0 = t0 - H;                 // global row of local row 0
-  const float* xb = x + static_cast<size_t>(b) * Tlen * C;
-  float* ob = out + static_cast<size_t>(b) * Tlen * C;
+// Element (k, n) of W_i (192 rows of 64 f32 channels): chunk n / 4 of row k
+// sits at chunk (n / 4) ^ 2 (k % 4), so the B fragment's 8 x 4 reads (rows
+// k0 + t, columns n0 + g) hit 32 banks.
+__device__ __forceinline__ int swz_w(int k, int n) {
+  return k * WIDTH + ((((n >> 2) ^ ((k & 3) << 1)) << 2) | (n & 3));
+}
 
-  const int cg = tid % 16;               // channels cg + 16 q
-  const int rg = tid / 16;               // rows rg * 8 + i of a 128-row pass
+// The copies below are cp.async, not committed. Thread j copies chunk j % 16
+// of rows j / 16, j / 16 + 32, ...: both swizzles depend on the row only
+// through r % 8, so a thread's destinations are 32 rows apart.
+constexpr int COPY_STEP = F32_THREADS / 16;   // rows a pass
 
-  for (int i = 0; i < scale - 1; ++i) {
-    // u = g_i + s, zero outside [0, valid); W_i to shared.
-    for (int idx = tid; idx < R * WIDTH; idx += THREADS) {
-      const int l = idx / WIDTH, c = idx % WIDTH;
-      const int r = r0 + l;
-      const bool in = r >= 0 && r < valid;
-      const float g = in ? xb[static_cast<size_t>(r) * C + i * WIDTH + c] : 0.f;
-      u[l * USTRIDE + c] = (i == 0) ? g : g + s[l * WIDTH + c];
-    }
-    const float* wi = w + static_cast<size_t>(i) * 3 * WIDTH * WIDTH;
-    for (int idx = tid; idx < 3 * WIDTH * WIDTH; idx += THREADS) ws[idx] = wi[idx];
-    __syncthreads();
+// Rows r < n of a swizzled f32 tile from src[(r0 + r) * ld], zero where
+// r0 + r is outside [0, valid).
+__device__ __forceinline__ void copy_rows_f32(const float* __restrict__ src, int ld, int r0,
+                                              int n, int valid, float* dst) {
+  const int c = threadIdx.x % 16 * 4;
+  float* d = dst + swz_f32(threadIdx.x / 16, c);
+  for (int r = threadIdx.x / 16; r < n; r += COPY_STEP, d += COPY_STEP * WIDTH) {
+    const int gr = r0 + r;
+    const bool ok = gr >= 0 && gr < valid;
+    asv::cp16(d, src + (ok ? static_cast<size_t>(gr) * ld + c : 0), ok);
+  }
+}
 
-    // s = a * relu(conv(u) + cb) + b on local rows [lo, hi).
-    const int lo = (i + 1) * dil, hi = R - (i + 1) * dil;
-    float bias[4], sa[4], sb[4];
+// W_i (3 WIDTH x WIDTH, row-major) into its swizzled tile.
+__device__ __forceinline__ void copy_w_f32(const float* __restrict__ src, float* dst) {
+  const int k0 = threadIdx.x / 16, n = threadIdx.x % 16 * 4;
+  float* d = dst + swz_w(k0, n);
+  const float* s = src + k0 * WIDTH + n;
+  for (int k = k0; k < 3 * WIDTH; k += COPY_STEP, d += COPY_STEP * WIDTH, s += COPY_STEP * WIDTH)
+    asv::cp16(d, s, true);
+}
+
+// One conv of one tile as its jobs see it (local rows l, global r0 + l).
+struct ConvF32 {
+  const float* u;     // the conv's input rows, swizzled
+  const float* wi;    // W_i, swizzled
+  const float* prm;   // cb_i; a_i and b_i follow at +pstride and +2 pstride
+  float* gn;          // x's next group, turned into the next conv's input in place
+  float* ob;          // this utterance's output rows
+  int r0, lo, hi, H, R, dil, valid, Tlen, C, pstride, col;
+  bool next;          // there is a next conv in this tile
+};
+
+// One warp's job of a conv: local rows mb .. mb + 15 (those < hi are kept),
+// channels n0 .. n0 + 31; bcol: the lane's B offsets in a row of W_i, one per
+// 8-channel tile. Each product a w is a_small w_big + a_big w_small + a_big
+// w_big on the tensor cores: the two small terms go to one accumulator and
+// a_big w_big to another, added at the end, so the small terms are not
+// accumulated at the magnitude of the whole sum. The epilogue runs on the
+// accumulators: s = a relu(y + cb) + b, zero outside [0, valid), written to
+// the output where the row is the tile's own and added in place to x's next
+// group, which becomes the next conv's input.
+__device__ __forceinline__ void tf32_job(const ConvF32& cv, int mb, int n0, const int (&bcol)[4]) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int lrow = (lane & 7) + 8 * ((lane >> 3) & 1), lchunk = 4 * (lane >> 4);
+  float acc[4][4] = {}, accs[4][4] = {};
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int o = cg + 16 * q;
-      bias[q] = cb[i * WIDTH + o];
-      sa[q] = ca[i * WIDTH + o];
-      sb[q] = cbias[i * WIDTH + o];
-    }
-    for (int base = lo; base < hi; base += 128) {
-      int rows[8];
+  for (int tap = 0; tap < 3; ++tap) {
+    // rows past the buffer feed only rows >= hi, which are not kept
+    const int ra = min(mb + lrow + (tap - 1) * cv.dil, cv.R - 1);
+    const float* wt = cv.wi + (tap * WIDTH + t) * WIDTH;
 #pragma unroll
-      for (int k = 0; k < 8; ++k) rows[k] = min(base + rg * 8 + k, hi - 1);
-      float acc[8][4];
+    for (int k0 = 0; k0 < WIDTH; k0 += 8) {
+      FragA fa;
+      FragB fb[4];
+      uint32_t v[4];
+      ldsm4<false>(v, reinterpret_cast<const bf16*>(cv.u + swz_f32(ra, k0 + lchunk)));
 #pragma unroll
-      for (int k = 0; k < 8; ++k)
+      for (int e = 0; e < 4; ++e) split(__uint_as_float(v[e]), fa.big[e], fa.small[e]);
 #pragma unroll
-        for (int q = 0; q < 4; ++q) acc[k][q] = 0.f;
-#pragma unroll
-      for (int tap = 0; tap < 3; ++tap) {
-        const int shift = (tap - 1) * dil;
-        for (int c = 0; c < WIDTH; ++c) {
-          float wv[4], av[8];
-#pragma unroll
-          for (int q = 0; q < 4; ++q) wv[q] = ws[(tap * WIDTH + c) * WIDTH + cg + 16 * q];
-#pragma unroll
-          for (int k = 0; k < 8; ++k) av[k] = u[(rows[k] + shift) * USTRIDE + c];
-#pragma unroll
-          for (int k = 0; k < 8; ++k)
-#pragma unroll
-            for (int q = 0; q < 4; ++q) acc[k][q] = fmaf(av[k], wv[q], acc[k][q]);
-        }
+      for (int nt = 0; nt < 4; ++nt) {
+        split(wt[k0 * WIDTH + bcol[nt]], fb[nt].big[0], fb[nt].small[0]);
+        split(wt[(k0 + 4) * WIDTH + bcol[nt]], fb[nt].big[1], fb[nt].small[1]);
       }
 #pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        const int l = base + rg * 8 + k;
-        if (l >= hi) continue;
-        const int r = r0 + l;
-        const bool in = r >= 0 && r < valid;
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const float v = sa[q] * fmaxf(acc[k][q] + bias[q], 0.f) + sb[q];
-          s[l * WIDTH + cg + 16 * q] = in ? v : 0.f;
-        }
+      for (int nt = 0; nt < 4; ++nt) {
+        mma_tf32(accs[nt], fa.small, fb[nt].big);
+        mma_tf32(accs[nt], fa.big, fb[nt].small);
+        mma_tf32(acc[nt], fa.big, fb[nt].big);
       }
-    }
-    __syncthreads();
-
-    // Group i of the tile's own rows.
-    for (int idx = tid; idx < TT * WIDTH; idx += THREADS) {
-      const int l = H + idx / WIDTH, c = idx % WIDTH;
-      const int r = r0 + l;
-      if (r < Tlen) ob[static_cast<size_t>(r) * C + i * WIDTH + c] = s[l * WIDTH + c];
     }
   }
-
-  // Pass-through group, zeroed past valid.
-  const int last = (scale - 1) * WIDTH;
-  for (int idx = tid; idx < TT * WIDTH; idx += THREADS) {
-    const int r = t0 + idx / WIDTH, c = idx % WIDTH;
-    if (r < Tlen) {
-      const size_t off = static_cast<size_t>(r) * C + last + c;
-      ob[off] = r < valid ? xb[off] : 0.f;
+#pragma unroll
+  for (int mh = 0; mh < 2; ++mh) {
+    const int l = mb + 8 * mh + g, r = cv.r0 + l;   // local and global row
+    if (l >= cv.hi) continue;
+    const bool in = r >= 0 && r < cv.valid;
+    const bool own = l >= cv.H && l < cv.H + TT_F32 && r < cv.Tlen;
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const int c = n0 + 8 * nt + 2 * t, e = 2 * mh;
+      const float2 kb = *reinterpret_cast<const float2*>(cv.prm + c);
+      const float2 ka = *reinterpret_cast<const float2*>(cv.prm + cv.pstride + c);
+      const float2 kc = *reinterpret_cast<const float2*>(cv.prm + 2 * cv.pstride + c);
+      const float y0 = acc[nt][e] + accs[nt][e], y1 = acc[nt][e + 1] + accs[nt][e + 1];
+      const float2 s = in ? make_float2(ka.x * fmaxf(y0 + kb.x, 0.f) + kc.x,
+                                        ka.y * fmaxf(y1 + kb.y, 0.f) + kc.y)
+                          : make_float2(0.f, 0.f);
+      if (own) *reinterpret_cast<float2*>(cv.ob + static_cast<size_t>(r) * cv.C + cv.col + c) = s;
+      if (cv.next) {
+        float2* p = reinterpret_cast<float2*>(cv.gn + swz_f32(l, c));
+        const float2 gv = *p;
+        *p = make_float2(gv.x + s.x, gv.y + s.y);
+      }
     }
   }
 }
 
-template <typename T, typename K>
-cudaError_t launch(K kernel, size_t smem, const void* x, const void* w, const float* cb,
-                   const float* ca, const float* cbias, void* out, int B, int Tlen,
-                   int valid, int dil, int scale, cudaStream_t stream) {
-  cudaError_t err = asv::allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<dim3((Tlen + TT - 1) / TT, B), THREADS, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), cb, ca, cbias,
-      static_cast<T*>(out), Tlen, valid, dil, scale);
-  return cudaGetLastError();
+// Grid (min(tiles, resident blocks)): block j walks tiles j, j + gridDim.x,
+// ... of the B x tiles_t tiles (utterance-major), one conv after another:
+// conv q is conv q % layers of its tile q / layers, so the loads of the next
+// tile's groups 0 and 1 and W_0 ride under the last two convs of this one.
+// Warp w runs jobs w, w + 16, ... of each conv: rows lo + 16 (job / 2),
+// channels 32 (job % 2), so its channels, 32 (w % 2) + 8 nt + 2 t + q, stay
+// the same.
+__global__ void __launch_bounds__(F32_THREADS, 1)
+res2_chain_tf32_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                       const float* __restrict__ cb, const float* __restrict__ ca,
+                       const float* __restrict__ cbias, float* __restrict__ out, int Tlen,
+                       int valid, int dil, int scale, int tiles_t, int tiles) {
+  constexpr int WSZ = 3 * WIDTH * WIDTH;   // one conv's weights
+  static_assert(F32_WARPS % 2 == 0, "a warp's jobs keep one channel half");
+  extern __shared__ float4 smem4[];
+  const int H = (scale - 1) * dil, R = TT_F32 + 2 * H, C = WIDTH * scale;
+  const int layers = scale - 1;
+  float* ws = reinterpret_cast<float*>(smem4);   // 2 x 3 WIDTH rows: W_q, W_{q+1}
+  float* rows = ws + 2 * WSZ;                    // 3 x R rows: u_q, g_{q+1}, g_{q+2}
+  float* prm = rows + 3 * R * WIDTH;             // cb, ca, cbias: 3 x layers x WIDTH
+  const int warp = threadIdx.x / 32, g = threadIdx.x % 32 / 4, t = threadIdx.x % 4;
+  const int n0 = 32 * (warp % 2);
+  int bcol[4];
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) bcol[nt] = swz_w(t, n0 + 8 * nt + g) - t * WIDTH;
+  const int convs = (tiles - blockIdx.x + gridDim.x - 1) / gridDim.x * layers;
+  // x's group of conv q (its input before the previous conv's output is
+  // added) into row buffer q % 3.
+  auto load_group = [&](int q) {
+    const int tile = blockIdx.x + q / layers * gridDim.x;
+    const int b = tile / tiles_t, r0 = tile % tiles_t * TT_F32 - H;
+    copy_rows_f32(x + static_cast<size_t>(b) * Tlen * C + q % layers * WIDTH, C, r0, R, valid,
+                  rows + q % 3 * R * WIDTH);
+  };
+
+  load_group(0);
+  copy_w_f32(w, ws);
+  if (convs > 1) load_group(1);
+  asv::cp_commit();
+  for (int j = threadIdx.x; j < layers * WIDTH; j += F32_THREADS) {
+    prm[j] = cb[j];
+    prm[layers * WIDTH + j] = ca[j];
+    prm[2 * layers * WIDTH + j] = cbias[j];
+  }
+
+  for (int q = 0; q < convs; ++q) {
+    const int i = q % layers, tile = blockIdx.x + q / layers * gridDim.x;
+    const int b = tile / tiles_t, t0 = tile % tiles_t * TT_F32, r0 = t0 - H;
+    const float* xb = x + static_cast<size_t>(b) * Tlen * C;
+    float* ob = out + static_cast<size_t>(b) * Tlen * C;
+    asv::cp_wait_all();
+    __syncthreads();   // u_q, W_q and group q+1 are in; the other buffers are free
+    if (q + 1 < convs) {
+      copy_w_f32(w + static_cast<size_t>((q + 1) % layers) * WSZ, ws + (q + 1) % 2 * WSZ);
+      if (q + 2 < convs) load_group(q + 2);
+      asv::cp_commit();
+    }
+    if (i == 0) {   // pass-through group, zeroed past valid
+      for (int j = threadIdx.x; j < TT_F32 * 16; j += F32_THREADS) {
+        const int r = t0 + j / 16;
+        if (r >= Tlen) break;
+        const size_t off = static_cast<size_t>(r) * C + layers * WIDTH + j % 16 * 4;
+        *reinterpret_cast<float4*>(ob + off) =
+            r < valid ? *reinterpret_cast<const float4*>(xb + off) : make_float4(0, 0, 0, 0);
+      }
+    }
+    const ConvF32 cv{rows + q % 3 * R * WIDTH, ws + q % 2 * WSZ, prm + i * WIDTH,
+                     rows + (q + 1) % 3 * R * WIDTH, ob, r0, (i + 1) * dil, R - (i + 1) * dil,
+                     H, R, dil, valid, Tlen, C, layers * WIDTH, i * WIDTH, i + 1 < layers};
+    const int jobs = 2 * ((cv.hi - cv.lo + 15) / 16);
+    for (int job = warp; job < jobs; job += F32_WARPS)
+      tf32_job(cv, cv.lo + 16 * (job / 2), n0, bcol);
+  }
 }
 
 }  // namespace
 
 // x, out (B, T, 64 * scale) and w (scale-1, 192, 64) of one type (code 0:
-// f32, 1: bf16; in bf16 x and w start on a 16-byte boundary); cb, ca, cbias
+// f32, 1: bf16), both starting on a 16-byte boundary; cb, ca, cbias
 // (scale-1, 64) f32. Returns cudaGetLastError().
 extern "C" int res2_chain_forward(const void* x, const void* w, const float* cb,
                                   const float* ca, const float* cbias,
                                   void* out, int B, int Tlen, int valid,
                                   int dil, int scale, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t R = TT + 2 * (scale - 1) * dil;
-  if (dtype == asv::kF32)
-    return static_cast<int>(launch<float>(
-        res2_chain_fma_kernel, (3 * WIDTH * WIDTH + R * USTRIDE + R * WIDTH) * sizeof(float),
-        x, w, cb, ca, cbias, out, B, Tlen, valid, dil, scale, st));
-  if (dtype == asv::kBF16)
-    return static_cast<int>(launch<bf16>(
-        res2_chain_mma_kernel, (2 * 3 * WIDTH * WIDTH + 3 * R * WIDTH) * sizeof(bf16), x, w,
-        cb, ca, cbias, out, B, Tlen, valid, dil, scale, st));
+  if (dtype == asv::kF32) {
+    const size_t smem = (2 * 3 * WIDTH * WIDTH + 3 * (TT_F32 + 2 * (scale - 1) * dil) * WIDTH +
+                         3 * (scale - 1) * WIDTH) * sizeof(float);
+    cudaError_t err = asv::allow_smem(res2_chain_tf32_kernel, smem);
+    int dev = 0, sms = 0, per_sm = 0;
+    if (err == cudaSuccess) err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, res2_chain_tf32_kernel,
+                                                          F32_THREADS, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int tiles_t = (Tlen + TT_F32 - 1) / TT_F32, tiles = B * tiles_t;
+    const int grid = per_sm > 0 ? min(tiles, sms * per_sm) : tiles;
+    res2_chain_tf32_kernel<<<grid, F32_THREADS, smem, st>>>(
+        static_cast<const float*>(x), static_cast<const float*>(w), cb, ca, cbias,
+        static_cast<float*>(out), Tlen, valid, dil, scale, tiles_t, tiles);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (dtype == asv::kBF16) {
+    const size_t R = TT + 2 * (scale - 1) * dil;
+    const size_t smem = (2 * 3 * WIDTH * WIDTH + 3 * R * WIDTH) * sizeof(bf16);
+    cudaError_t err = asv::allow_smem(res2_chain_mma_kernel, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    res2_chain_mma_kernel<<<dim3((Tlen + TT - 1) / TT, B), THREADS, smem, st>>>(
+        static_cast<const bf16*>(x), static_cast<const bf16*>(w), cb, ca, cbias,
+        static_cast<bf16*>(out), Tlen, valid, dil, scale);
+    return static_cast<int>(cudaGetLastError());
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -7,8 +7,9 @@ width-64 dilated k=3 convs of one Bottle2neck, each followed by ReLU and the
 folded inference BatchNorm, with the last group passed through. Rows at and
 past ``valid_len`` read as zeros before every conv and are zero in the
 output. The I/O type follows ``x`` (bf16 or f32); accumulation and the BN
-affine are f32. In bf16 the kernel runs the convs on the tensor cores
-(``mma.sync``); in f32 as FMAs.
+affine are f32. The kernel runs the convs on the tensor cores
+(``mma.sync``): in bf16 as they are, in f32 in 3xTF32 (each operand split
+into two TF32 parts, three products), which keeps f32's accuracy.
 
 On a CUDA tensor :func:`res2_chain_infer` launches the kernel; on a CPU
 tensor it runs :func:`res2_chain_plain`. It goes through the custom op
@@ -115,8 +116,8 @@ def res2_chain_kernel(x, w, cb, a, b, *, dilation: int, scale: int = 8,
     n, k = scale - 1, KERNEL_WIDTH
     _build.check_args("res2_chain_kernel", (x, None), (w, (n, 3 * k, k)),
                       (cb, (n, k)), (a, (n, k)), (b, (n, k)))
-    if x.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (x, w)):
-        raise ValueError("res2_chain_kernel: bf16 x and w must start on a "
+    if any(t.data_ptr() % 16 for t in (x, w)):
+        raise ValueError("res2_chain_kernel: x and w must start on a "
                          "16-byte boundary (the kernel copies them with "
                          "16-byte cp.async)")
     out = torch.empty_like(x)

@@ -12,8 +12,10 @@ Phases, each fatal on failure:
    at an odd hop (win 318 / hop 159), at every other FFT size it is built
    for (n_fft 4 to 256) and on a padded input with digital silence after a
    loud stretch and a -60 dB tone, and two B1 launches bitwise equal; B2
-   Res2 chain at (64, 750, 512), d = 2/3/4, in bf16 with valid_len < T at
-   each d and two launches bitwise equal; B3 attention pooling at
+   Res2 chain at (64, 750, 512), d = 2/3/4, in f32 (3xTF32, TF32 off in
+   the plain version) and bf16, each with valid_len < T at each d and two
+   launches bitwise equal, its f32 time beside the seven f32 ``x3 @ w``
+   products and its 3xTF32 bound; B3 attention pooling at
    (64, 750, 1536), f32 with TF32 off and bf16, each at valid_len None,
    T - 50, a row-tile boundary and inside the first tile, with the rows
    past valid_len scaled by 7, and two launches bitwise equal), B2's rows
@@ -539,9 +541,8 @@ def kernel_checks(torch, gen):
         # through its conv, the flips of the i steps before it, each worth
         # up to about one more ulp. Flips are rare, so few elements may
         # exceed one ulp.
-        cases = [(x32, None), (xbf, None), (xbf, valid_of[d])]
-        if d == 3:
-            cases.append((x32, valid_of[d]))
+        cases = [(x32, None), (x32, valid_of[d]), (xbf, None),
+                 (xbf, valid_of[d])]
         for x, valid in cases:
             p = packed_of[x.dtype]
             got = rc.res2_chain_kernel(x, *p, dilation=d, valid_len=valid)
@@ -567,20 +568,19 @@ def kernel_checks(torch, gen):
             if valid is not None:
                 check(bool((got[:, valid:] == 0).all()),
                       f"B2 rows past valid_len are not zero ({x.dtype})")
-            elif x is x32:
+                continue
+            if x is x32:
                 errs.append(err)
-            else:
-                check(torch.equal(got, rc.res2_chain_kernel(
-                    x, *p, dilation=d)), "two B2 launches on the same "
-                                         "input differ")
-                print(f"B2 res2_chain d={d} bf16: two launches bitwise "
-                      f"equal")
+            check(torch.equal(got, rc.res2_chain_kernel(x, *p, dilation=d)),
+                  f"two B2 launches on the same input differ ({x.dtype})")
+            print(f"B2 res2_chain d={d} {str(x.dtype)[6:]}: two launches "
+                  f"bitwise equal")
         p = packed_of[torch.bfloat16]
         times.append(time_ms(torch, lambda: rc.res2_chain_kernel(
             xbf, *p, dilation=d)))
         plain_times.append(time_ms(torch, lambda: rc.res2_chain_plain(
             xbf, *p, dilation=d)))
-        # f32, the feature-file scorer's default: B2's FMA kernel
+        # f32, the feature-file scorer's default: B2's 3xTF32 kernel
         times32.append(time_ms(torch, lambda: rc.res2_chain_kernel(
             x32, *packed_of[torch.float32], dilation=d)))
         print(f"B2 res2_chain d={d} bf16 {times[-1]:.4f} ms (plain "
@@ -588,6 +588,12 @@ def kernel_checks(torch, gen):
     w16 = packed_of[torch.bfloat16][0][0]
     x3 = torch.cat([xbf[..., :64]] * 3, dim=-1).reshape(-1, 192)
     matmul_ms = 7 * time_ms(torch, lambda: x3 @ w16)
+    # f32 yardstick: the seven f32 x3 @ w products, TF32 off (never called
+    # by the port)
+    w32 = packed[0][0]
+    x3 = x3.float()
+    matmul32_ms = 7 * time_ms(torch, lambda: x3 @ w32)
+    del x3
     entries["B2"] = dict(
         name="B2 res2_chain (inference Res2 chain, one launch per block)",
         source="asvspoof2021_air_tpu_torch/csrc/res2_chain.cu",
@@ -597,14 +603,25 @@ def kernel_checks(torch, gen):
         matmul_ms=matmul_ms, max_abs_err=max(errs),
         bytes=2 * 2 * B * T * C + 2 * packed[0].numel()
         + 4 * 3 * packed[1].numel(),
-        flops=2 * B * T * 192 * 64 * 7, kind="bf16",
-        extra={"ms_f32": float(np.mean(times32))})
-    f32_bound = bound(2 * 4 * B * T * C + 4 * packed[0].numel()
-                      + 4 * 3 * packed[1].numel(), 2 * B * T * 192 * 64 * 7,
-                      "f32")
-    print(f"B2 res2_chain f32 (FMA kernel) {np.mean(times32):.4f} ms per "
-          f"launch, mean of d = 2/3/4; bound {f32_bound[0]:.4f} ms by "
-          f"{f32_bound[1]} at the f32 rate (8.26 GFLOP at 67 TFLOP/s)")
+        flops=2 * B * T * 192 * 64 * 7, kind="bf16")
+    # f32 runs its products in 3xTF32: three TF32 products each, at the TF32
+    # rate. The bound at the f32-FMA rate, which held the earlier FMA
+    # design, is printed beside.
+    f32_bytes = (2 * 4 * B * T * C + 4 * packed[0].numel()
+                 + 4 * 3 * packed[1].numel())
+    f32_flops = 2 * B * T * 192 * 64 * 7
+    f32_bound = bound(f32_bytes, 3 * f32_flops, "tf32")
+    fma_bound = bound(f32_bytes, f32_flops, "f32")
+    entries["B2"]["extra"] = {"ms_f32": float(np.mean(times32)),
+                              "bound_ms_f32": f32_bound[0],
+                              "matmul_ms_f32": matmul32_ms}
+    print(f"B2 res2_chain f32 (3xTF32 kernel) {np.mean(times32):.4f} ms per "
+          f"launch, mean of d = 2/3/4, against the seven f32 x3 @ w "
+          f"products (TF32 off) {matmul32_ms:.4f} ms; bound "
+          f"{f32_bound[0]:.4f} ms by {f32_bound[1]} at the 3xTF32 rate "
+          f"(3 x {f32_flops / 1e9:.2f} GFLOP at 495 TFLOP/s), "
+          f"{fma_bound[0]:.4f} ms at the f32-FMA rate (the earlier FMA "
+          f"design's bound)")
 
     # B3: attention pooling, f32 and bf16 x. Both products keep f32's
     # accuracy (x @ Wx against two bf16 planes of Wx for bf16 x, in 3xTF32

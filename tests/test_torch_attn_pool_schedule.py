@@ -19,7 +19,8 @@ import pytest
 import torch
 
 from asvspoof2021_air_tpu_torch.ops import attn_pool_cuda as ap
-from tests.test_torch_attn_pool_vjp import _chunked_pool, _tf32_split
+from tests.test_torch_attn_pool_vjp import _chunked_pool
+from tf32_emulation import three_tf32
 
 _CSRC = Path(ap.__file__).resolve().parent.parent / "csrc"
 _SRC = (_CSRC / "attn_pool.cu").read_text()
@@ -129,9 +130,7 @@ def _f32(t):
 
 def _three_tf32(a, b):
     """a @ b as 3xTF32 computes it (tests/test_torch_attn_pool_vjp.py)."""
-    (ab, as_), (bb, bs) = _tf32_split(a.float()), _tf32_split(b.float())
-    return _f32(as_.double() @ bb.double() + ab.double() @ bs.double()
-                + ab.double() @ bb.double())
+    return three_tf32(a.float(), b.float()).double()
 
 
 def _three_bf16(a, b):

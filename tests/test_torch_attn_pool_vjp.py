@@ -17,6 +17,7 @@ import jax.numpy as jnp
 
 from asvspoof2021_air_tpu.ops.attn_pool_vjp import fused_softmax_stats as jfss
 from asvspoof2021_air_tpu_torch.ops import attn_pool_vjp as vjp
+from tf32_emulation import three_tf32, tf32_rna, tf32_split
 
 
 def _inputs(B=2, T=30, D=512, H=128, seed=0):
@@ -121,34 +122,7 @@ def test_kernel_wrappers_refuse_cpu_tensors_and_bad_shapes():
 
 
 # --- B4b's 3xTF32 arithmetic, emulated on the CPU ---------------------------
-# The kernel splits every f32 operand a of its products into big = a rounded
-# to TF32 as cvt.rna.tf32.f32 rounds (to nearest, ties away from zero) and
-# small = a - big, which the tensor core reads as TF32 by dropping its low 13
-# bits, and sums small*big + big*small + big*big on the tensor cores in f32.
-# TF32 products are exact in f32 (11-bit significands); the emulation sums
-# them in float64 and rounds once to f32, so it leaves out the tensor cores'
-# f32 accumulation error, which the chip check covers.
-
-
-def _tf32_rna(a: torch.Tensor) -> torch.Tensor:
-    """cvt.rna.tf32.f32: f32 rounded to 10 mantissa bits, to nearest, ties
-    away from zero (half an ulp added to the magnitude's bits, then the low
-    13 bits cleared), as the kernel computes it."""
-    bits = a.float().contiguous().view(torch.int32)
-    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
-
-
-def _tf32_read(a: torch.Tensor) -> torch.Tensor:
-    """An f32 register as an mma.sync TF32 operand: its low 13 bits
-    dropped."""
-    return (a.float().contiguous().view(torch.int32) & ~0x1FFF).view(
-        torch.float32)
-
-
-def _tf32_split(a: torch.Tensor):
-    """(big, small) as the tensor cores see the kernel's split of a."""
-    big = _tf32_rna(a)
-    return big, _tf32_read(a - big)
+# The split and what its emulation leaves out: tests/tf32_emulation.py.
 
 
 def _products(T=50, seed=11):
@@ -188,7 +162,7 @@ def test_tf32_split_reproduces_f32():
         1e20 * g.standard_normal(64),
         [1.0 + 2.0 ** -11, -(1.0 + 2.0 ** -11), 1.0 + 3 * 2.0 ** -12]]
     ).astype(np.float32))
-    big, small = _tf32_split(a)
+    big, small = tf32_split(a)
     assert torch.all(big.view(torch.int32) & 0x1FFF == 0)
     assert torch.all(small.view(torch.int32) & 0x1FFF == 0)
     rel = ((big.double() + small.double() - a.double()).abs()
@@ -202,9 +176,7 @@ def test_tf32_split_reproduces_f32():
 def test_three_tf32_products_hold_the_chip_bars(T):
     for name, a, b in _products(T):
         want = a.double() @ b.double()
-        (ab, as_), (bb, bs) = _tf32_split(a), _tf32_split(b)
-        got = (as_.double() @ bb.double() + ab.double() @ bs.double()
-               + ab.double() @ bb.double()).float().double()
+        got = three_tf32(a, b).double()
         assert _over_bar(name, got, want) <= 0.1, name
 
 
@@ -212,7 +184,7 @@ def test_one_tf32_product_misses_the_chip_bars():
     """Why three terms: big * big alone (plain TF32) misses every bar."""
     for name, a, b in _products():
         want = a.double() @ b.double()
-        one = (_tf32_rna(a).double() @ _tf32_rna(b).double()).float().double()
+        one = (tf32_rna(a).double() @ tf32_rna(b).double()).float().double()
         assert _over_bar(name, one, want) > 1.0, name
 
 
@@ -231,10 +203,7 @@ def _b4a_model(x, h2, w2, b2):
     """(mu, e2, max, normalizer) by B4a's schedule in f32, the logits h2 @ W2
     in 3xTF32 (products summed in float64, rounded once to f32), and the
     count of (chunk, row group) pairs with no row before T."""
-    (hb, hs), (wb, ws) = _tf32_split(h2), _tf32_split(w2)
-    prod = (hs.double() @ wb.double() + hb.double() @ ws.double()
-            + hb.double() @ wb.double()).float()
-    return _chunked_pool((prod + b2).numpy(), x)
+    return _chunked_pool((three_tf32(h2, w2) + b2).numpy(), x)
 
 
 def _chunked_pool(logits, x):

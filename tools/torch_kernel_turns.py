@@ -8,10 +8,12 @@ beside ``chip_smoke.py``); give a tree more than once to run it again, e.g.
 ``old new new old``. Each run is a fresh process started in its tree: it
 builds that tree's kernels, makes the same inputs from a seed, and prints
 one JSON line with the device times (CUDA events) of B3 at
-(64, 750, 1536) in bf16 and in f32, of B4a at the same shape in f32 and of
-B2 at (64, 750, 512) bf16, d = 2, with a SHA-256 of each kernel's output,
-so that trees whose kernels should agree bit for bit can be compared. The
-card's name and power limit (nvidia-smi) head the output. Needs a GPU.
+(64, 750, 1536) in bf16 and in f32, of B4a at the same shape in f32, of
+B2 at (64, 750, 512) in bf16 at d = 2 and in f32 at d = 2, 3 and 4 (with
+its largest error against the plain version, TF32 off), with a SHA-256 of
+each kernel's output, so that trees whose kernels should agree bit for bit
+can be compared. The card's name and power limit (nvidia-smi) head the
+output. Needs a GPU.
 """
 
 from __future__ import annotations
@@ -81,13 +83,21 @@ def child() -> None:
         sd[f"l.bns.{j}.bias"] = randn(64, scale=0.1)
         sd[f"l.bns.{j}.running_mean"] = randn(64, scale=0.1)
         sd[f"l.bns.{j}.running_var"] = 1 + randn(64, scale=0.1).abs()
-    w, *rest = rc.pack_chain_params(sd, "l")
-    p16 = (w.bfloat16(), *rest)
-    xc = randn(B, T, C).bfloat16()
+    p32 = rc.pack_chain_params(sd, "l")
+    p16 = (p32[0].bfloat16(), *p32[1:])
+    x32 = randn(B, T, C)
+    xc = x32.bfloat16()
     out = rc.res2_chain_kernel(xc, *p16, dilation=2)
     res["B2_bf16_d2"] = dict(
         ms=cs.time_ms(torch, lambda: rc.res2_chain_kernel(
             xc, *p16, dilation=2), iters=20), sha=digest([out]))
+    for d in (2, 3, 4):
+        out = rc.res2_chain_kernel(x32, *p32, dilation=d)
+        res[f"B2_f32_d{d}"] = dict(
+            ms=cs.time_ms(torch, lambda: rc.res2_chain_kernel(
+                x32, *p32, dilation=d), iters=20),
+            max_abs_err=cs.max_err(out, rc.res2_chain_plain(
+                x32, *p32, dilation=d)), sha=digest([out]))
     print(json.dumps(res))
 
 
