@@ -7,7 +7,8 @@ waveforms only).
         [-m lcnn|resnet|ecapa|res2net|cnn] \\
         [--add_loss isolate|iso_sq|ang_iso|p2sgrad] \\
         [--LA_aug --path_to_aug_features <aug>] \\
-        [--compute_dtype bfloat16] [--steps_per_call 8] [--device cuda]
+        [--compute_dtype bfloat16] [--steps_per_call 8] [--device cuda] \
+        [--fused_pool auto|on|off] [--fused_bn auto|on|off]
     python -m asvspoof2021_air_tpu_torch.cli.train -d <database> -o <out> \\
         -m ecapa --add_loss ang_iso --on_the_fly \
         [--on_device_aug [--apply_ir] [--dev_aug]]
@@ -38,12 +39,15 @@ card or the CPU. ``-m`` takes the JAX CLI's choices, all six. RawNet2's
 ``--ensemble M`` trains M systems in one step (``train/ensemble.py``).
 ``--num_centers`` is taken and unused, as in the JAX CLI; ``--test_only``
 prints and returns, as there; ``--fused_pool``/``--fused_bn`` take
-auto|on (the port always trains through B4a/B4b and the recompute VJPs)
-and refuse off; ``--visualize`` writes the embeddings' t-SNE/PCA figure
-every third epoch (``visualize.py``). As in the JAX CLI, ``--add_loss ocsoftmax`` from
-a ``--config`` file is ``ang_iso`` and an add-loss that does not train
-(amsoftmax) is refused, and ``--test_on_eval`` scores only an
-``eval_set`` handed to ``train()``; the CLI hands none.
+auto|on|off as in the JAX CLI: auto and on train through B4a/B4b and the
+recompute VJPs (the port's "auto" is "on" on the card and on the CPU,
+where JAX's is "on" only on a TPU), off trains the unfused model through
+plain autograd (``train/loop.TrainConfig``); ``--visualize`` writes the
+embeddings' t-SNE/PCA figure every third epoch (``visualize.py``). As in
+the JAX CLI, ``--add_loss ocsoftmax`` from a ``--config`` file is
+``ang_iso`` and an add-loss that does not train (amsoftmax) is refused,
+and ``--test_on_eval`` scores only an ``eval_set`` handed to ``train()``;
+the CLI hands none.
 """
 
 from __future__ import annotations
@@ -133,8 +137,9 @@ def build_parser() -> argparse.ArgumentParser:
     for flag in ("fused_pool", "fused_bn"):
         p.add_argument(f"--{flag}", type=str, default="auto",
                        choices=["auto", "on", "off"],
-                       help="auto and on: the port always trains through "
-                            "B4a/B4b and the recompute VJPs; off is refused")
+                       help="auto and on: train through B4a/B4b and the "
+                            "recompute VJPs; off: the unfused model through "
+                            "plain autograd")
     p.add_argument("--on_the_fly", type=str2bool, nargs="?", const=True,
                    default=False,
                    help="train straight from raw audio (-d): LFCC on the "
@@ -167,11 +172,6 @@ def build_parser() -> argparse.ArgumentParser:
 def config_from_args(args: argparse.Namespace) -> TrainConfig:
     if not 0 < args.ratio <= 1:
         raise SystemExit(f"--ratio must be in (0, 1], got {args.ratio}")
-    off = [k for k in ("fused_pool", "fused_bn") if getattr(args, k) == "off"]
-    if off:
-        raise NotImplementedError(
-            f"{'/'.join(off)}='off': the port always trains through B4a/B4b "
-            "and the recompute VJP")
     fields = set(TrainConfig.__dataclass_fields__)
     kwargs = {k: v for k, v in vars(args).items() if k in fields}
     add_loss = kwargs.get("add_loss")

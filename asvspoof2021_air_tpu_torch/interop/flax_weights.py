@@ -13,6 +13,10 @@ flax names) into the port's state_dict (reference names):
                                   weight (O, I, 1) inside the SE module
 - mfa_kernel (3C, 1536)        -> layer4.weight (1536, 3C, 1)
 - attn_kernel (4608, 128)      -> attention.0.weight (128, 4608, 1)
+                                  ((1536, 128) without context); Conv_1
+                                  (1, 128, 1536 or, for a non-"ECA"
+                                  encoder, 1) -> attention.3; no
+                                  BatchNorm_3 (bn7) without out_bn
 - att_weights (H, 1)           -> attention.att_weights (1, H) (ResNet)
 - LCNN's Dense_0 (H W 32, 160), rows in NHWC order (h, w, c)
                                -> out.1.weight (160, 32 H W), columns in
@@ -140,7 +144,8 @@ def from_flax_variables(variables, model_scale: int = 8,
     _bn(sd, "bn5", p["BatchNorm_2"], s["BatchNorm_2"])
     _dense(sd, "fc6", p["Dense_0"])
     _dense(sd, "fc7", p["Dense_1"])
-    _bn(sd, "bn7", p["BatchNorm_3"], s["BatchNorm_3"])
+    if "BatchNorm_3" in p:          # out_bn=False has none
+        _bn(sd, "bn7", p["BatchNorm_3"], s["BatchNorm_3"])
     return sd
 
 
@@ -313,7 +318,9 @@ def random_flax_variables(seed: int, C: int = 512, model_scale: int = 8,
     """Seeded numpy variables of the JAX ``model`` in the flax tree's names
     and shapes (ECAPA: ``C``, ``model_scale``; ResNet18 and LCNN at their
     fixed widths; LCNN's head sized for ``feat_len``; ``n_feat`` the input's
-    frequency dim). SE-Res2Net50 ("res2net"), ConvNet ("cnn"), RawNet2
+    frequency dim; ECAPA's variant fields ``context``, ``encoder_type``
+    and ``out_bn`` from ``model_kwargs``, the JAX model's defaults
+    otherwise). SE-Res2Net50 ("res2net"), ConvNet ("cnn"), RawNet2
     ("rawnet") and Subband ("subband") take their shapes from the port's
     model built on the CPU with ``model_kwargs`` (ConvNet's
     ``subband_attention``, RawNet2's ``d_args``, Subband's
@@ -374,14 +381,18 @@ def random_flax_variables(seed: int, C: int = 512, model_scale: int = 8,
         params[f"Bottle2neck_{li}"], stats[f"Bottle2neck_{li}"] = bp, bs
     params["mfa_kernel"] = kernel(3 * C, 1536)
     params["mfa_bias"] = vec(1536)
-    params["attn_kernel"] = kernel(3 * 1536, 128)
+    variant = model_kwargs or {}
+    params["attn_kernel"] = kernel(
+        3 * 1536 if variant.get("context", True) else 1536, 128)
     params["attn_bias"] = vec(128)
     params["BatchNorm_1"], stats["BatchNorm_1"] = bn(128)
-    params["Conv_1"] = conv(1, 128, 1536)
+    params["Conv_1"] = conv(
+        1, 128, 1536 if variant.get("encoder_type", "ECA") == "ECA" else 1)
     params["BatchNorm_2"], stats["BatchNorm_2"] = bn(3072)
     params["Dense_0"] = conv(3072, enc_dim)
     params["Dense_1"] = conv(enc_dim, n_out)
-    params["BatchNorm_3"], stats["BatchNorm_3"] = bn(n_out)
+    if variant.get("out_bn", True):
+        params["BatchNorm_3"], stats["BatchNorm_3"] = bn(n_out)
     return {"params": params, "batch_stats": stats}
 
 

@@ -5,7 +5,8 @@ self-attentive statistics pooling, flax's convolution and dense semantics
 under a compute dtype, and flax's initializers.
 
 Counterparts of the JAX package's ``models/common.py`` ``BatchNorm``,
-``batch_norm``, ``relu_bn``, ``bn_relu``, ``leaky_slope``, ``SEModule1D``,
+``batch_norm``, ``relu_bn``, ``bn_relu`` (with ``fused`` either way),
+``leaky_slope``, ``SEModule1D``,
 ``SELayer2D``, ``MaxFeatureMap``,
 ``SelfAttentionPooling``, ``to_2d_input``, ``conv_kaiming_init`` and
 ``linear_kaiming_init``. Train mode follows the JAX ``BatchNorm`` and
@@ -104,8 +105,16 @@ class BatchNorm(nn.Module):
     autodiff does there, and its bf16 trajectory against JAX's depends on
     that rounding order (with ``bn_train`` the bf16 loss four steps on is
     2.5% from JAX's, past tests/test_torch_train_bf16.py's 2% bar).
-    Inside ``ops/bn_relu_vjp.batch_norm_group`` every train-mode path
-    normalizes with the moments across the group's ranks."""
+    The attribute ``fused`` is the JAX model's ``fused_bn`` for the
+    activation pairs (:meth:`relu_bn`, :meth:`bn_relu`,
+    :meth:`bn_leaky_relu`): True (the default) routes each train-mode pair
+    through its recompute VJP of ``ops/bn_relu_vjp.py``, False through the
+    activation and :meth:`forward` under autograd (the JAX
+    ``relu_bn``/``bn_relu`` with ``fused=False``: the statistics in f32,
+    the output in the compute type, the activation after the BN in that
+    type); :func:`set_fused_bn` sets it on every BN of a model. Inside
+    ``ops/bn_relu_vjp.batch_norm_group`` every train-mode path normalizes
+    with the moments across the group's ranks."""
 
     def __init__(self, num_features: int, eps: float = BN_EPS,
                  momentum: float = BN_MOMENTUM,
@@ -113,7 +122,7 @@ class BatchNorm(nn.Module):
                  use_bias: bool = True, recompute: bool = False):
         super().__init__()
         self.eps, self.momentum, self.dtype = eps, momentum, dtype
-        self.recompute = recompute
+        self.recompute, self.fused = recompute, True
         for name, use, fill in (("weight", use_scale, 1.0),
                                 ("bias", use_bias, 0.0)):
             if use:
@@ -168,9 +177,10 @@ class BatchNorm(nn.Module):
         return self._out(y, x)
 
     def relu_bn(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
-        """``self(relu(x))``; in train mode through the recompute VJP of
-        ``ops/bn_relu_vjp.py`` (same values, lighter residuals)."""
-        if not self.training:
+        """``self(relu(x))``; in train mode with ``fused`` through the
+        recompute VJP of ``ops/bn_relu_vjp.py`` (same values, lighter
+        residuals)."""
+        if not (self.training and self.fused):
             return self(torch.relu(x), dim)
         y, mu, var = relu_bn_train(x, self.weight, self.bias, self.eps, dim)
         self._update(mu.detach(), var.detach())
@@ -179,7 +189,10 @@ class BatchNorm(nn.Module):
     def bn_relu(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
         """``relu(self(x))``, the pre-activation order (the JAX
         ``bn_relu``); in train mode through ``ops/bn_relu_vjp.bn_relu_train``
-        (the JAX model's ``fused_bn``)."""
+        (the JAX model's ``fused_bn``), or without ``fused`` as
+        ``relu(self(x))`` under autograd."""
+        if self.training and not self.fused:
+            return torch.relu(self(x, dim))
         if not self.training:
             return self._out(torch.relu(self._eval(x, dim)), x)
         y, mu, var = bn_relu_train(x, self.weight, self.bias, self.eps, dim)
@@ -191,7 +204,11 @@ class BatchNorm(nn.Module):
         """``leaky_relu(self(x), slope)`` (flax's: y where y >= 0, else
         slope y), the JAX BatchNorm's ``relu_after`` with ``leaky_slope``;
         in train mode through ``ops/bn_relu_vjp.bn_leaky_relu_train`` (the
-        JAX ConvNet's ``fused_bn``)."""
+        JAX ConvNet's ``fused_bn``), or without ``fused`` as the leaky ReLU
+        of ``self(x)`` under autograd."""
+        if self.training and not self.fused:
+            y = self(x, dim)
+            return torch.where(y >= 0, y, slope * y)
         if not self.training:
             y = self._eval(x, dim)
             return self._out(torch.where(y >= 0, y, slope * y), x)
@@ -202,6 +219,15 @@ class BatchNorm(nn.Module):
 
 
 BatchNorm1d = BatchNorm     # the name ECAPA's modules use
+
+
+def set_fused_bn(module: nn.Module, fused: bool) -> None:
+    """Every :class:`BatchNorm` of ``module`` takes its train-mode
+    activation pairs through the recompute VJPs (``fused``, the JAX
+    models' ``fused_bn=True``) or through plain autograd."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm):
+            m.fused = fused
 
 
 class Logistic(torch.autograd.Function):

@@ -18,8 +18,9 @@ h, w), the reference's; the JAX model's NHWC flatten is C-minor, and
 ``interop/flax_weights`` permutes ``fc1``'s columns. ``fc1`` is sized from
 ``feat_dim`` x ``feat_len`` (:func:`convnet_extent`; 60 x 750 LFCC reach
 layer 4 at 6 x 123, so 47232 -> 256). The BN -> leaky ReLU pairs run
-through ``ops/bn_relu_vjp.bn_leaky_relu_train`` in train mode (the JAX
-model's ``fused_bn``). With ``subband_attention`` the train-mode pooling
+through ``ops/bn_relu_vjp.bn_leaky_relu_train`` in train mode with
+``fused_bn`` (the default; the JAX model's flag), or through plain
+autograd without it. With ``subband_attention`` the train-mode pooling
 adds 1e-5 times standard-normal ``draws`` (B, T', 128) to its weighted
 frames, the JAX model's ``noise`` stream; :meth:`ConvNet.draw` makes them.
 Weights start as flax initializes the JAX model (lecun-normal kernels,
@@ -36,7 +37,7 @@ from torch import nn
 from asvspoof2021_air_tpu_torch._device import disable_tf32, resolve_device
 from asvspoof2021_air_tpu_torch.models.common import (
     BatchNorm, SelfAttentionPooling, conv, dense, init_flax_like_,
-    linear_kaiming_, to_2d_input)
+    linear_kaiming_, set_fused_bn, to_2d_input)
 
 # (output channels, kernel, padding, dilation, stride) of layer1..layer4,
 # each a (frequency, time) pair
@@ -69,7 +70,8 @@ class ConvNet(nn.Module):
                  enc_dim: int = 2, subband_attention: bool = False,
                  feat_dim: int = 60, feat_len: int = 750,
                  flat: Optional[int] = None,
-                 generator: Optional[torch.Generator] = None, device="cuda"):
+                 generator: Optional[torch.Generator] = None, device="cuda",
+                 fused_bn: bool = True):
         super().__init__()
         dev = resolve_device(device)
         self.subband_attention = subband_attention
@@ -96,6 +98,7 @@ class ConvNet(nn.Module):
         init_flax_like_(self, generator)
         if subband_attention:
             linear_kaiming_(self.attention.att_weights, generator)
+        set_fused_bn(self, fused_bn)
         self.to(dev)
 
     def draw(self, batch: int, frames: int,

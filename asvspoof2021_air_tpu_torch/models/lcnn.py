@@ -17,13 +17,15 @@ is C-major (the reference's; the JAX model's NHWC flatten is C-minor, and
 ``interop/flax_weights`` permutes ``Dense_0``'s rows). The head needs
 T = ``feat_len`` frames: it is sized for 32 x (F // 16) x (feat_len // 16)
 inputs. The BNs run through ``ops/bn_relu_vjp.bn_train`` in train mode
-(the JAX model's ``fused_bn``). In train mode the dropout keeps the inputs
-where the boolean ``draws`` (B, 32 x (F // 16) x (feat_len // 16)) hold,
-scaled by 1 / 0.3, the JAX model's ``dropout`` stream; :meth:`LCNN.draw`
-makes them from a generator. ``dtype`` (None or ``torch.bfloat16``) is the
-compute dtype of the convs, the MFMs and the pools, which the BNs return;
-the flatten and the head run in f32. Weights start as flax initializes the
-JAX model (lecun-normal kernels, zero biases).
+with ``fused_bn`` (the default; the JAX model's flag, its BNs'
+``recompute``), or through plain autograd without it. In train mode the
+dropout keeps the inputs where the boolean ``draws`` (B, 32 x (F // 16) x
+(feat_len // 16)) hold, scaled by 1 / 0.3, the JAX model's ``dropout``
+stream; :meth:`LCNN.draw` makes them from a generator. ``dtype`` (None or
+``torch.bfloat16``) is the compute dtype of the convs, the MFMs and the
+pools, which the BNs return; the flatten and the head run in f32. Weights
+start as flax initializes the JAX model (lecun-normal kernels, zero
+biases).
 """
 
 from __future__ import annotations
@@ -53,7 +55,8 @@ class LCNN(nn.Module):
                  nclasses: int = 2, feat_len: int = 750,
                  dropout_rate: float = 0.7,
                  dtype: Optional[torch.dtype] = None,
-                 generator: Optional[torch.Generator] = None, device="cuda"):
+                 generator: Optional[torch.Generator] = None, device="cuda",
+                 fused_bn: bool = True):
         super().__init__()
         dev = resolve_device(device)
         if dtype not in (None, torch.bfloat16):
@@ -69,7 +72,7 @@ class LCNN(nn.Module):
             if norm:
                 layers.append(BatchNorm(cout // 2, dtype=dtype,
                                         use_scale=False, use_bias=False,
-                                        recompute=True))
+                                        recompute=fused_bn))
             setattr(self, f"conv{i + 1}", nn.Sequential(*layers))
             cin = cout // 2
         self.flat = cin * (num_nodes // 16) * (feat_len // 16)

@@ -21,8 +21,9 @@ Counterpart of the JAX package's ``models/res2net.py`` (``SEBottle2neck``,
   gives the logits, returned as log-probabilities.
 
 Every conv is bias-free. The BN -> ReLU pairs run through
-``ops/bn_relu_vjp.bn_relu_train`` in train mode (the JAX model's
-``fused_bn``); ``bn3`` and the downsample BN take autograd's VJP, as the
+``ops/bn_relu_vjp.bn_relu_train`` in train mode with ``fused_bn`` (the
+default; the JAX model's flag), or through plain autograd without it;
+``bn3`` and the downsample BN take autograd's VJP, as the
 JAX ``batch_norm(train)`` takes autodiff there. The model computes in f32:
 the JAX registry builds it without a compute dtype. Weights start as flax
 initializes the JAX model (``conv_kaiming_init`` convs, lecun-normal dense
@@ -41,7 +42,7 @@ from torch import nn
 from asvspoof2021_air_tpu_torch._device import disable_tf32, resolve_device
 from asvspoof2021_air_tpu_torch.models.common import (
     BatchNorm, SELayer2D, conv, conv_kaiming_, dense, lecun_normal_,
-    to_2d_input)
+    set_fused_bn, to_2d_input)
 
 
 def _conv(cin: int, cout: int, k: int, stride: int = 1) -> nn.Conv2d:
@@ -109,7 +110,8 @@ class SERes2Net50(nn.Module):
 
     def __init__(self, num_classes: int = 2, base_width: int = 26,
                  scale: int = 4, layers: Sequence[int] = (3, 4, 6, 3),
-                 generator: Optional[torch.Generator] = None, device="cuda"):
+                 generator: Optional[torch.Generator] = None, device="cuda",
+                 fused_bn: bool = True):
         super().__init__()
         dev = resolve_device(device)
         self.conv1 = nn.Sequential(
@@ -133,6 +135,7 @@ class SERes2Net50(nn.Module):
                 lecun_normal_(m.weight, generator)
                 if m.bias is not None:
                     nn.init.zeros_(m.bias)
+        set_fused_bn(self, fused_bn)
         self.to(dev)
 
     def forward(self, feats: torch.Tensor

@@ -17,7 +17,8 @@ conv2, shortcut.0}``, ``conv5``, ``bn5``, ``attention.att_weights``, ``fc``,
 
 The forward takes (B, T, F) features and returns (embedding, logits) in
 f32. Every BN -> ReLU pair runs through ``ops/bn_relu_vjp.bn_relu_train``
-in train mode (the JAX model's ``fused_bn``). In train mode the pooling
+in train mode with ``fused_bn`` (the default; the JAX model's flag), or
+through plain autograd without it. In train mode the pooling
 adds 1e-5 times standard-normal ``draws`` (B, T', 256) to its weighted
 frames, the JAX model's ``noise`` stream; :meth:`ResNet.draw` makes them
 from a generator (the train step draws them eagerly, outside a CUDA
@@ -38,7 +39,7 @@ from torch import nn
 from asvspoof2021_air_tpu_torch._device import disable_tf32, resolve_device
 from asvspoof2021_air_tpu_torch.models.common import (
     BatchNorm, SelfAttentionPooling, conv, conv_kaiming_, dense,
-    linear_kaiming_, to_2d_input)
+    linear_kaiming_, set_fused_bn, to_2d_input)
 
 
 def _conv3x3(cin: int, cout: int, stride: int = 1) -> nn.Conv2d:
@@ -135,7 +136,8 @@ class ResNet(nn.Module):
     def __init__(self, num_nodes: int = 3, enc_dim: int = 256,
                  resnet_type: str = "18", nclasses: int = 2,
                  dtype: Optional[torch.dtype] = None,
-                 generator: Optional[torch.Generator] = None, device="cuda"):
+                 generator: Optional[torch.Generator] = None, device="cuda",
+                 fused_bn: bool = True):
         super().__init__()
         dev = resolve_device(device)
         if dtype not in (None, torch.bfloat16):
@@ -167,6 +169,7 @@ class ResNet(nn.Module):
                 linear_kaiming_(m.weight, generator)
                 nn.init.zeros_(m.bias)
         linear_kaiming_(self.attention.att_weights, generator)
+        set_fused_bn(self, fused_bn)
         self.to(dev)
 
     def draw(self, batch: int, frames: int,

@@ -24,6 +24,15 @@ backward:
 
 Layout is the port's, channels-first: x (B, C, T), kernels (G, w, w, 3) as
 ``nn.Conv1d`` stores them (the JAX op takes (B, T, C) and (G, 3, w, w)).
+
+Inside ``ops/bn_relu_vjp.batch_norm_group`` (data-parallel training) the
+chain's BN moments are the global batch's, as under JAX's GSPMD step,
+where the op's batch means are global: the forward all-reduces each BN's
+sums of r and r^2 over n = B T x the group's size, as
+``ops/bn_relu_vjp.BNTrainVJP`` does, and the backward the sums behind its
+two means (of dxhat and of dxhat xhat) with the cotangents of the
+statistics. The weight gradients stay this rank's; the step's gradient
+all-reduce averages them with the rest.
 """
 
 from __future__ import annotations
@@ -33,7 +42,10 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from asvspoof2021_air_tpu_torch.ops.bn_relu_vjp import current_group
+import torch.distributed as dist
+
+from asvspoof2021_air_tpu_torch.ops.bn_relu_vjp import (
+    _all_reduce, current_group)
 
 
 def _conv(sp: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -44,12 +56,19 @@ def _conv(sp: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
             + b.to(dt)[:, None])
 
 
-def _bn_stats(y: torch.Tensor, eps: float):
+def _bn_stats(y: torch.Tensor, eps: float, group, n: int):
     """(r, mu, var, inv) of ReLU -> train BN over (B, T) in f32, as
-    ``ops/bn_relu_vjp.BNTrainVJP`` computes them."""
+    ``ops/bn_relu_vjp.BNTrainVJP`` computes them: over ``group``'s ranks
+    (``n`` rows in all) where given."""
     r = torch.relu(y).float()
-    mu = r.mean((0, 2))
-    var = torch.clamp((r * r).mean((0, 2)) - mu * mu, min=0.0)
+    if group is None:
+        mu = r.mean((0, 2))
+        var = torch.clamp((r * r).mean((0, 2)) - mu * mu, min=0.0)
+    else:
+        s = _all_reduce(torch.cat([r.sum((0, 2)), (r * r).sum((0, 2))]),
+                        group)
+        mu, ms = (s / n).chunk(2)
+        var = torch.clamp(ms - mu * mu, min=0.0)
     return r, mu, var, torch.rsqrt(var + eps)
 
 
@@ -63,20 +82,25 @@ def _taps(sp: torch.Tensor, d: int) -> torch.Tensor:
 
 class Res2ChainTrain(torch.autograd.Function):
     """(out, mus, vars) of the train-mode chain; residuals x, the kernels,
-    the BN affines, ys and the statistics."""
+    the BN affines, ys and the statistics. ``group`` (no gradient) is the
+    data-parallel BN group, or None."""
 
     @staticmethod
-    def forward(ctx, x, W, CB, S, Bb, dilation: int, eps: float):
+    def forward(ctx, x, W, CB, S, Bb, dilation: int, eps: float,
+                group=None):
         G = W.shape[0]
         w = x.shape[1] // (G + 1)
         dt = x.dtype
+        n = x.shape[0] * x.shape[2]
+        if group is not None:
+            n *= dist.get_world_size(group)
         outs, ys, mus, vrs = [], [], [], []
         sp = None
         for i in range(G):
             g = x[:, i * w:(i + 1) * w]
             sp = g if i == 0 else (sp + g).to(dt)
             y = _conv(sp, W[i], CB[i], dt, dilation)
-            r, mu, var, inv = _bn_stats(y, eps)
+            r, mu, var, inv = _bn_stats(y, eps, group, n)
             sp = ((r - mu[:, None]) * (inv * S[i])[:, None]
                   + Bb[i][:, None]).to(dt)
             outs.append(sp)
@@ -86,17 +110,16 @@ class Res2ChainTrain(torch.autograd.Function):
         out = torch.cat(outs + [x[:, G * w:]], dim=1)
         mus, vrs = torch.stack(mus), torch.stack(vrs)
         ctx.save_for_backward(x, W, S, Bb, torch.stack(ys), mus, vrs)
-        ctx.dilation, ctx.eps = dilation, eps
+        ctx.dilation, ctx.eps, ctx.group, ctx.n = dilation, eps, group, n
         return out, mus, vrs
 
     @staticmethod
     def backward(ctx, g_out, g_mus, g_vrs):
         x, W, S, Bb, ys, mus, vrs = ctx.saved_tensors
-        d, eps = ctx.dilation, ctx.eps
+        d, eps, group, n = ctx.dilation, ctx.eps, ctx.group, ctx.n
         G = W.shape[0]
-        B, C, T = x.shape
+        C = x.shape[1]
         w = C // (G + 1)
-        n = B * T
         dt = x.dtype
         zero = torch.zeros((), device=x.device)
 
@@ -126,11 +149,21 @@ class Res2ChainTrain(torch.autograd.Function):
             dBb[i] = gz.sum((0, 2))
             dS[i] = (gz * xhats[i]).sum((0, 2))
             dxhat = gz * S[i][:, None]
-            m1 = dxhat.mean((0, 2))[:, None]
-            m2 = (dxhat * xhats[i]).mean((0, 2))[:, None]
+            g_mu, g_var = g_mus[i], g_vrs[i]
+            if group is None:
+                m1 = dxhat.mean((0, 2))[:, None]
+                m2 = (dxhat * xhats[i]).mean((0, 2))[:, None]
+            else:
+                # the group's means, and the statistics' cotangents of
+                # every rank (each rank's loss reads the global moments)
+                s = _all_reduce(torch.cat([
+                    dxhat.sum((0, 2)), (dxhat * xhats[i]).sum((0, 2)),
+                    g_mu.float(), g_var.float()]), group)
+                m1, m2, g_mu, g_var = s.chunk(4)
+                m1, m2 = (m1 / n)[:, None], (m2 / n)[:, None]
             dr = invs[i][:, None] * (dxhat - m1 - xhats[i] * m2)
-            dr = (dr + g_mus[i][:, None] / n
-                  + (2.0 / n) * g_vrs[i][:, None] * (rs[i] - mus[i][:, None]))
+            dr = (dr + g_mu[:, None] / n
+                  + (2.0 / n) * g_var[:, None] * (rs[i] - mus[i][:, None]))
             dy = torch.where(ys[i] > 0, dr, zero).to(dt)
             dys[i] = dy
             # the dilated conv's data gradient: the transposed conv
@@ -145,7 +178,7 @@ class Res2ChainTrain(torch.autograd.Function):
         dW = torch.einsum("gbot,gbkit->goik", DY, X3).to(W.dtype)
         dCB = DY.sum((1, 3))
         return (torch.cat(dX, dim=1).to(dt), dW, dCB, torch.stack(dS),
-                torch.stack(dBb), None, None)
+                torch.stack(dBb), None, None, None)
 
 
 def res2_chain_train(x: torch.Tensor, W: torch.Tensor, CB: torch.Tensor,
@@ -157,12 +190,10 @@ def res2_chain_train(x: torch.Tensor, W: torch.Tensor, CB: torch.Tensor,
 
     W (G, w, w, 3) conv kernels, CB (G, w) conv biases, S and Bb (G, w)
     the BN scales and biases (all f32). Groups 0..G-1 are convolved, the
-    last passes through. Refused inside a data-parallel BN group (its
-    statistics would need the group's moments)."""
-    if current_group() is not None:
-        raise ValueError("fused_chain is not ported under a data-parallel "
-                         "batch-norm group: train without fused_chain")
-    return Res2ChainTrain.apply(x, W, CB, S, Bb, dilation, eps)
+    last passes through. Inside ``ops/bn_relu_vjp.batch_norm_group`` the
+    statistics are the group's (the module docstring)."""
+    return Res2ChainTrain.apply(x, W, CB, S, Bb, dilation, eps,
+                                current_group())
 
 
 def chain_params(convs, bns) -> Tuple[torch.Tensor, ...]:

@@ -16,7 +16,9 @@ in {None, "isolate", "iso_sq", "ang_iso", "p2sgrad"}:
   samples); both
   iterators behind a ``PrefetchIterator``;
 - the step: the model in train mode (ECAPA pools through kernels
-  B4a/B4b; LCNN's dropout and ResNet's pooling noise draw from the run's
+  B4a/B4b and the BN pairs take the recompute VJPs, unless
+  ``fused_pool`` / ``fused_bn`` are "off"; LCNN's dropout and ResNet's
+  pooling noise draw from the run's
   seed and the step) in f32 or bf16 (``compute_dtype``; SE-Res2Net50,
   ConvNet and RawNet2 compute in f32 under either, as the JAX registry
   builds them) -> the base loss
@@ -124,10 +126,18 @@ class TrainConfig:
     """The fields of the JAX ``TrainConfig`` that this port reads or refuses
     (``check_supported``), with their defaults, plus ``C`` and
     ``model_scale`` (ECAPA's widths). ``rawnet_args`` are RawNet2's
-    (``RAWNET2_DEFAULT_ARGS`` when None). It always trains through B4a/B4b
-    (ECAPA) and the recompute VJPs, the JAX loop's ``fused_pool``/
-    ``fused_bn``, so those are no fields; ``cli/train.py`` refuses a config
-    file that turns them off."""
+    (``RAWNET2_DEFAULT_ARGS`` when None).
+
+    ``fused_pool`` (ECAPA's attention tail through kernels B4a/B4b) and
+    ``fused_bn`` (every family's train-mode BN pairs through the recompute
+    VJPs of ``ops/bn_relu_vjp.py``) take "auto", "on" or "off", as in the
+    JAX loop. In the port "auto" means "on" on the card and on the CPU:
+    the hand-written path is the port's training path, and on the CPU its
+    kernels' plain versions compute the same functions. The JAX loop's
+    "auto" is "on" only on a TPU, because there its Pallas kernels run
+    compiled and elsewhere only in interpret mode. "off" builds the
+    unfused model (:func:`fused_flags`), the path the JAX loop takes off a
+    TPU; it is reached only by asking for it by name."""
 
     out_fold: str = "./models/try"
     seed: int = 688
@@ -171,6 +181,8 @@ class TrainConfig:
     early_stop_patience: int = 500
     nclasses: int = 2
     compute_dtype: str = "float32"   # "bfloat16": bf16 compute, f32 params
+    fused_pool: str = "auto"         # auto | on | off ("auto" is "on")
+    fused_bn: str = "auto"           # auto | on | off ("auto" is "on")
     on_the_fly: bool = False
     on_device_aug: bool = False
     dev_aug: bool = False
@@ -189,12 +201,30 @@ def _aug_flag(config: TrainConfig) -> bool:
             or config.DFPA_aug)
 
 
+FUSED_VALUES = ("auto", "on", "off")
+
+
+def fused_flags(config: TrainConfig) -> Dict[str, bool]:
+    """The ``build_model`` arguments ``fused_pool`` and ``fused_bn`` for
+    ``config``: True for "auto" and "on", False for "off"."""
+    out = {}
+    for key in ("fused_pool", "fused_bn"):
+        value = getattr(config, key)
+        if value not in FUSED_VALUES:
+            raise ValueError(f"{key} must be one of {FUSED_VALUES}, got "
+                             f"{value!r}")
+        out[key] = value != "off"
+    return out
+
+
 def check_supported(config: TrainConfig) -> None:
-    """Raise ValueError for ADV_AUG without augmented feature files, for
+    """Raise ValueError for a ``fused_pool``/``fused_bn`` value other than
+    auto, on and off, for ADV_AUG without augmented feature files, for
     rawnet from feature files and, as the JAX package does, for rawnet
     with an add-loss and for an on-the-fly feature other than LFCC and
     CQCC (the JAX front-end's refusal)."""
     c = config
+    fused_flags(c)
     if c.model == "rawnet" and c.add_loss is not None:
         raise ValueError(
             "rawnet returns class logits, not an enc_dim embedding; train it "
@@ -322,7 +352,8 @@ def setup_training(config: TrainConfig, steps_per_epoch: int, frontend=None,
             nclasses=1 if config.base_loss == "bce" else config.nclasses,
             feat_dim=config.feat_dim, feat_len=config.feat_len, dtype=dtype,
             generator=gen, device=dev, C=config.C,
-            model_scale=config.model_scale, rawnet_args=config.rawnet_args)
+            model_scale=config.model_scale, rawnet_args=config.rawnet_args,
+            **fused_flags(config))
         loss_mod = build_loss(config.add_loss, enc_dim=config.enc_dim,
                               r_real=config.r_real, r_fake=config.r_fake,
                               alpha=config.alpha, nclasses=config.nclasses,
@@ -599,7 +630,7 @@ def train(config: TrainConfig, train_set=None, dev_set=None, eval_set=None,
             f"no data found under '{source}' "
             f"(train: {len(train_set)}, dev: {len(dev_set)}); expected "
             f"<path>/{{train,dev}}/{config.feat}/*.npy — "
-            "run asvspoof2021_air_tpu.cli.preprocess first")
+            "run asvspoof2021_air_tpu_torch.cli.preprocess first")
 
     monitor = config.add_loss or "base_loss"
     frontend = None

@@ -59,9 +59,14 @@ policy that saves the outputs of convolutions and matrix products
 else (the elementwise and BN chains, the softmax) in the backward, the
 recompute Functions of ``ops/bn_relu_vjp.py``, ``ops/res2_chain_vjp.py``
 and B4a included. The recompute re-runs each BN's running-statistics
-update, so the step restores the statistics the forward left. Other
-values raise ValueError, as in JAX; on the card the K-step CUDA graph
-(``make_multi_step``) refuses it by name. It is a switch kept for parity
+update, so the step restores the statistics the forward left, in place.
+The checkpoint keeps no RNG state (``preserve_rng_state=False``): the
+model's and the augmenter's draws are the step's inputs
+(:func:`step_generator`), so the recompute draws nothing, and reading the
+CUDA generator's state inside a graph capture would raise. So the K-step
+CUDA graph of ``make_multi_step`` captures the checkpointed backward as
+it captures the plain one. Other values raise ValueError, as in JAX. It
+is a switch kept for parity
 with the JAX step's API, set by no CLI flag or ``TrainConfig`` field, and
 it loses on this port: the recompute Functions above already keep only
 their inputs and statistics, so it saves no memory (peak 3.68 GiB with
@@ -134,7 +139,7 @@ def _forward(model: torch.nn.Module, x: torch.Tensor, model_draws,
     from torch.utils.checkpoint import (
         checkpoint, create_selective_checkpoint_contexts)
     return checkpoint(
-        model, *args, use_reentrant=False,
+        model, *args, use_reentrant=False, preserve_rng_state=False,
         context_fn=lambda: create_selective_checkpoint_contexts(
             _conv_dot_policy))
 
@@ -464,12 +469,6 @@ class _GraphedSteps:
     def __call__(self, state: TrainState, batches: Dict[str, torch.Tensor],
                  rng=None, adv_gate: float = 0.0,
                  frontend_params=None) -> Dict[str, torch.Tensor]:
-        if getattr(self.train_step, "remat_policy", None) is not None:
-            raise ValueError(
-                f"remat_policy={self.train_step.remat_policy!r} with "
-                f"steps_per_call={self.n_steps} on the card: the K-step "
-                "CUDA graph does not capture the checkpointed backward; "
-                "run steps_per_call 1")
         if not state.capturable:
             raise ValueError("a CUDA graph of training steps needs a "
                              "capturable TrainState "
@@ -538,7 +537,9 @@ def make_multi_step(train_step: Callable, n_steps: int) -> Callable:
     the augmenter's and the model's draws for its steps into the graph's
     static buffers, writes the learning rates and the gate (constant within
     a call) and replays. The batches must keep their shapes. A kernel launched inside
-    the graph counts its launch once, at the capture. A data-parallel or
+    the graph counts its launch once, at the capture. A step with
+    ``remat_policy="conv_dot"`` is captured with its checkpointed backward
+    (the recompute inside the graph). A data-parallel or
     mesh step's all-reduces are captured with it: NCCL's only (the step's
     ``groups`` over gloo raise ValueError). A failed capture
     raises; nothing falls back to eager steps."""

@@ -251,6 +251,33 @@ Phases, each fatal on failure:
    gradients and BN statistics at phase 4's bars against the plain step,
    each one's ms and ``torch.cuda.max_memory_allocated``.
 
+9. drive the training configurations ported last, at B = 64, T = 750,
+   C = 512 from seeded features: 9a, one ECAPA step with fused_pool and
+   fused_bn off (plain autograd; no B4a/B4b launch) against the fused
+   step from one state, f32 at phase 8c's bars and bf16 at phase 4b's
+   (the losses, every gradient beside the unfused step's spread on the
+   batch reversed, the BN statistics; the attention's two biases, whose
+   gradients are rounding noise, under 1e-4 / 1e-2 of the largest
+   gradient element), both steps' peak memory, their K = 1 ms and the
+   bf16 K = 8 graphs' ms a step, in turns; 9b, ``remat_policy=
+   "conv_dot"`` through the K = 8 CUDA graph in bf16 (B4a/B4b under
+   ``train_conv_dot_graph``), 8 replayed against 8 eager steps
+   (``check_replay``); 9c, ``fused_chain`` inside the data-parallel K = 8
+   bf16 graph over NCCL at world size 1 (B4a/B4b under
+   ``train_dp_fused_chain``) against the one-process ``fused_chain``
+   graph, replays from one state, cuDNN deterministic, at
+   ``check_replay``'s bars; 9d, the ECAPA variant ``context=False``,
+   ``encoder_type="SAP"``, ``out_bn=False``: its f32 eval forward on the
+   card against the CPU's on 8 utterances (1e-4 of the largest) and its
+   recompute-VJP training step (no B4a/B4b launch: a one-channel
+   attention never fuses) against the plain autograd step at phase 8c's
+   bars.
+
+Every profile prints the device's busy share as the union of the profiled
+call's device intervals over its window (CUDA events inside the profiled
+call), beside the former reading (summed device time over a window timed
+apart).
+
 The native codec library is built from ``native/augment`` after the
 kernels, its time printed. Each phase's seconds are printed.
 
@@ -372,21 +399,52 @@ B3_PASSES = (
 )
 
 
+def union_us(intervals) -> float:
+    """The length of the union of (start, end) intervals."""
+    total, reach = 0.0, float("-inf")
+    for a, b in sorted(intervals):
+        if b > reach:
+            total += b - max(a, reach)
+            reach = b
+    return total
+
+
+def _annotation(ev) -> bool:
+    """A range that annotates the device's timeline (such as
+    ``Optimizer.step#Adam.step``), not device work."""
+    return (bool(getattr(ev, "is_user_annotation", False))
+            or ev.key.startswith(("Optimizer.", "ProfilerStep#")))
+
+
 def profile_device(torch, fn, fn_ms: float, what: str,
                    kernel_groups=KERNEL_GROUPS):
     """Device time of one call of fn by kernel group (torch.profiler, device
     events only: kernels, copies and sets, not the ranges that annotate
-    them on the device's timeline, such as ``Optimizer.step#Adam.step``),
-    and the device's busy share: that time over the call's CUDA-event time
-    ``fn_ms`` measured without the profiler."""
+    them on the device's timeline), and the device's busy share: the union
+    of those events' intervals over the call's window, timed by CUDA
+    events recorded inside the profiled call (the window taken as at least
+    the span from the first event's start to the last one's end, so that
+    the share is at most 100%). Beside it the former reading: the events'
+    summed time over ``fn_ms``, the call's CUDA-event time measured apart
+    without the profiler, which counts overlapping kernels twice and
+    divides by a window the profiler did not slow."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        start.record()
         fn()
+        stop.record()
         torch.cuda.synchronize()
+    window_ms = start.elapsed_time(stop)
+    intervals = [(ev.time_range.start, ev.time_range.end)
+                 for ev in prof.events()
+                 if str(getattr(ev, "device_type", "")).endswith("CUDA")
+                 and not _annotation(ev)]
     other = "other (elementwise, reductions, copies)"
     groups = {name: 0.0 for name, _ in kernel_groups}
     groups[other] = 0.0
@@ -395,8 +453,7 @@ def profile_device(torch, fn, fn_ms: float, what: str,
         if not str(getattr(ev, "device_type", "")).endswith("CUDA"):
             continue
         us = float(getattr(ev, "self_device_time_total", 0.0) or 0.0)
-        if (getattr(ev, "is_user_annotation", False)
-                or ev.key.startswith(("Optimizer.", "ProfilerStep#"))):
+        if _annotation(ev):
             ranges.append(f"{ev.key} {us / 1e3:.3f} ms")
             continue
         kernels.append((us, ev.count, ev.key))
@@ -407,14 +464,26 @@ def profile_device(torch, fn, fn_ms: float, what: str,
                 break
         else:
             groups[other] += us
-    busy = sum(groups.values()) / 1e3
-    print(f"profile of one {what}: kernels {busy:.3f} ms of the "
-          f"{fn_ms:.3f} ms {what} = device busy {100 * busy / fn_ms:.1f}%")
+    summed = sum(groups.values()) / 1e3
+    union = union_us(intervals) / 1e3
+    span = ((max(b for _, b in intervals) - min(a for a, _ in intervals))
+            / 1e3 if intervals else 0.0)
+    window = max(window_ms, span)
+    busy = 100 * union / window if window > 0 else 0.0
+    print(f"profile of one {what}: device busy {busy:.1f}% = the union of "
+          f"{len(intervals)} device intervals, {union:.3f} ms, over the "
+          f"profiled call's window {window:.3f} ms (CUDA events inside the "
+          f"profiled call {window_ms:.3f} ms, device events' span "
+          f"{span:.3f} ms); former reading {100 * summed / fn_ms:.1f}% "
+          f"(summed device time {summed:.3f} ms over the {fn_ms:.3f} ms "
+          f"{what} timed without the profiler)")
+    check(busy <= 100.0, f"busy share of one {what}: {busy}")
     for name, us in sorted(groups.items(), key=lambda kv: -kv[1]):
         print(f"  {name}: {us / 1e3:.3f} ms")
     print(f"  annotation ranges left out: {ranges or 'none'}")
     for us, count, key in sorted(kernels, reverse=True)[:12]:
         print(f"    {us / 1e3:8.3f} ms  x{count:<4d} {key[:90]}")
+    return busy
 
 
 def kernel_checks(torch, gen):
@@ -1504,11 +1573,12 @@ def bn_ulp_bars(torch, model, before, after, eps: float):
 
 
 def check_replay(torch, m_graph, after_graph, m_eager, after_eager,
-                 start: int, k: int, what: str) -> None:
-    """K graph-replayed steps against K eager steps from one state: the
-    metrics and every tensor of the two states after them (model, center,
-    classifiers, every Adam state), rtol 1e-6, atol 1e-9 (phases 4b,
-    4c)."""
+                 start: int, k: int, what: str,
+                 against: str = "eager steps") -> None:
+    """K graph-replayed steps against K eager steps (or the K steps
+    ``against`` names) from one state: the metrics and every tensor of the
+    two states after them (model, center, classifiers, every Adam state),
+    rtol 1e-6, atol 1e-9 (phases 4b, 4c)."""
     pairs = [(f"metric {n}", m_graph[n], torch.stack([m[n] for m in
                                                       m_eager]))
              for n in m_graph]
@@ -1526,7 +1596,7 @@ def check_replay(torch, m_graph, after_graph, m_eager, after_eager,
     worst = max((float(((a.double() - b.double()).abs()
                          / b.double().abs().clamp(min=1e-30)).max()),
                  name) for name, a, b in pairs)
-    print(f"{k} graph-replayed steps vs {k} eager steps of {what}: "
+    print(f"{k} graph-replayed steps vs {k} {against} of {what}: "
           f"{bitwise} of {len(pairs)} tensors bitwise equal; largest "
           f"relative difference {worst[0]:.3e} ({worst[1]}) (bar rtol "
           f"1e-6, atol 1e-9)")
@@ -4757,6 +4827,372 @@ def fused_chain_steps(torch, gpu: str) -> None:
 
 
 
+# ---------------------------------------------------------------- phase 9
+
+
+def ecapa_state(torch, sd, center, dtype=None, capturable=False, **model_kw):
+    """An ECAPA-TDNN-512 + OC-Softmax train state on the card holding the
+    weights ``sd`` and the loss center ``center``; ``model_kw`` are the
+    model's flags (fused_pool, fused_bn, fused_chain, the variant
+    fields)."""
+    from asvspoof2021_air_tpu_torch.losses.one_class import OCSoftmax
+    from asvspoof2021_air_tpu_torch.models.ecapa import ECAPA_TDNN
+    from asvspoof2021_air_tpu_torch.train.state import (
+        create_train_state, step_decay_schedule)
+
+    # the rate halves every 30 epochs of 10 steps: constant over a phase's
+    # steps, as a K-step graph holds it constant within a call
+    st = create_train_state(
+        ECAPA_TDNN(C=C, dtype=dtype, device=DEVICE, **model_kw),
+        OCSoftmax(feat_dim=256, device=DEVICE),
+        step_decay_schedule(5e-4, 0.5, 30, 10),
+        capturable=capturable and DEVICE == "cuda")
+    st.model.load_state_dict(sd)
+    with torch.no_grad():
+        st.loss_module.center.copy_(center)
+    return st
+
+
+NOISE = ("attention.2.bias", "attention.3.bias")
+
+
+def check_step_pair(torch, what: str, tag: str, ref, got, rev, model,
+                    before) -> None:
+    """One training step ``got`` against ``ref`` from the same state and
+    batch (each a :func:`step_record`); ``rev`` is ``got``'s function on
+    the batch with its rows reversed (its own spread). f32: phase 8c's
+    bars (loss rtol 1e-4, each gradient's error norm within 1e-2 of its
+    tensor's, BN statistics rtol 1e-4 / atol 1e-5); bf16: phase 4b's
+    (loss rtol 2^-8, gradients within max(1e-2, 4 x ``rev``'s error norm),
+    BN statistics rtol 2^-8 / atol 1e-5 or one input ulp,
+    ``bn_ulp_bars``). The attention's two biases shift every frame's
+    logits of a channel by one value, which the softmax over T cancels:
+    their gradients are rounding noise, held under 1e-4 (f32) or 1e-2
+    (bf16) of the largest gradient element in both steps."""
+    m_r, g_r, s_r = ref["metrics"], ref["grads"], ref["running"]
+    m_g, g_g, s_g = got["metrics"], got["grads"], got["running"]
+    g_v = rev["grads"]
+    rtol = 1e-4 if tag == "f32" else 2.0 ** -8
+    before = {k: v.to(DEVICE) for k, v in before.items()
+              if k.endswith(RUNNING)}
+    for k in m_r:
+        print(f"9 {what} [{tag}]: {k} {m_g[k]:.7f} vs {m_r[k]:.7f} (rtol "
+              f"{rtol:.2e})")
+        check(abs(m_g[k] - m_r[k]) <= rtol * abs(m_r[k]),
+              f"9 {what} {tag} {k}: {m_g[k]} vs {m_r[k]}")
+    top = max(float(g.abs().max()) for g in g_r.values())
+    noise_bar = 1e-4 if tag == "f32" else 1e-2
+    for n in NOISE:
+        if n in g_r:
+            noise = max(float(g_g[n].abs().max()),
+                        float(g_r[n].abs().max())) / top
+            print(f"9 {what} [{tag}]: {n} gradient {noise:.3e} of the "
+                  f"largest gradient element (bar {noise_bar:.0e})")
+            check(noise <= noise_bar, f"9 {what} {tag} {n}: {noise}")
+    names = [n for n in g_r if n not in NOISE and g_r[n].norm() > 0]
+
+    def norm_err(a, b):
+        return max((float((a[n] - b[n]).norm() / b[n].norm()), n)
+                   for n in names)
+
+    worst, spread = norm_err(g_g, g_r), norm_err(g_v, g_g)
+    bar = 1e-2 if tag == "f32" else max(1e-2, 4 * spread[0])
+    print(f"9 {what} [{tag}]: largest gradient error norm {worst[0]:.3e} "
+          f"({worst[1]}; bar {bar:.3e}); its own step on the reversed "
+          f"batch {spread[0]:.3e} ({spread[1]})")
+    check(worst[0] <= bar, f"9 {what} {tag} gradients: {worst}")
+    for n in g_r:
+        if n not in NOISE and float(g_r[n].abs().max()) == 0:
+            check(bool((g_g[n] == 0).all()), f"9 {what} {n} not zero")
+    ulp = bn_ulp_bars(torch, model, before, s_r,
+                      2.0 ** -23 if tag == "f32" else 2.0 ** -7)
+    worst_stat = max((max_err(s_g[k], s_r[k]), k) for k in s_r)
+    print(f"9 {what} [{tag}]: BN statistics largest difference "
+          f"{worst_stat[0]:.3e} ({worst_stat[1]}; rtol {rtol:.2e}, atol "
+          "1e-5, or one input ulp)")
+    for k in s_r:
+        limit = rtol * s_r[k].abs() + 1e-5
+        if tag != "f32":
+            limit = torch.maximum(limit, ulp[k])
+        check(bool(((s_g[k] - s_r[k]).abs() <= limit).all()),
+              f"9 {what} {tag} BN statistic {k}")
+
+
+def unfused_steps(torch, gpu: str, sd, center, batch):
+    """9a: one ECAPA-TDNN-512 training step with fused_pool and fused_bn
+    off (plain autograd, no B4a/B4b) against the fused step from the same
+    state and batch, f32 and bf16; both steps' peak memory and ms in turns
+    (fused, unfused, unfused, fused), and the bf16 K = 8 graphs of both in
+    turns: the hand-written path's yardstick, each step's device work with
+    the host's launches out of the way."""
+    from asvspoof2021_air_tpu_torch.train.steps import (
+        StepConfig, make_multi_step, make_train_step)
+
+    flip = {k: v.flip(0) for k, v in batch.items()}
+    turns = ("fused", "unfused", "unfused", "fused")
+    times, peaks = {}, {}
+    for tag, dtype in (("f32", None), ("bf16", torch.bfloat16)):
+        recs, kept = {}, {}
+        for name, fused, b in (("fused", True, batch),
+                               ("unfused", False, batch),
+                               ("unfused reversed", False, flip)):
+            st = ecapa_state(torch, sd, center, dtype, fused_pool=fused,
+                             fused_bn=fused)
+            step = make_train_step(StepConfig(add_loss="ang_iso"),
+                                   device=DEVICE)
+            sync(torch)
+            zero_counts()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            m = step(st, b)
+            sync(torch)
+            peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+            counts = kernel_counts()
+            recs[name] = step_record(torch, st, m)
+            if name != "unfused reversed":
+                check(counts["B4a"] == counts["B4b"] == int(fused),
+                      f"9a {tag} {name} step launches {counts}")
+                kept[name] = (st, step)
+                peaks[(tag, name)] = (peak, counts)
+        check_step_pair(torch, "9a unfused vs fused step", tag,
+                        recs["fused"], recs["unfused"],
+                        recs["unfused reversed"], st.model, sd)
+        for name in turns:
+            st, step = kept[name]
+            times.setdefault((f"{tag} K=1", name), []).append(time_ms(
+                torch, lambda: step(st, batch), iters=3, warmup=1))
+        del st, step, kept
+    K = 8
+    stacked = stack_batches(torch, graph_batches(torch, K, 99))
+    graphs = {}
+    for name in ("fused", "unfused"):
+        st = ecapa_state(torch, sd, center, torch.bfloat16, capturable=True,
+                         fused_pool=name == "fused",
+                         fused_bn=name == "fused")
+        multi = make_multi_step(make_train_step(
+            StepConfig(add_loss="ang_iso"), device=DEVICE), K)
+        multi(st, stacked)                      # eager K steps, capture
+        graphs[name] = (st, multi)
+    for name in turns:
+        st, multi = graphs[name]
+        times.setdefault((f"bf16 K={K} graph", name), []).append(time_ms(
+            torch, lambda: multi(st, stacked), iters=2, warmup=0) / K)
+    del st, multi, graphs
+    for (tag, name), (peak, counts) in peaks.items():
+        print(f"9a {tag} training step {name} [{gpu}] (ECAPA-TDNN-512, "
+              f"B={B}, T={T}, from features): peak {peak:.2f} GiB above "
+              f"the state (torch.cuda.max_memory_allocated); B4a/B4b "
+              f"launches {counts['B4a']}/{counts['B4b']}")
+    for (what, name), ms in times.items():
+        print(f"9a {what} step {name} [{gpu}] (B={B}, T={T}; CUDA events, "
+              f"in turns fused, unfused, unfused, fused): "
+              f"{' '.join(f'{t:.3f}' for t in ms)} ms = "
+              f"{B / float(np.mean(ms)) * 1e3:.1f} utt/s")
+
+
+def graph_batches(torch, n: int, seed: int):
+    """``n`` seeded feature batches (B, T, 60) with alternating labels."""
+    g = torch.Generator().manual_seed(seed)
+    return [{"feat": torch.randn(B, T, 60, generator=g),
+             "label": torch.arange(B) % 2} for _ in range(n)]
+
+
+def stack_batches(torch, bs):
+    return {k: torch.stack([b[k] for b in bs]) for k in bs[0]}
+
+
+def conv_dot_graph(torch, gpu: str, entries, sd, center):
+    """9b: ``remat_policy="conv_dot"`` through ``make_multi_step`` at K =
+    8 on the card, bf16: the first call's 8 eager steps and the capture,
+    then 8 graph-replayed steps against 8 eager steps from one state
+    (``check_replay``, cuDNN deterministic)."""
+    from asvspoof2021_air_tpu_torch.train.steps import (
+        StepConfig, make_multi_step, make_train_step)
+
+    K = 8
+    fb = graph_batches(torch, 2 * K, 95)
+    st = ecapa_state(torch, sd, center, torch.bfloat16, capturable=True,
+                     fused_pool=True)
+    step = make_train_step(StepConfig(add_loss="ang_iso",
+                                      remat_policy="conv_dot"),
+                           device=DEVICE)
+    multi = make_multi_step(step, K)
+    torch.backends.cudnn.deterministic = True
+    sync(torch)
+    zero_counts()
+    multi(st, stack_batches(torch, fb[:K]))      # eager K steps, capture
+    sync(torch)
+    counts = kernel_counts()
+    # the state after them, Adam's moments included, is the start of both
+    # runs below (a state with no Adam state yet would drop the captured
+    # moments when loaded)
+    live = copy.deepcopy(st.state_dict())
+    # each step's forward launches B4a, and the checkpoint's recompute
+    # launches it again in the backward; on the card the capture counts
+    # its K steps' launches once (on the CPU the K steps are a loop)
+    steps = 2 * K if DEVICE == "cuda" else K
+    print(f"9b conv_dot K={K}: {K} eager steps and the capture of {K} "
+          f"launched {counts}")
+    check(counts["B4b"] == steps and counts["B4a"] == 2 * steps,
+          f"9b launch counts {counts}")
+    add_counts(entries, "train_conv_dot_graph", counts)
+    st.load_state_dict(live)
+    m_graph = multi(st, stack_batches(torch, fb[K:]))
+    after_graph = copy.deepcopy(st.state_dict())
+    st.load_state_dict(live)
+    m_eager = [step(st, b) for b in fb[K:]]
+    after_eager = st.state_dict()
+    torch.backends.cudnn.deterministic = False
+    check_replay(torch, m_graph, after_graph, m_eager, after_eager,
+                 live["step"], K, "the conv_dot step (checkpointed "
+                 "backward captured)")
+
+
+def fused_chain_dp_graph(torch, gpu: str, entries, sd, center):
+    """9c: ``fused_chain`` inside the data-parallel K = 8 graph over NCCL
+    at world size 1 (phase 7a's set-up) against the one-process
+    ``fused_chain`` graph, bf16, cuDNN deterministic: each captured after
+    its first call's 8 eager steps, then both replayed from one state
+    (the one-process run's after its first call) on the same 8 batches.
+    At world 1 the group's sums over n are the batch means, so the two
+    replays must agree as a replay agrees with eager steps
+    (``check_replay``'s bars: every metric and every tensor of the two
+    states rtol 1e-6, atol 1e-9). Without deterministic cuDNN two runs
+    of one function part by a few percent of the loss within 8 Adam
+    steps from these random weights, so no looser bar would tell a fault
+    from noise."""
+    import torch.distributed as dist
+
+    from asvspoof2021_air_tpu_torch.parallel import (
+        initialize_distributed, make_mesh)
+    from asvspoof2021_air_tpu_torch.train.steps import (
+        StepConfig, make_multi_step, make_train_step)
+
+    K = 8
+    fb = graph_batches(torch, 2 * K, 96)
+    initialize_distributed(f"127.0.0.1:{_free_port()}", 1, 0, device=DEVICE)
+    check(DEVICE != "cuda" or dist.get_backend() == "nccl", "9c: not NCCL")
+    out = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        group = make_mesh(DEVICE).group()
+        for name, data_group in (("one process", None),
+                                 ("data parallel", group)):
+            st = ecapa_state(torch, sd, center, torch.bfloat16,
+                             capturable=True, fused_pool=True,
+                             fused_chain=True)
+            step = make_train_step(StepConfig(add_loss="ang_iso"),
+                                   device=DEVICE, data_group=data_group)
+            multi = make_multi_step(step, K)
+            sync(torch)
+            zero_counts()
+            multi(st, stack_batches(torch, fb[:K]))
+            sync(torch)
+            counts = kernel_counts()
+            steps = 2 * K if DEVICE == "cuda" else K
+            check(counts["B4a"] == counts["B4b"] == steps,
+                  f"9c {name} launch counts {counts}")
+            if data_group is None:
+                live = copy.deepcopy(st.state_dict())
+            else:
+                add_counts(entries, "train_dp_fused_chain", counts)
+            st.load_state_dict(live)
+            m = multi(st, stack_batches(torch, fb[K:]))
+            out[name] = ({k: v.clone() for k, v in m.items()},
+                         copy.deepcopy(st.state_dict()))
+            del st, step, multi
+    finally:
+        torch.backends.cudnn.deterministic = False
+        dist.destroy_process_group()
+    (m1, s1), (m2, s2) = out["one process"], out["data parallel"]
+    check_replay(torch, m2, s2, [{k: v[i] for k, v in m1.items()}
+                                 for i in range(K)], s1, live["step"], K,
+                 "fused_chain, the data-parallel graph over NCCL at world "
+                 "1", against="replayed steps of the one-process graph")
+
+
+VARIANT = dict(context=False, encoder_type="SAP", out_bn=False)
+
+
+def variant_step(torch, gpu: str):
+    """9d: the ECAPA variant ``context=False``, a non-"ECA" encoder (one
+    attention channel) and ``out_bn=False``, f32, from seeded weights in
+    its own tree: its eval forward on the card against the same forward
+    on the CPU for the first 8 utterances (1e-4 of the largest value),
+    and its training step (the recompute VJPs; the one-channel attention
+    pools without B4a/B4b, as JAX's rule says) against the plain
+    autograd step (fused_bn off) at phase 8c's bars."""
+    from asvspoof2021_air_tpu_torch.interop.flax_weights import (
+        from_flax_variables, random_flax_variables)
+    from asvspoof2021_air_tpu_torch.models.ecapa import ECAPA_TDNN
+    from asvspoof2021_air_tpu_torch.train.steps import (
+        StepConfig, make_train_step)
+
+    sd = from_flax_variables(random_flax_variables(
+        97, C=C, model_scale=8, enc_dim=256, model_kwargs=VARIANT),
+        model_scale=8)
+    g = torch.Generator().manual_seed(98)
+    feats = torch.randn(B, T, 60, generator=g)
+    center = torch.rand(1, 256, generator=g) * 2 - 1
+    batch = {"feat": feats.to(DEVICE), "label": torch.arange(B) % 2}
+    outs = []
+    for dev, x in ((DEVICE, batch["feat"][:8]), ("cpu", feats[:8])):
+        m = ECAPA_TDNN(C=C, device=dev, **VARIANT).eval()
+        m.load_state_dict(sd)
+        with torch.no_grad():
+            outs.append([t.cpu() for t in m(x)])
+        del m
+    errs = [max_err(a, b) / float(b.abs().max())
+            for a, b in zip(outs[0], outs[1])]
+    print(f"9d variant {VARIANT} eval forward [{gpu}] vs the CPU (8 "
+          f"utterances, f32): embedding {errs[0]:.3e}, logits "
+          f"{errs[1]:.3e} of the largest value (bar 1e-4)")
+    check(max(errs) <= 1e-4, f"9d variant eval forward {errs}")
+    recs = {}
+    flip = {k: v.flip(0) for k, v in batch.items()}
+    for name, fused, b in (("plain", False, batch),
+                           ("recompute VJPs", True, batch),
+                           ("recompute VJPs reversed", True, flip)):
+        st = ecapa_state(torch, sd, center, fused_pool=True,
+                         fused_bn=fused, **VARIANT)
+        step = make_train_step(StepConfig(add_loss="ang_iso"),
+                               device=DEVICE)
+        sync(torch)
+        zero_counts()
+        m = step(st, b)
+        sync(torch)
+        counts = kernel_counts()
+        check(counts["B4a"] == counts["B4b"] == 0,
+              f"9d {name}: a one-channel attention launched {counts}")
+        recs[name] = step_record(torch, st, m)
+    check_step_pair(torch, "9d variant step vs plain", "f32",
+                    recs["plain"], recs["recompute VJPs"],
+                    recs["recompute VJPs reversed"], st.model, sd)
+
+
+def remaining_configs_path(torch, gpu: str, entries):
+    """Phase 9: the training configurations ported last (9a-9d)."""
+    from asvspoof2021_air_tpu_torch.interop.flax_weights import (
+        from_flax_variables, random_flax_variables)
+
+    sd = from_flax_variables(random_flax_variables(
+        93, C=C, model_scale=8, enc_dim=256), model_scale=8)
+    g = torch.Generator().manual_seed(94)
+    batch = {"feat": torch.randn(B, T, 60, generator=g).to(DEVICE),
+             "label": torch.arange(B) % 2}
+    center = torch.rand(1, 256, generator=g) * 2 - 1
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        fn(torch, gpu, *args)
+        print(f"phase {name}: {time.perf_counter() - t0:.1f} s")
+
+    timed("9a", unfused_steps, sd, center, batch)
+    timed("9b", conv_dot_graph, entries, sd, center)
+    timed("9c", fused_chain_dp_graph, entries, sd, center)
+    timed("9d", variant_step)
+
+
 def main() -> int:
     try:
         import torch
@@ -4806,6 +5242,7 @@ def main() -> int:
     phase("6", int8_export_path, torch, gpu, entries, fwd_ms)
     phase("7", data_parallel_path, torch, gpu, entries, bf16_ms)
     phase("8", degraded_corpus_path, torch, gpu, entries)
+    phase("9", remaining_configs_path, torch, gpu, entries)
     print(f"phase seconds: { {k: round(v, 1) for k, v in seconds.items()} }")
 
     kernels = []
@@ -4820,7 +5257,8 @@ def main() -> int:
             "train_ensemble", "train_ensemble_otf", "score_ensemble",
             "serve_int8", "export", "train_dp", "score_dp",
             "train_member_dp", "train_member_data_dp", "preprocess_aug",
-            "train_laaug", "score_laaug")
+            "train_laaug", "score_laaug", "train_conv_dot_graph",
+            "train_dp_fused_chain")
             if f"launches_{p}" in e}
         launches = sum(by_path.values())
         print(f"{e['name']} [{gpu}]: max_abs_err {e['max_abs_err']:.3e}, "

@@ -14,7 +14,13 @@ with ``fused_chain`` at ``test_ecapa_train_mode_matches_jax``'s bars. The
 ``conv_dot`` step against the port's step without it: bitwise on the CPU
 (the recompute repeats the forward's ops in the same order) over two
 steps; and a 4-step ``conv_dot`` (and ``fused_chain``) trajectory against
-JAX's at the f32 trajectory bars of ``tests/test_torch_train.py``."""
+JAX's at the f32 trajectory bars of ``tests/test_torch_train.py``. The
+fused chain inside a data-parallel BN group (2 gloo ranks) against the
+one-process step at ``tests/test_torch_parallel.py``'s bars, and
+``conv_dot`` through ``make_multi_step`` at K = 2 against two single
+steps, bitwise."""
+
+import copy
 
 import numpy as np
 import pytest
@@ -34,6 +40,8 @@ from asvspoof2021_air_tpu_torch.train.state import (
     create_train_state, step_decay_schedule)
 from asvspoof2021_air_tpu_torch.train.steps import (
     StepConfig, make_multi_step, make_train_step)
+import torch_parallel_workers as W
+from test_torch_parallel import assert_step_matches
 from test_torch_train import (
     B, ENC, SCALE, T, _jmodel, _params_only, _port_model,
     check_ecapa_trajectory, ecapa_trajectory)
@@ -128,12 +136,33 @@ def test_eval_path_unchanged():
         assert torch.equal(plain.eval()(x), fused.eval()(x))
 
 
-def test_fused_chain_refused_under_a_data_parallel_group(monkeypatch):
-    import asvspoof2021_air_tpu_torch.ops.res2_chain_vjp as rv
-    monkeypatch.setattr(rv, "current_group", lambda: object())
-    _plain, fused, x = _blocks()
-    with pytest.raises(ValueError, match="fused_chain"):
-        fused.train()(x)
+def test_fused_chain_refused_under_a_data_parallel_group(tmp_path):
+    """``fused_chain`` is no longer refused inside a data-parallel BN
+    group: one ECAPA ang_iso step with ``fused_chain`` on 2 gloo ranks of
+    8 rows (``tests/torch_parallel_workers.run_fused_chain``) against the
+    one-process step on the global 16, at
+    ``tests/test_torch_parallel.py``'s bars (``assert_step_matches``:
+    metrics rtol 1e-6, each all-reduced gradient's error norm within
+    max(1e-5, 4 x the one-process step's own spread with the batch
+    reversed) of its norm, BN statistics 1e-5 of each tensor's largest
+    value past 1); the chain's statistics are the global batch's."""
+    start = W.fused_chain_state().state_dict()
+    batch = W.feature_batches(1, seed=5)[0]
+    ranks = W.Ranks("run_fused_chain", 2, str(tmp_path), start=start,
+                    batch=batch)
+    out = []
+    for rows in (slice(None), slice(None, None, -1)):
+        st = W.fused_chain_state(start)
+        step = make_train_step(StepConfig(add_loss="ang_iso"), device="cpu")
+        m = step(st, W.tensors({k: np.ascontiguousarray(v[rows])
+                                for k, v in batch.items()}))
+        out.append((W.host(m), W.host(W.grads(st)), W.host(W.running(st))))
+    (metrics, grads, running), (_, rev, _) = out
+    spread = {n: np.linalg.norm(rev[n] - g) / max(np.linalg.norm(g), 1e-30)
+              for n, g in grads.items()}
+    for r in ranks.join(120):
+        assert_step_matches(r, metrics, grads, running, spread,
+                            "fused_chain data parallel")
 
 
 def test_ecapa_fused_chain_train_mode_matches_jax():
@@ -212,11 +241,14 @@ def test_conv_dot_step_equals_the_plain_step(fused_chain):
             assert torch.equal(got_sd["optimizer"][k][name], t), (k, name)
 
 
-def test_conv_dot_recomputes_and_other_policies_raise(monkeypatch):
+def test_conv_dot_recomputes_and_other_policies_raise():
     """The checkpoint does recompute (each block's forward runs twice in
     a ``conv_dot`` step), a policy other than ``conv_dot`` raises
-    ValueError as the JAX step does, and the K-step graph refuses the
-    policy by name on the card (checked before any capture)."""
+    ValueError as the JAX step does, and ``make_multi_step`` runs the
+    policy at K = 2 (on the CPU a loop; on the card the K-step graph
+    captures it, ``chip_smoke.py`` phase 9b): its two steps against two
+    single ``conv_dot`` steps from the same state, metrics and every
+    tensor of the state bitwise."""
     calls = {"n": 0}
     st = create_train_state(_port_model(), OCSoftmax(feat_dim=ENC,
                                                      device="cpu"),
@@ -229,11 +261,27 @@ def test_conv_dot_recomputes_and_other_policies_raise(monkeypatch):
     assert calls["n"] == 2
     with pytest.raises(ValueError, match="full"):
         make_train_step(StepConfig(remat_policy="full"), device="cpu")
+    g = torch.Generator().manual_seed(3)
+    batches = {"feat": torch.randn(2, B, T, 60, generator=g),
+               "label": torch.stack([torch.arange(B) % 2] * 2)}
+    start = copy.deepcopy(st.state_dict())
     multi = make_multi_step(step, 2)
-    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
-    with pytest.raises(ValueError, match="remat_policy"):
-        multi(st, {"feat": torch.randn(2, B, T, 60),
-                   "label": torch.zeros(2, B)})
+    m_multi = multi(st, batches)
+    after_multi = copy.deepcopy(st.state_dict())
+    st.load_state_dict(start)
+    m_single = [step(st, {k: v[i] for k, v in batches.items()})
+                for i in range(2)]
+    after_single = st.state_dict()
+    assert after_multi["step"] == after_single["step"] == start["step"] + 2
+    for k in m_multi:
+        assert torch.equal(m_multi[k], torch.stack([m[k] for m in
+                                                    m_single])), k
+    for part in ("model", "loss_module"):
+        for k, v in after_single[part].items():
+            assert torch.equal(after_multi[part][k], v), (part, k)
+    for k, v in after_single["optimizer"].items():
+        for name, t in v.items():
+            assert torch.equal(after_multi["optimizer"][k][name], t), k
 
 
 @pytest.mark.parametrize("remat_policy,fused_chain", [

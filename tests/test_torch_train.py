@@ -55,15 +55,16 @@ LR = 5e-4
 disable_tf32()
 
 
-def _jmodel(fused_chain: bool = False):
+def _jmodel(fused_chain: bool = False, fused: bool = True):
+    """The JAX model with fused_pool and fused_bn both ``fused``."""
     return JECAPA(C=C, model_scale=SCALE, n_out=2, n_feat=60, enc_dim=ENC,
-                  fused_pool=True, pool_interpret=True, fused_bn=True,
+                  fused_pool=fused, pool_interpret=fused, fused_bn=fused,
                   fused_chain=fused_chain)
 
 
-def _port_model(fused_chain: bool = False):
-    return ECAPA_TDNN(C=C, model_scale=SCALE, enc_dim=ENC, fused_pool=True,
-                      device="cpu", fused_chain=fused_chain)
+def _port_model(fused_chain: bool = False, fused: bool = True):
+    return ECAPA_TDNN(C=C, model_scale=SCALE, enc_dim=ENC, fused_pool=fused,
+                      fused_bn=fused, device="cpu", fused_chain=fused_chain)
 
 
 def _params_only(sd):
@@ -152,9 +153,18 @@ def test_ecapa_train_mode_matches_jax():
     (conv1.weight), where the JAX package's own eager and jitted gradients
     differ by 0.85x it; with the scaled atol the port's worst is 0.05x
     (tests/torch_ecapa_grad_floor.py prints these readings)."""
+    check_ecapa_train_mode()
+
+
+def check_ecapa_train_mode(fused: bool = True) -> None:
+    """The checks of ``test_ecapa_train_mode_matches_jax`` with
+    fused_pool and fused_bn both ``fused`` in each package. The fused
+    pooling's Function gives ``attention.3``'s bias an exact zero
+    gradient; the unfused softmax over T gives it rounding noise, held
+    by the gradients' atol."""
     feats = np.random.default_rng(11).standard_normal((B, T, 60)).astype(
         np.float32)
-    model = _jmodel()
+    model = _jmodel(fused=fused)
     v = jax.tree.map(np.asarray, model.init(
         {"params": jax.random.PRNGKey(0)}, jnp.asarray(feats), False))
 
@@ -168,7 +178,7 @@ def test_ecapa_train_mode_matches_jax():
         return jax.grad(loss, has_aux=True)(params)
 
     grads, (emb, logits, mut) = fwd_grad(v["params"])
-    port = _port_model().train()
+    port = _port_model(fused=fused).train()
     port.load_state_dict(from_flax_variables(v, SCALE))
     pe, pl = port(torch.from_numpy(feats))
     (pe.pow(2).sum() + pl.pow(2).sum()).backward()
@@ -191,7 +201,8 @@ def test_ecapa_train_mode_matches_jax():
         atol = 2e-4 * max(1.0, float(np.abs(w).max()))
         np.testing.assert_allclose(p.grad.numpy(), w, rtol=5e-3, atol=atol,
                                    err_msg=n)
-    assert torch.all(port.attention[3].bias.grad == 0.0)
+    if fused:
+        assert torch.all(port.attention[3].bias.grad == 0.0)
 
 
 WARM, K = 2, 4
@@ -202,18 +213,20 @@ def trajectory():
     return ecapa_trajectory()
 
 
-def ecapa_trajectory(remat_policy=None, fused_chain: bool = False):
+def ecapa_trajectory(remat_policy=None, fused_chain: bool = False,
+                     fused: bool = True):
     """WARM JAX steps from init (so the Adam moments and the count are
     non-trivial), the state carried across by from_flax_train_state, then
     K steps in each package on the same batches. The learning rate halves
     every 2 steps (steps_per_epoch 2, interval 1), so the schedule changes
     inside the K steps. ``remat_policy`` and ``fused_chain`` are set in
-    both packages' K steps (the JAX step's and model's switches)."""
+    both packages' K steps (the JAX step's and model's switches), and so
+    are fused_pool and fused_bn (``fused``), the warm steps too."""
     g = np.random.default_rng(0)
     labels = (np.arange(B) % 2).astype(np.int32)
     feats = g.standard_normal((WARM + K, B, T, 60)).astype(np.float32)
     feats += 0.5 * labels[None, :, None, None]
-    model = _jmodel()
+    model = _jmodel(fused=fused)
     loss_mod = build_loss("ang_iso", enc_dim=ENC, r_real=0.9, r_fake=0.2,
                           alpha=20.0)
     sched = jstate.step_decay_schedule(LR, 0.5, 1, 2)
@@ -232,7 +245,7 @@ def ecapa_trajectory(remat_policy=None, fused_chain: bool = False):
         state, _ = step(state, batch(s), key)
     start = from_flax_train_state(jax.device_get(state), SCALE)
     if remat_policy is not None or fused_chain:
-        model = _jmodel(fused_chain)
+        model = _jmodel(fused_chain, fused)
         step = jax.jit(j_make_step(model, loss_mod, btx, ltx, JStepConfig(
             add_loss="ang_iso", remat_policy=remat_policy)))
     j_losses = []
@@ -242,7 +255,7 @@ def ecapa_trajectory(remat_policy=None, fused_chain: bool = False):
     end = from_flax_train_state(jax.device_get(state), SCALE)
 
     pstate = create_train_state(
-        _port_model(fused_chain), OCSoftmax(
+        _port_model(fused_chain, fused), OCSoftmax(
             feat_dim=ENC, r_real=0.9, r_fake=0.2, alpha=20.0, device="cpu"),
         step_decay_schedule(LR, 0.5, 1, 2))
     pstate.load_state_dict(start)
@@ -412,10 +425,13 @@ def test_cli_trains_on_the_cpu(tmp_path, capsys):
 
 
 def test_cli_loads_a_jax_config_file_and_refuses_fused_off(tmp_path):
-    """A JAX ``args.json`` loads: the fields the port does not read
-    (fused_pool, ...) are dropped and the rest kept, ADV_AUG's lambda_ and
-    RawNet2's rawnet_args among them; one that turns fused_pool or fused_bn
-    off is refused."""
+    """A JAX ``args.json`` loads: the fields the port does not read are
+    dropped and the rest kept, ADV_AUG's lambda_ and RawNet2's
+    rawnet_args among them, fused_pool and fused_bn ("auto") too. One that
+    turns fused_pool or fused_bn off is no longer refused: the value
+    reaches the config, and ``setup_training`` builds the unfused model
+    (its ReLU -> BN pairs unfused; ECAPA's pooling unfused), where "auto"
+    builds the fused one."""
     rawnet_args = {"nb_samp": 6400, "first_conv": 129, "gru_node": 16}
     jcfg = dataclasses.asdict(jloop.TrainConfig(
         model="ecapa", add_loss="ang_iso", on_the_fly=True, lr=3e-4,
@@ -426,12 +442,20 @@ def test_cli_loads_a_jax_config_file_and_refuses_fused_off(tmp_path):
     cfg = config_from_args(cli_parse_args(out))
     assert (cfg.model, cfg.add_loss, cfg.on_the_fly, cfg.lr) == (
         "ecapa", "ang_iso", True, 3e-4)
-    assert cfg.lambda_ == 0.1 and not hasattr(cfg, "fused_pool")
+    assert cfg.lambda_ == 0.1 and not hasattr(cfg, "num_centers")
+    assert (cfg.fused_pool, cfg.fused_bn) == ("auto", "auto")
     assert cfg.rawnet_args == rawnet_args
+    small = dict(C=C, model_scale=SCALE, enc_dim=ENC, feat_len=T)
     for key in ("fused_pool", "fused_bn"):
         path.write_text(json.dumps({**jcfg, key: "off"}))
-        with pytest.raises(NotImplementedError, match=key):
-            config_from_args(cli_parse_args(out))
+        cfg = config_from_args(cli_parse_args(out))
+        assert getattr(cfg, key) == "off"
+        model = setup_training(dataclasses.replace(cfg, **small), 2,
+                               device="cpu")[0]
+        pairs = [model.bn1, model.attention[2], model.layer1.bn1,
+                 *model.layer1.bns, model.layer3.bn3]
+        assert all(m.fused == (key != "fused_bn") for m in pairs), key
+        assert model.fused_pool == (key != "fused_pool"), key
 
 
 def test_unsupported_flags_raise(tmp_path):

@@ -2,7 +2,7 @@
 ``cli/train.py``: the JAX parser's whole flag set, read from its
 ``_actions``, parses in the port and reaches the same values;
 ``--test_only`` prints and returns as the JAX CLI does; ``--fused_pool``/
-``--fused_bn`` take auto and on and refuse off by name; ``--visualize``,
+``--fused_bn`` take auto, on and off into the config; ``--visualize``,
 ``--ensemble`` and ``--num_centers`` are taken.
 No tolerances: parsed values are compared exactly."""
 
@@ -22,11 +22,13 @@ REFUSED = set()
 
 
 def _value(action: argparse.Action):
-    """One command-line value for ``action``: a choice (not 'off', not
-    None), or a number or string of its type."""
+    """One command-line value for ``action``: 'off' where it is a choice
+    (``--fused_pool``/``--fused_bn``), else the first choice that is not
+    None, or a number or string of its type."""
     if action.choices:
-        return next(str(c) for c in action.choices
-                    if c not in (None, "off"))
+        if "off" in action.choices:
+            return "off"
+        return next(str(c) for c in action.choices if c is not None)
     if action.type is int:
         return "3"
     if action.type is float:
@@ -69,17 +71,27 @@ def test_every_jax_flag_parses_in_the_port(tmp_path):
         "C", "model_scale", "device", "early_stop_patience"}
     cfg = config_from_args(parse_args(argv + ["--add_loss", "ang_iso"]))
     assert (cfg.ensemble, cfg.test_only, cfg.visualize) == (3, True, True)
+    assert (cfg.fused_pool, cfg.fused_bn) == ("off", "off")
 
 
 @pytest.mark.parametrize("flag", ["fused_pool", "fused_bn"])
 def test_fused_flags_take_auto_and_on_and_refuse_off(tmp_path, flag):
+    """auto, on and off reach the config as given ("auto" by default) and
+    pass ``check_supported``; off is no longer refused. A value that is
+    not a choice is refused by argparse, and one that reaches a config
+    otherwise by ``check_supported``."""
     base = ["-o", str(tmp_path / "o")]
-    for value in ("auto", "on"):
-        config_from_args(parse_args(base + [f"--{flag}", value]))
-    with pytest.raises(NotImplementedError, match=flag):
-        config_from_args(parse_args(base + [f"--{flag}", "off"]))
+    assert getattr(config_from_args(parse_args(base)), flag) == "auto"
+    for value in ("auto", "on", "off"):
+        cfg = config_from_args(parse_args(base + [f"--{flag}", value]))
+        assert getattr(cfg, flag) == value
+        check_supported(cfg)
     with pytest.raises(SystemExit):       # argparse: not a choice
         build_parser().parse_args(base + [f"--{flag}", "maybe"])
+    cfg = config_from_args(parse_args(base))
+    setattr(cfg, flag, "maybe")
+    with pytest.raises(ValueError, match=flag):
+        check_supported(cfg)
 
 
 def test_test_only_prints_and_returns(tmp_path, capsys):

@@ -91,27 +91,29 @@ def _two_threads():
     torch.set_num_threads(n)
 
 
-def jax_model(family: str, T: int, dtype=None):
-    """The JAX model as the port trains it (fused_bn=True)."""
+def jax_model(family: str, T: int, dtype=None, fused_bn: bool = True):
+    """The JAX model as the port trains it (fused_bn=True by default)."""
     if family == "resnet":
-        return JResNet(num_nodes=3, enc_dim=ENC, dtype=dtype, fused_bn=True)
+        return JResNet(num_nodes=3, enc_dim=ENC, dtype=dtype,
+                       fused_bn=fused_bn)
     if family == "res2net":
-        return JRes2Net(fused_bn=True)
+        return JRes2Net(fused_bn=fused_bn)
     if family in ("cnn", "cnn_att"):
         return JConvNet(enc_dim=ENC, subband_attention=family == "cnn_att",
-                        num_nodes=6, fused_bn=True)
+                        num_nodes=6, fused_bn=fused_bn)
     if family == "rawnet":
         return JRawNet(d_args=RAWNET_TINY)
     return JLCNN(num_nodes=60, enc_dim=ENC, feat_len=T, dtype=dtype,
-                 fused_bn=True)
+                 fused_bn=fused_bn)
 
 
-def port_model(family: str, T: int, dtype=None):
+def port_model(family: str, T: int, dtype=None, fused_bn: bool = True):
     if family == "cnn_att":
         return ConvNet(enc_dim=ENC, subband_attention=True, num_nodes=6,
-                       device="cpu")
+                       device="cpu", fused_bn=fused_bn)
     return build_model(family, enc_dim=ENC, feat_len=T, dtype=dtype,
-                       rawnet_args=RAWNET_TINY, device="cpu")
+                       rawnet_args=RAWNET_TINY, device="cpu",
+                       fused_bn=fused_bn)
 
 
 def flax_name(family: str) -> str:
@@ -283,12 +285,12 @@ def reversed_draw(draw):
 
 
 def _port_steps(family: str, add_loss, weight_loss: float, start: dict,
-                batches, draws):
+                batches, draws, fused_bn: bool = True):
     """The port's steps from ``start`` over ``batches`` ((feat, label)
     arrays) with JAX's ``draws``: (the train state's state_dict, the
     metrics of each step)."""
     pstate = create_train_state(
-        port_model(family, FRAMES[family]),
+        port_model(family, FRAMES[family], fused_bn=fused_bn),
         build_loss(add_loss, enc_dim=EMB[family], r_real=0.9, r_fake=0.2,
                    alpha=20.0, device="cpu"),
         step_decay_schedule(LR, 0.5, 1, 2))
@@ -306,7 +308,8 @@ def _port_steps(family: str, add_loss, weight_loss: float, start: dict,
 
 
 def trajectory(family: str, add_loss, weight_loss: float = 1.0,
-               jit: bool = True, spread: bool = False):
+               jit: bool = True, spread: bool = False,
+               fused_bn: bool = True):
     """WARM JAX steps from init (non-trivial Adam moments and loss
     parameters), the state carried across by ``from_flax_train_state``,
     then K steps in each package on the same batches, the port's steps
@@ -316,10 +319,11 @@ def trajectory(family: str, add_loss, weight_loss: float = 1.0,
     tests/test_torch_rawnet.py). ``spread`` runs the K steps again in each
     package from the same state on every batch with its rows (and the
     draws' rows) reversed, the same steps in exact arithmetic: the model
-    after them under "rev_end" (JAX) and "rev_got" (the port)."""
+    after them under "rev_end" (JAX) and "rev_got" (the port).
+    ``fused_bn`` is both packages' model flag."""
     T = FRAMES[family]
     feats, labels = trajectory_batches(family)
-    model = jax_model(family, T)
+    model = jax_model(family, T, fused_bn=fused_bn)
     loss_mod = j_build_loss(add_loss, enc_dim=EMB[family], r_real=0.9,
                             r_fake=0.2, alpha=20.0)
     sched = jstate.step_decay_schedule(LR, 0.5, 1, 2)
@@ -349,7 +353,8 @@ def trajectory(family: str, add_loss, weight_loss: float = 1.0,
     end = from_flax_train_state(jax.device_get(state), model=name)
     ks = range(WARM, WARM + K)
     got, p_metrics = _port_steps(family, add_loss, weight_loss, start,
-                                 [(feats[s], labels) for s in ks], draws)
+                                 [(feats[s], labels) for s in ks], draws,
+                                 fused_bn)
     out = dict(start=start, end=end, got=got, j_metrics=j_metrics,
                p_metrics=p_metrics, draws=draws)
     if spread:
@@ -369,7 +374,7 @@ def trajectory(family: str, add_loss, weight_loss: float = 1.0,
         out["rev_end"] = from_flax_train_state(jax.device_get(state),
                                                model=name)["model"]
         out["rev_got"] = _port_steps(family, add_loss, weight_loss, start,
-                                     rows, rev_draws)[0]["model"]
+                                     rows, rev_draws, fused_bn)[0]["model"]
     return out
 
 

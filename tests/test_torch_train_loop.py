@@ -95,7 +95,8 @@ def test_train_from_feature_files(tmp_path, feature_trees, aug):
 
 
 def test_no_data_raises_the_jax_message(tmp_path):
-    """The same FileNotFoundError text as the JAX loop's."""
+    """The JAX loop's FileNotFoundError text, with the port's own
+    preprocessing CLI named where JAX names its own."""
     empty = str(tmp_path / "none")
     msgs = []
     for mod, out in ((jloop, "j"), (None, "p")):
@@ -107,8 +108,11 @@ def test_no_data_raises_the_jax_message(tmp_path):
             else:
                 jloop.train(jloop.TrainConfig(**kw))
         msgs.append(str(e.value))
-    assert msgs[0] == msgs[1]
+    assert msgs[1] == msgs[0].replace(
+        "asvspoof2021_air_tpu.cli.preprocess",
+        "asvspoof2021_air_tpu_torch.cli.preprocess")
     assert "no data found under" in msgs[1]
+    assert "run asvspoof2021_air_tpu_torch.cli.preprocess" in msgs[1]
 
 
 def test_multi_step_equals_single_steps_bitwise():

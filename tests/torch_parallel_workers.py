@@ -405,3 +405,40 @@ def run_member_data(rank: int, world: int, out_dir: str, start: dict,
                      state=st.state_dict()["members"],
                      train=dict(summary=summary, ids=final.member_ids,
                                 members=final.state_dict()["members"])))
+
+
+def fused_chain_state(start: dict = None):
+    """The train state of ECAPA (C, SCALE, ENC) with ``fused_chain`` and
+    OC-Softmax (ang_iso), loaded from ``start`` or, without it, drawn from
+    a generator seeded 0."""
+    from asvspoof2021_air_tpu_torch.losses.one_class import OCSoftmax
+    from asvspoof2021_air_tpu_torch.models.ecapa import ECAPA_TDNN
+    from asvspoof2021_air_tpu_torch.train.state import (
+        create_train_state, step_decay_schedule)
+
+    gen = torch.Generator().manual_seed(0)
+    st = create_train_state(
+        ECAPA_TDNN(C=C, model_scale=SCALE, enc_dim=ENC, fused_pool=True,
+                   fused_chain=True, generator=gen, device="cpu"),
+        OCSoftmax(feat_dim=ENC, generator=gen, device="cpu"),
+        step_decay_schedule(LR, 0.5, 30, SPE))
+    if start is not None:
+        st.load_state_dict(start)
+    return st
+
+
+def run_fused_chain(rank: int, world: int, out_dir: str, start: dict,
+                    batch: dict) -> dict:
+    """One data-parallel step of :func:`fused_chain_state` from ``start``
+    on this rank's rows of the global ``batch``: the chain's BN moments
+    across the ranks."""
+    from asvspoof2021_air_tpu_torch.parallel import make_mesh, shard_batch
+    from asvspoof2021_air_tpu_torch.train.steps import (
+        StepConfig, make_train_step)
+
+    mesh = make_mesh("cpu")
+    st = fused_chain_state(start)
+    step = make_train_step(StepConfig(add_loss="ang_iso"), device="cpu",
+                           data_group=mesh.group())
+    m = step(st, tensors(shard_batch(batch, mesh)))
+    return host(dict(metrics=m, grads=grads(st), running=running(st)))
