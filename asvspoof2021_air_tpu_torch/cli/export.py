@@ -290,5 +290,12 @@ def main(argv=None) -> dict:
     return meta
 
 
+def script() -> None:
+    """The ``asvspoof-torch-export`` console script: :func:`main` without
+    its return value (the artifact's metadata), which ``sys.exit`` would
+    take for a failure code."""
+    main()
+
+
 if __name__ == "__main__":
     main()

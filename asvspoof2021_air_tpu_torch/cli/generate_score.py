@@ -220,5 +220,12 @@ def main(argv=None) -> str:
     return out
 
 
+def script() -> None:
+    """The ``asvspoof-torch-score`` console script: :func:`main` without
+    its return value (the score file's path), which ``sys.exit`` would take
+    for a failure code."""
+    main()
+
+
 if __name__ == "__main__":
     main()

@@ -200,5 +200,12 @@ def main(argv=None) -> int:
     return n
 
 
+def script() -> None:
+    """The ``asvspoof-torch-preprocess`` console script: :func:`main`
+    without its return value (the count of files written), which
+    ``sys.exit`` would take for a failure code."""
+    main()
+
+
 if __name__ == "__main__":
     main()

@@ -100,5 +100,12 @@ def main(argv=None) -> str:
     return path
 
 
+def script() -> None:
+    """The ``asvspoof-torch-visualize`` console script: :func:`main`
+    without its return value (the figure's path), which ``sys.exit`` would
+    take for a failure code."""
+    main()
+
+
 if __name__ == "__main__":
     main()

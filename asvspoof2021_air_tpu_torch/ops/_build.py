@@ -3,10 +3,12 @@
 Every ``csrc/*.cu`` is compiled by its own ``nvcc`` process, all started
 together, for ``sm_90a``, and the objects are linked into one shared
 library with a plain C interface that ``ctypes`` loads. The library lives
-under ``asvspoof2021_air_tpu_torch/build/`` (git-ignored), named by a hash
-of the sources and flags, so a changed source rebuilds and an unchanged one
-loads at once. Nothing is built at import time: the first wrapper that
-launches a kernel on a CUDA tensor builds it.
+under ``asvspoof2021_air_tpu_torch/build/`` (git-ignored) in a checkout,
+or in the per-user cache where the package directory is read-only
+(``_host_build.build_dir``), named by a hash of the sources and flags, so
+a changed source rebuilds and an unchanged one loads at once. Nothing is
+built at import time: the first wrapper that launches a kernel on a CUDA
+tensor builds it.
 
 The host C++ libraries (the FLAC decoder and the native codec library) are
 built by ``ops/_host_build.py``, which imports no torch and shares the build

@@ -2,11 +2,12 @@
 
 :func:`host_library` compiles the host sources under ``csrc/host/`` (the
 FLAC decoder) with the host C++ compiler at first use into
-``build/libasv_host_<hash>.so``; it needs no ``nvcc`` and runs on any
-machine. :func:`codec_library` compiles the native codec library at the
-repo root (``native/augment/``) in place, read-only, into a library of its
-own: ``csrc/host/flac_decode.cc`` is a copy of ``native/augment/flac.cc``,
-so one library holding both would define the FLAC symbols twice. This
+``libasv_host_<hash>.so`` under :data:`BUILD_DIR` (:func:`build_dir`); it
+needs no ``nvcc`` and runs on any machine. :func:`codec_library` compiles
+the native codec library at the repo root (``native/augment/``) in place,
+read-only, into a library of its own: ``csrc/host/flac_decode.cc`` is a
+copy of ``native/augment/flac.cc``, so one library holding both would
+define the FLAC symbols twice. This
 module imports no torch, so the host-only paths (``data.augment_host``,
 ``cli.degrade``'s worker processes) load without it; ``ops/_build.py``
 re-exports everything here beside the CUDA kernels' build.
@@ -26,7 +27,26 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
-BUILD_DIR = _PKG / "build"
+
+
+def build_dir(pkg: Path = _PKG) -> Path:
+    """Where the libraries build: ``<package>/build`` where this process
+    can make a file there (a checkout), else the per-user cache,
+    ``$XDG_CACHE_HOME/asvspoof2021_air_tpu_torch`` (``~/.cache`` without
+    it), as for an installed package in a directory that its user cannot
+    write. The libraries' names carry their sources' digest in either
+    place."""
+    local = pkg / "build"
+    try:
+        local.mkdir(parents=True, exist_ok=True)
+        with tempfile.TemporaryFile(dir=local):
+            return local
+    except OSError:
+        cache = os.environ.get("XDG_CACHE_HOME") or Path.home() / ".cache"
+        return Path(cache) / "asvspoof2021_air_tpu_torch"
+
+
+BUILD_DIR = build_dir()
 HOST_SRC = CSRC / "host"
 HOST_FLAGS = ["-std=c++17", "-O2", "-shared", "-fPIC"]
 # The native codec library at the repo root, compiled read-only: the
@@ -157,7 +177,12 @@ def host_library() -> ctypes.CDLL:
 
 def codec_sources():
     """The native codec library's sources, in its Makefile's SRCS order,
-    and its headers."""
+    and its headers. They are read from a checkout's root, beside the
+    package; an installed package has none."""
+    if not (NATIVE_DIR / "Makefile").exists():
+        raise RuntimeError(f"the native codec library's sources are not at "
+                           f"{NATIVE_DIR}: cli.degrade runs from a checkout "
+                           f"of the repository")
     text = (NATIVE_DIR / "Makefile").read_text()
     srcs = re.search(r"^SRCS\s*=\s*(.+)$", text, re.M).group(1).split()
     return ([NATIVE_DIR / s for s in srcs],

@@ -273,6 +273,21 @@ Phases, each fatal on failure:
    attention never fuses) against the plain autograd step at phase 8c's
    bars.
 
+10. run the port as installed: copy only what a wheel of the port holds
+   (``installed_files``: the package's ``.py`` files and the package data
+   ``pyproject.toml`` names, read with ``tomllib``) into a temporary
+   directory, with a file in the place of the package's ``build/`` (so
+   that no user, root included, can build there), make the copy
+   read-only, and from a working directory outside the repo, with only
+   that copy on ``PYTHONPATH``, run ``python -m
+   asvspoof2021_air_tpu_torch.cli.generate_score`` at full width
+   (ECAPA-TDNN-512, f32, B = 64) on phase 3b's 136 feature files; check
+   that the kernel library is built from the copied sources into the
+   per-user cache (``$XDG_CACHE_HOME``, a temporary directory here), that
+   the scorer launched B2 and B3 from it (counted under
+   ``score_installed``), and that its score file equals phase 3b's f32
+   file to 1e-5; print the phase's and the build's seconds.
+
 Every profile prints the device's busy share as the union of the profiled
 call's device intervals over its window (CUDA events inside the profiled
 call), beside the former reading (summed device time over a window timed
@@ -1231,8 +1246,10 @@ def write_feature_tree(root: str, n: int, seed: int, labeled: bool,
     return names
 
 
-def score_path(torch, gpu: str, entries):
-    """Phase 3b: feature-file scoring through the CLI at full width."""
+def score_path(torch, gpu: str, entries, keep: str):
+    """Phase 3b: feature-file scoring through the CLI at full width; the
+    run folder, the 19dev features and the f32 19dev score file are copied
+    into ``keep`` for phase 10."""
     import ast
     import contextlib
     import dataclasses
@@ -1382,6 +1399,11 @@ def score_path(torch, gpu: str, entries):
                                     "--asv_score_file", asv])
             result = ast.literal_eval(buf.getvalue().strip().splitlines()[-1])
             print(f"evaluate_tdcf on the 19dev f32 file: {result}")
+            shutil.copytree(os.path.join(tmp, "runs"),
+                            os.path.join(keep, "runs"))
+            shutil.copytree(ori, os.path.join(keep, "feats"))
+            shutil.copyfile(files["19dev", "float32"],
+                            os.path.join(keep, "19dev_f32.txt"))
             check(all(np.isfinite(v) for v in result.values()),
                   "EER or min-tDCF not finite")
             for method in ("avg", "wght"):
@@ -5193,6 +5215,126 @@ def remaining_configs_path(torch, gpu: str, entries):
     timed("9d", variant_step)
 
 
+# --------------------------------------------------------------- phase 10
+PKG = "asvspoof2021_air_tpu_torch"
+
+
+def installed_files(root: str = None) -> list:
+    """The port's files that a wheel of the repo holds, relative to
+    ``root`` (this script's directory): every ``.py`` file of the package
+    (``build/`` and ``__pycache__`` aside) and the files its
+    ``[tool.setuptools.package-data]`` patterns in ``pyproject.toml``
+    match."""
+    import tomllib
+    from pathlib import Path
+
+    root = Path(root or os.path.dirname(os.path.abspath(__file__)))
+    cfg = tomllib.loads((root / "pyproject.toml").read_text())
+    base = root / PKG
+    files = {p for p in base.rglob("*.py")
+             if "__pycache__" not in p.parts
+             and p.relative_to(base).parts[0] != "build"}
+    for pattern in cfg["tool"]["setuptools"]["package-data"][PKG]:
+        files.update(base.glob(pattern))
+    return sorted(str(p.relative_to(root)) for p in files)
+
+
+def _tree_mode(root: str, file_mode: int, dir_mode: int) -> None:
+    for d, _, names in os.walk(root):
+        for n in names:
+            os.chmod(os.path.join(d, n), file_mode)
+        os.chmod(d, dir_mode)
+
+
+INSTALLED_RUN = """
+import json, runpy, sys
+sys.argv = ["generate_score"] + json.loads(sys.argv[1])
+runpy.run_module("asvspoof2021_air_tpu_torch.cli.generate_score",
+                 run_name="__main__", alter_sys=True)
+import asvspoof2021_air_tpu_torch as pkg
+from asvspoof2021_air_tpu_torch.ops import _build
+from asvspoof2021_air_tpu_torch.ops import attn_pool_cuda as ap
+from asvspoof2021_air_tpu_torch.ops import res2_chain_cuda as rc
+print(json.dumps({"package": pkg.__file__, "build_dir": str(_build.BUILD_DIR),
+                  "library": getattr(_build._lib, "_name", None),
+                  "build_seconds": _build.build_seconds,
+                  "B2": rc.launches, "B3": ap.launches}))
+"""
+
+
+def installed_layout_path(torch, gpu: str, entries, keep: str) -> None:
+    """Phase 10: the scorer from a read-only copy of the installed files
+    whose package cannot hold a ``build/``, with the kernels built into the
+    per-user cache."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        site, work, cache = (os.path.join(tmp, d)
+                             for d in ("site", "work", "cache"))
+        names = installed_files(root)
+        for rel in names:
+            os.makedirs(os.path.dirname(os.path.join(site, rel)),
+                        exist_ok=True)
+            shutil.copyfile(os.path.join(root, rel), os.path.join(site, rel))
+        # root writes into a read-only directory; it cannot make a
+        # directory where a file is
+        taken = os.path.join(site, PKG, "build")
+        open(taken, "w").close()
+        _tree_mode(site, 0o444, 0o555)
+        os.makedirs(work)
+        env = {**os.environ, "PYTHONPATH": site, "HOME": work,
+               "TMPDIR": work, "XDG_CACHE_HOME": cache,
+               "PYTHONDONTWRITEBYTECODE": "1"}
+        args = ["--model_folder", os.path.join(keep, "runs"), "-n", "sys",
+                "-t", "19dev", "--ori_features", os.path.join(keep, "feats"),
+                "--batch_size", str(B), "--device", DEVICE]
+        t0 = time.perf_counter()
+        try:
+            out = subprocess.run(
+                [sys.executable, "-c", INSTALLED_RUN, json.dumps(args)],
+                cwd=work, env=env, capture_output=True, text=True,
+                timeout=600)
+        finally:
+            _tree_mode(site, 0o644, 0o755)
+        wall = time.perf_counter() - t0
+        if out.returncode != 0:
+            print(out.stdout[-4000:])
+            print(out.stderr[-4000:], file=sys.stderr)
+            fail("the installed scorer failed")
+        info = json.loads(out.stdout.strip().splitlines()[-1])
+        built = os.path.join(cache, PKG)
+        print(f"installed layout: {len(names)} files copied read-only; "
+              f"package from {info['package']}, kernels {info['library']} "
+              f"built in {info['build_seconds']} s; launches B2 "
+              f"{info['B2']}, B3 {info['B3']}")
+        check(info["package"].startswith(site + os.sep),
+              "the installed run imported the port from elsewhere")
+        check(info["build_dir"] == built and info["library"] is not None
+              and os.path.dirname(info["library"]) == built
+              and os.path.exists(info["library"]),
+              "the kernel library was not built into the per-user cache")
+        check(info["build_seconds"] is not None,
+              "the installed run built no kernel library")
+        check(os.path.isfile(taken) and os.path.getsize(taken) == 0,
+              "the installed run wrote into the package")
+        n_batches = -(-(2 * B + 8) // B)
+        check(info["B2"] >= 3 * n_batches and info["B3"] >= n_batches,
+              "the installed scorer did not launch B2 and B3")
+        for k in ("B2", "B3"):
+            entries[k]["launches_score_installed"] = info[k]
+        read = lambda p: [line.split() for line in open(p)]
+        got = read(os.path.join(work, "scores", "sys_19dev_score.txt"))
+        want = read(os.path.join(keep, "19dev_f32.txt"))
+        check([r[0] for r in got] == [r[0] for r in want],
+              "installed scorer: fnames differ from phase 3b's")
+        err = float(np.abs(np.array([float(r[1]) for r in got])
+                           - np.array([float(r[1]) for r in want])).max())
+        print(f"installed layout [{gpu}]: score file vs phase 3b's f32 "
+              f"file, largest difference {err:.3e} (bar 1e-5); the "
+              f"scorer's process {wall:.1f} s, the kernels' build "
+              f"{info['build_seconds']} s")
+        check(err <= 1e-5, "the installed scorer's scores differ")
+
+
 def main() -> int:
     try:
         import torch
@@ -5231,7 +5373,8 @@ def main() -> int:
     entries = phase("2", kernel_checks, torch, gen)
     phase("2b", vjp_checks, torch, gen, entries)
     fwd_ms = phase("3", main_path, torch, gpu, entries)
-    phase("3b", score_path, torch, gpu, entries)
+    keep = tempfile.mkdtemp()      # phase 3b's files, read by phase 10
+    phase("3b", score_path, torch, gpu, entries, keep)
     f32_ms, _ = phase("4", train_path, torch, gpu, entries)
     bf16_ms = phase("4b", train_bf16_path, torch, gpu, entries, f32_ms)
     phase("4c", train_adv_path, torch, gpu, entries)
@@ -5243,6 +5386,10 @@ def main() -> int:
     phase("7", data_parallel_path, torch, gpu, entries, bf16_ms)
     phase("8", degraded_corpus_path, torch, gpu, entries)
     phase("9", remaining_configs_path, torch, gpu, entries)
+    try:
+        phase("10", installed_layout_path, torch, gpu, entries, keep)
+    finally:
+        shutil.rmtree(keep, ignore_errors=True)
     print(f"phase seconds: { {k: round(v, 1) for k, v in seconds.items()} }")
 
     kernels = []
@@ -5258,7 +5405,7 @@ def main() -> int:
             "serve_int8", "export", "train_dp", "score_dp",
             "train_member_dp", "train_member_data_dp", "preprocess_aug",
             "train_laaug", "score_laaug", "train_conv_dot_graph",
-            "train_dp_fused_chain")
+            "train_dp_fused_chain", "score_installed")
             if f"launches_{p}" in e}
         launches = sum(by_path.values())
         print(f"{e['name']} [{gpu}]: max_abs_err {e['max_abs_err']:.3e}, "
