@@ -1,0 +1,7 @@
+"""The device's idle share over the traced slice of scoring batches."""
+
+from portbench.harness import readers
+
+
+def read(ctx):
+    return readers.idle_pct(ctx)
