@@ -24,10 +24,16 @@ kernel and bias to it, round the product to it and add the bias in it
 (``flax.linen`` ``Conv``/``Dense``); BatchNorm computes its statistics and
 its normalization in f32 and returns ``dtype`` (``models/common.py:187-188``
 of the JAX package); None is f32.
+
+Spans (``utils/profiling.span``): the casts of :func:`conv1d`,
+:func:`conv2d` and :func:`dense` are ``asv.cast`` (the products and the
+bias adds are not), every BatchNorm method ``asv.bn``, the SE modules
+``asv.se`` and :class:`SelfAttentionPooling` ``asv.pool``.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -39,20 +45,31 @@ from torch import nn
 from asvspoof2021_air_tpu_torch.ops.bn_relu_vjp import (
     AllReduceSum, bn_leaky_relu_train, bn_relu_train, bn_train,
     channel_layout, current_group, relu_bn_train)
+from asvspoof2021_air_tpu_torch.utils.profiling import span
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.9      # flax: the retained fraction of the running statistics
+
+
+def _cast(x: torch.Tensor, weight: torch.Tensor,
+          bias: Optional[torch.Tensor], dtype: Optional[torch.dtype]):
+    """x, the kernel and the bias cast to ``dtype`` (None: x's and the
+    kernel's promoted type), under the span ``asv.cast``."""
+    dt = dtype or torch.promote_types(x.dtype, weight.dtype)
+    with span("asv.cast") as s:
+        return (s.cast(x, dt), s.cast(weight, dt),
+                None if bias is None else s.cast(bias, dt))
 
 
 def conv1d(x: torch.Tensor, weight: torch.Tensor,
            bias: Optional[torch.Tensor], dtype: Optional[torch.dtype],
            padding: int = 0, dilation: int = 1) -> torch.Tensor:
     """flax ``nn.Conv`` over (B, C, T): x, the kernel and the bias cast to
-    ``dtype`` (None: their promoted type), the product rounded to it, then
-    the bias added in it."""
-    dt = dtype or torch.promote_types(x.dtype, weight.dtype)
-    y = F.conv1d(x.to(dt), weight.to(dt), None, 1, padding, dilation)
-    return y if bias is None else y + bias.to(dt)[:, None]
+    ``dtype`` (None: their promoted type; the casts under ``asv.cast``),
+    the product rounded to it, then the bias added in it."""
+    x, weight, bias = _cast(x, weight, bias, dtype)
+    y = F.conv1d(x, weight, None, 1, padding, dilation)
+    return y if bias is None else y + bias[:, None]
 
 
 def conv2d(x: torch.Tensor, weight: torch.Tensor,
@@ -65,9 +82,9 @@ def conv2d(x: torch.Tensor, weight: torch.Tensor,
         if stride not in (1, (1, 1)) or not (kh % 2 and kw % 2):
             raise ValueError("'SAME' is ported for odd kernels at stride 1")
         padding = (kh // 2, kw // 2)
-    dt = dtype or torch.promote_types(x.dtype, weight.dtype)
-    y = F.conv2d(x.to(dt), weight.to(dt), None, stride, padding, dilation)
-    return y if bias is None else y + bias.to(dt)[:, None, None]
+    x, weight, bias = _cast(x, weight, bias, dtype)
+    y = F.conv2d(x, weight, None, stride, padding, dilation)
+    return y if bias is None else y + bias[:, None, None]
 
 
 def conv(m: nn.Module, x: torch.Tensor,
@@ -83,8 +100,18 @@ def conv(m: nn.Module, x: torch.Tensor,
 def dense(m: nn.Linear, x: torch.Tensor,
           dtype: Optional[torch.dtype]) -> torch.Tensor:
     """flax ``nn.Dense``: as :func:`conv1d`, for ``m``'s product."""
-    dt = dtype or torch.promote_types(x.dtype, m.weight.dtype)
-    return F.linear(x.to(dt), m.weight.to(dt)) + m.bias.to(dt)
+    x, weight, bias = _cast(x, m.weight, m.bias, dtype)
+    return F.linear(x, weight) + bias
+
+
+def _bn_span(method):
+    """A :class:`BatchNorm` method, its casts in and out included, under
+    the span ``asv.bn``."""
+    @functools.wraps(method)
+    def run(self, x: torch.Tensor, *args, **kwargs) -> torch.Tensor:
+        with span("asv.bn", x) as s:
+            return s.out(method(self, x, *args, **kwargs))
+    return run
 
 
 class BatchNorm(nn.Module):
@@ -150,6 +177,7 @@ class BatchNorm(nn.Module):
         return ((x.float() - self.running_mean.view(shape)) * mul.view(shape)
                 + self.bias.view(shape))
 
+    @_bn_span
     def forward(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
         if not self.training:
             return self._out(self._eval(x, dim), x)
@@ -176,6 +204,7 @@ class BatchNorm(nn.Module):
         y = (xf - mu.view(shape)) * mul.view(shape) + self.bias.view(shape)
         return self._out(y, x)
 
+    @_bn_span
     def relu_bn(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
         """``self(relu(x))``; in train mode with ``fused`` through the
         recompute VJP of ``ops/bn_relu_vjp.py`` (same values, lighter
@@ -186,6 +215,7 @@ class BatchNorm(nn.Module):
         self._update(mu.detach(), var.detach())
         return self._out(y, x)
 
+    @_bn_span
     def bn_relu(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
         """``relu(self(x))``, the pre-activation order (the JAX
         ``bn_relu``); in train mode through ``ops/bn_relu_vjp.bn_relu_train``
@@ -199,6 +229,7 @@ class BatchNorm(nn.Module):
         self._update(mu.detach(), var.detach())
         return self._out(y, x)
 
+    @_bn_span
     def bn_leaky_relu(self, x: torch.Tensor, slope: float,
                       dim: int = 1) -> torch.Tensor:
         """``leaky_relu(self(x), slope)`` (flax's: y where y >= 0, else
@@ -273,9 +304,10 @@ class SEModule1D(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         _, c1, _, bn, c2, _ = self.se
-        y = x.mean(2, keepdim=True, dtype=torch.float32).to(x.dtype)
-        y = bn(torch.relu(conv(c1, y, self.dtype)))
-        return x * Logistic.apply(conv(c2, y, self.dtype))
+        with span("asv.se", x) as s:
+            y = x.mean(2, keepdim=True, dtype=torch.float32).to(x.dtype)
+            y = bn(torch.relu(conv(c1, y, self.dtype)))
+            return s.out(x * Logistic.apply(conv(c2, y, self.dtype)))
 
 
 class SELayer2D(nn.Module):
@@ -294,8 +326,9 @@ class SELayer2D(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         fc1, _, fc2, _ = self.fc
-        y = torch.sigmoid(fc2(torch.relu(fc1(x.mean((2, 3))))))
-        return x * y[:, :, None, None]
+        with span("asv.se", x) as s:
+            y = torch.sigmoid(fc2(torch.relu(fc1(x.mean((2, 3))))))
+            return s.out(x * y[:, :, None, None])
 
 
 class MaxFeatureMap(nn.Module):
@@ -328,14 +361,15 @@ class SelfAttentionPooling(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 noise: Optional[torch.Tensor] = None) -> torch.Tensor:
-        logits = (x @ self.att_weights.t())[..., 0]
-        attn = torch.softmax(torch.tanh(logits), dim=1)
-        weighted = x * attn[..., None]
-        mean = weighted.sum(dim=1)
-        if noise is not None:
-            weighted = weighted + 1e-5 * noise
-        std = torch.std(weighted, dim=1, correction=1)
-        return torch.cat([mean, std], dim=1)
+        with span("asv.pool", x) as s:
+            logits = (x @ self.att_weights.t())[..., 0]
+            attn = torch.softmax(torch.tanh(logits), dim=1)
+            weighted = x * attn[..., None]
+            mean = weighted.sum(dim=1)
+            if noise is not None:
+                weighted = weighted + 1e-5 * noise
+            std = torch.std(weighted, dim=1, correction=1)
+            return s.out(torch.cat([mean, std], dim=1))
 
 
 def to_2d_input(x: torch.Tensor) -> torch.Tensor:

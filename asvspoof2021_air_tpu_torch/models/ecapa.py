@@ -63,6 +63,7 @@ from asvspoof2021_air_tpu_torch.models.common import (
 from asvspoof2021_air_tpu_torch.ops.attn_pool_vjp import fused_softmax_stats
 from asvspoof2021_air_tpu_torch.ops.res2_chain_vjp import (
     chain_params, res2_chain_train, update_running_stats)
+from asvspoof2021_air_tpu_torch.utils.profiling import span
 
 
 class Bottle2neck(nn.Module):
@@ -172,27 +173,30 @@ class ECAPA_TDNN(nn.Module):
         dt = self.dtype
         if dt is None:
             disable_tf32()
-        x = self.bn1.relu_bn(conv(self.conv1, feats.transpose(1, 2), dt))
-        x1 = self.layer1(x)
-        if self.summed:
-            x2 = self.layer2(x + x1)
-            x3 = self.layer3(x + x1 + x2)
-        else:
-            x2 = self.layer2(x1)
-            x3 = self.layer3(x2)
-        # The MFA 1x1 conv over [x1 | x2 | x3] as the JAX model computes
-        # it: one product per block, summed (in dtype), then the bias.
-        C, w4 = x1.shape[1], self.layer4.weight
-        x = (conv1d(x1, w4[:, :C], None, dt)
-             + conv1d(x2, w4[:, C:2 * C], None, dt)
-             + conv1d(x3, w4[:, 2 * C:], None, dt))
-        x = F.relu(x + self.layer4.bias.to(x.dtype)[:, None])
+        with span("asv.trunk", feats) as s:
+            x = self.bn1.relu_bn(conv(self.conv1, feats.transpose(1, 2), dt))
+            x1 = self.layer1(x)
+            if self.summed:
+                x2 = self.layer2(x + x1)
+                x3 = self.layer3(x + x1 + x2)
+            else:
+                x2 = self.layer2(x1)
+                x3 = self.layer3(x2)
+            # The MFA 1x1 conv over [x1 | x2 | x3] as the JAX model
+            # computes it: one product per block, summed (in dtype), then
+            # the bias.
+            C, w4 = x1.shape[1], self.layer4.weight
+            x = (conv1d(x1, w4[:, :C], None, dt)
+                 + conv1d(x2, w4[:, C:2 * C], None, dt)
+                 + conv1d(x3, w4[:, 2 * C:], None, dt))
+            x = s.out(F.relu(x + self.layer4.bias.to(x.dtype)[:, None]))
         fused = (self.fused_pool
                  or (self.fused_pool is None and self.training))
-        if fused and self.attn_output == 1536:
-            mu, sg = self._fused_pooling(x)
-        else:
-            mu, sg = self._unfused_pooling(x)
+        with span("asv.pool", x) as s:
+            if fused and self.attn_output == 1536:
+                mu, sg = s.out(self._fused_pooling(x))
+            else:
+                mu, sg = s.out(self._unfused_pooling(x))
         x = torch.cat([mu, sg], dim=1)
         x = self.bn5(x if dt is None else x.to(dt))
         feat = dense(self.fc6, x, dt)

@@ -40,6 +40,7 @@ from asvspoof2021_air_tpu_torch._device import disable_tf32, resolve_device
 from asvspoof2021_air_tpu_torch.models.common import (
     BatchNorm, SelfAttentionPooling, conv, conv_kaiming_, dense,
     linear_kaiming_, set_fused_bn, to_2d_input)
+from asvspoof2021_air_tpu_torch.utils.profiling import span
 
 
 def _conv3x3(cin: int, cout: int, stride: int = 1) -> nn.Conv2d:
@@ -192,11 +193,12 @@ class ResNet(nn.Module):
         dt = self.dtype
         if dt is None:
             disable_tf32()
-        x = to_2d_input(feats)
-        x = self.bn1.bn_relu(conv(self.conv1, x, dt))
-        x = self.layer4(self.layer3(self.layer2(self.layer1(x))))
-        x = self.bn5.bn_relu(conv(self.conv5, x, dt))
-        x = x.squeeze(2).transpose(1, 2).float()        # (B, T', 256)
+        with span("asv.trunk", feats) as s:
+            x = to_2d_input(feats)
+            x = self.bn1.bn_relu(conv(self.conv1, x, dt))
+            x = self.layer4(self.layer3(self.layer2(self.layer1(x))))
+            x = self.bn5.bn_relu(conv(self.conv5, x, dt))
+            x = s.out(x.squeeze(2).transpose(1, 2).float())  # (B, T', 256)
         if self.training and draws is None:
             draws = torch.randn_like(x)
         stats = self.attention(x, draws if self.training else None)

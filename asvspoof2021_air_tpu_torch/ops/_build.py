@@ -22,7 +22,6 @@ import os
 import shutil
 import subprocess
 import tempfile
-import time
 from pathlib import Path
 
 import torch
@@ -37,8 +36,10 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+L = ctypes.c_longlong
 # C entry point -> argument types; every entry returns cudaGetLastError(),
-# but for those in RESTYPES.
+# but for those in RESTYPES. The asv_capture_* entries (the node tables of
+# utils/profiling.Capture) return the error of their own CUDA calls.
 SIGNATURES = {
     "lfcc_forward": [P, I, I, I, I, I, I, P, P, I, P, I, P, P, I, P, P],
     "res2_chain_forward": [P, P, P, P, P, P, I, I, I, I, I, I, P],
@@ -47,11 +48,12 @@ SIGNATURES = {
                           I, P],
     "attn_pool_vjp_forward": [P, P, P, P, I, I, I, P, P, P, P, I, P],
     "attn_pool_vjp_backward": [P] * 10 + [I, I, I, P, P, P, P, I, P],
+    "asv_capture_frontier": [P, P, L, P],
+    "asv_capture_node_table": [P, P, L, P, P, L, P, L, P, P, P],
 }
 RESTYPES = {"attn_pool_workspace": ctypes.c_longlong}
 
 _lib = None
-build_seconds = None   # wall time of the build this process ran, if any
 
 
 def _nvcc() -> str:
@@ -94,16 +96,14 @@ def _compile(target: Path) -> None:
 
 def library() -> ctypes.CDLL:
     """The kernels' shared library, built on first use."""
-    global _lib, build_seconds
+    global _lib
     with lock:
         if _lib is None:
             cu, cuh = _sources()
             target = (BUILD_DIR
                       / f"libasv_kernels_{_digest(NVCC_FLAGS, cu + cuh)}.so")
             if not target.exists():
-                t0 = time.perf_counter()
                 _compile(target)
-                build_seconds = time.perf_counter() - t0
             lib = ctypes.CDLL(str(target))
             for name, argtypes in SIGNATURES.items():
                 fn = getattr(lib, name)

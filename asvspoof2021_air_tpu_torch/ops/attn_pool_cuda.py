@@ -25,11 +25,10 @@ import torch
 
 from asvspoof2021_air_tpu_torch.models.common import BN_EPS
 from asvspoof2021_air_tpu_torch.ops import _build
+from asvspoof2021_air_tpu_torch.utils import profiling
 
 HIDDEN = 128
 WX_PLANES = 2              # bf16 planes of Wx that the kernel takes for bf16 x
-
-launches = 0               # kernel launches since the last reset
 
 
 class PoolParams(NamedTuple):
@@ -107,7 +106,6 @@ def attention_pooling_plain(x: torch.Tensor, p: PoolParams,
 def attention_pooling_kernel(x: torch.Tensor, p: PoolParams,
                              valid_len: Optional[int] = None) -> torch.Tensor:
     """Launch B3 on CUDA tensors (three passes, one call)."""
-    global launches
     name = "attention_pooling_kernel"
     if x.dim() != 3 or x.dtype not in _build.DTYPE_CODES:
         raise ValueError(f"{name}: x must be (B, T, D) of "
@@ -147,7 +145,7 @@ def attention_pooling_kernel(x: torch.Tensor, p: PoolParams,
                   w.wx.data_ptr(), planes_ptr, WX_PLANES,
                   *(t.data_ptr() for t in w[1:8]), work.data_ptr(),
                   out.data_ptr(), _build.DTYPE_CODES[x.dtype])
-    launches += 1
+    profiling.count("B3")
     return out
 
 

@@ -35,12 +35,10 @@ from typing import Sequence, Tuple
 import torch
 
 from asvspoof2021_air_tpu_torch.ops import _build
+from asvspoof2021_air_tpu_torch.utils import profiling
 
 HIDDEN = 128
 TILE = 128                 # the kernels' channel tile: D % TILE == 0
-
-fwd_launches = 0           # B4a launches since the last reset
-bwd_launches = 0           # B4b launches since the last reset
 
 
 def _softmax_over_t(h2: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor):
@@ -107,7 +105,6 @@ def _check(name: str, x, h2, w2, b2, *more):
 
 def softmax_stats_fwd_kernel(x, h2, w2, b2):
     """Launch B4a: (mu, e2, max, normalizer), (B, D) f32 each."""
-    global fwd_launches
     _check("softmax_stats_fwd_kernel", x, h2, w2, b2)
     B, T, D = x.shape
     out = [torch.empty((B, D), device=x.device, dtype=torch.float32)
@@ -115,7 +112,7 @@ def softmax_stats_fwd_kernel(x, h2, w2, b2):
     _build.launch("attn_pool_vjp_forward", x.device, x.data_ptr(),
                   h2.data_ptr(), w2.data_ptr(), b2.data_ptr(), B, T, D,
                   *(t.data_ptr() for t in out), _build.DTYPE_CODES[x.dtype])
-    fwd_launches += 1
+    profiling.count("B4a")
     return tuple(out)
 
 
@@ -123,7 +120,6 @@ def softmax_stats_bwd_kernel(x, h2, w2, b2, res: Sequence[torch.Tensor],
                              gmu, ge2):
     """Launch B4b (three passes, one call): (dx, dh2, dW2). ``res`` is
     B4a's (mu, e2, max, normalizer)."""
-    global bwd_launches
     mu, e2, m, l = res
     _check("softmax_stats_bwd_kernel", x, h2, w2, b2, mu, e2, m, l, gmu, ge2)
     B, T, D = x.shape
@@ -136,7 +132,7 @@ def softmax_stats_bwd_kernel(x, h2, w2, b2, res: Sequence[torch.Tensor],
                   l.data_ptr(), mu.data_ptr(), e2.data_ptr(), gmu.data_ptr(),
                   ge2.data_ptr(), B, T, D, dx.data_ptr(), dh2.data_ptr(),
                   part.data_ptr(), dw2.data_ptr(), _build.DTYPE_CODES[x.dtype])
-    bwd_launches += 1
+    profiling.count("B4b")
     return dx, dh2, dw2
 
 
@@ -156,9 +152,10 @@ class FusedSoftmaxStats(torch.autograd.Function):
     def backward(ctx, gmu, ge2):
         x, h2, w2, b2, *res = ctx.saved_tensors
         bwd = softmax_stats_bwd_kernel if x.is_cuda else softmax_stats_bwd_plain
-        dx, dh2, dw2 = bwd(x, h2, w2, b2, res, gmu.float().contiguous(),
-                           ge2.float().contiguous())
-        return dx, dh2, dw2, torch.zeros_like(b2)
+        with profiling.span("asv.pool:bwd"):
+            dx, dh2, dw2 = bwd(x, h2, w2, b2, res, gmu.float().contiguous(),
+                               ge2.float().contiguous())
+            return dx, dh2, dw2, torch.zeros_like(b2)
 
 
 def fused_softmax_stats(x, h2, w2, b2) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -54,6 +54,8 @@ from typing import Tuple
 import torch
 import torch.distributed as dist
 
+from asvspoof2021_air_tpu_torch.utils import profiling
+
 _GROUP: list = [None]
 
 
@@ -141,40 +143,40 @@ class BNTrainVJP(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gy, gmu, gvar):
-        x, mu, var, scale, bias = ctx.saved_tensors
-        dims, shape = channel_layout(x, ctx.dim)
-        n = ctx.n
-        zero = torch.zeros((), device=x.device)
-        r = (torch.relu(x) if ctx.mode == "relu_bn" else x).float()
-        inv = torch.rsqrt(var + ctx.eps).view(shape)
-        centered = r - mu.view(shape)
-        xhat = centered * inv
-        g = gy.float()
-        if ctx.mode == "bn_relu":
-            g = torch.where(xhat * scale.view(shape) + bias.view(shape) > 0,
-                            g, zero)
-        elif ctx.mode == "bn_leaky_relu":
-            g = torch.where(xhat * scale.view(shape) + bias.view(shape) >= 0,
-                            g, ctx.slope * g)
-        dbeta = g.sum(dims)
-        dgamma = (g * xhat).sum(dims)
-        dxhat = g * scale.view(shape)
-        if ctx.group is None:
-            m1 = dxhat.mean(dims).view(shape)
-            m2 = (dxhat * xhat).mean(dims).view(shape)
-        else:
-            s = _all_reduce(torch.cat([dxhat.sum(dims),
-                                       (dxhat * xhat).sum(dims),
-                                       gmu.float(), gvar.float()]),
-                            ctx.group)
-            m1, m2, gmu, gvar = s.chunk(4)
-            m1, m2 = (m1 / n).view(shape), (m2 / n).view(shape)
-        dr = inv * (dxhat - m1 - xhat * m2)
-        dr = dr + gmu.view(shape) / n + (2.0 / n) * gvar.view(shape) * centered
-        if ctx.mode == "relu_bn":
-            dr = torch.where(x > 0, dr, zero)
-        return (dr.to(x.dtype), dgamma, dbeta, None, None, None, None,
-                None)
+        with profiling.span("asv.bn:bwd"):
+            x, mu, var, scale, bias = ctx.saved_tensors
+            dims, shape = channel_layout(x, ctx.dim)
+            n = ctx.n
+            zero = torch.zeros((), device=x.device)
+            r = (torch.relu(x) if ctx.mode == "relu_bn" else x).float()
+            inv = torch.rsqrt(var + ctx.eps).view(shape)
+            centered = r - mu.view(shape)
+            xhat = centered * inv
+            g = gy.float()
+            if ctx.mode in ("bn_relu", "bn_leaky_relu"):
+                y = xhat * scale.view(shape) + bias.view(shape)
+                g = (torch.where(y > 0, g, zero) if ctx.mode == "bn_relu"
+                     else torch.where(y >= 0, g, ctx.slope * g))
+            dbeta = g.sum(dims)
+            dgamma = (g * xhat).sum(dims)
+            dxhat = g * scale.view(shape)
+            if ctx.group is None:
+                m1 = dxhat.mean(dims).view(shape)
+                m2 = (dxhat * xhat).mean(dims).view(shape)
+            else:
+                s = _all_reduce(torch.cat([dxhat.sum(dims),
+                                           (dxhat * xhat).sum(dims),
+                                           gmu.float(), gvar.float()]),
+                                ctx.group)
+                m1, m2, gmu, gvar = s.chunk(4)
+                m1, m2 = (m1 / n).view(shape), (m2 / n).view(shape)
+            dr = inv * (dxhat - m1 - xhat * m2)
+            dr = (dr + gmu.view(shape) / n
+                  + (2.0 / n) * gvar.view(shape) * centered)
+            if ctx.mode == "relu_bn":
+                dr = torch.where(x > 0, dr, zero)
+            return (dr.to(x.dtype), dgamma, dbeta, None, None, None, None,
+                    None)
 
 
 def relu_bn_train(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,

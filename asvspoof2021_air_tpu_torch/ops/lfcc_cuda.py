@@ -24,10 +24,9 @@ from asvspoof2021_air_tpu_torch._device import resolve_device
 from asvspoof2021_air_tpu_torch.ops import _build, dsp
 from asvspoof2021_air_tpu_torch.ops.lfcc import (
     LFCCConfig, append_deltas, cepstra, emphasize)
+from asvspoof2021_air_tpu_torch.utils import profiling
 
 MAX_N_FFT = 512            # the kernel's largest FFT
-
-launches = 0               # kernel launches since the last reset
 
 
 def lfcc_plain(x: torch.Tensor, cs: torch.Tensor, fb: torch.Tensor,
@@ -46,7 +45,6 @@ def lfcc_kernel(x: torch.Tensor, window: torch.Tensor, twiddle: torch.Tensor,
     ``window`` (win,), ``twiddle`` (n_fft / 2, 2) = exp(-2 pi i k / n_fft),
     and the filterbank as each filter's nonzero bins ``bands``
     (n_filters, 2) int32 with their ``weights`` (width, n_filters)."""
-    global launches
     if x.dtype != torch.float32 or x.dim() != 2:
         raise ValueError("lfcc_kernel: x must be (B, L) float32")
     B, L = x.shape
@@ -64,7 +62,7 @@ def lfcc_kernel(x: torch.Tensor, window: torch.Tensor, twiddle: torch.Tensor,
                   twiddle.data_ptr(), n_fft, weights.data_ptr(),
                   weights.shape[0], bands.data_ptr(), dct.data_ptr(), nf,
                   out.data_ptr())
-    launches += 1
+    profiling.count("B1")
     return out
 
 

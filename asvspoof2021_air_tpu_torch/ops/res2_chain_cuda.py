@@ -25,10 +25,9 @@ import torch
 
 from asvspoof2021_air_tpu_torch.models.common import BN_EPS
 from asvspoof2021_air_tpu_torch.ops import _build
+from asvspoof2021_air_tpu_torch.utils import profiling
 
 KERNEL_WIDTH = 64
-
-launches = 0               # kernel launches since the last reset
 
 
 def fold_bn_inference(sd: Dict[str, torch.Tensor], prefix: str):
@@ -95,7 +94,6 @@ def res2_chain_plain(x, w, cb, a, b, *, dilation: int, scale: int = 8,
 def res2_chain_kernel(x, w, cb, a, b, *, dilation: int, scale: int = 8,
                       valid_len: Optional[int] = None) -> torch.Tensor:
     """Launch B2 on CUDA tensors."""
-    global launches
     B, T, C = x.shape
     if x.dtype not in _build.DTYPE_CODES:
         raise ValueError(f"res2_chain_kernel: unsupported dtype {x.dtype}")
@@ -124,7 +122,7 @@ def res2_chain_kernel(x, w, cb, a, b, *, dilation: int, scale: int = 8,
     _build.launch("res2_chain_forward", x.device, x.data_ptr(), w.data_ptr(),
                   cb.data_ptr(), a.data_ptr(), b.data_ptr(), out.data_ptr(),
                   B, T, valid, dilation, scale, _build.DTYPE_CODES[x.dtype])
-    launches += 1
+    profiling.count("B2")
     return out
 
 

@@ -50,6 +50,7 @@ from asvspoof2021_air_tpu_torch.parallel.mesh import (
     Mesh, batch_sharding, gather)
 from asvspoof2021_air_tpu_torch.serving.ecapa_serving import ServingECAPA
 from asvspoof2021_air_tpu_torch.serving.stream import make_scanned_infer
+from asvspoof2021_air_tpu_torch.utils.profiling import span
 
 TASKS = ("LA", "DF", "19dev", "19laaugdev", "19lapaaugdev", "19dfaugdev",
          "19dfpaaugdev", "19eval")
@@ -82,17 +83,18 @@ def score_rule(add_loss: Optional[str], emb: torch.Tensor,
     ang_iso and p2sgrad; softmax over AMSoftmax's cosine logits, column 0;
     the distance to the loss module's center for isolate and iso_sq; else
     -softmax(logits)[:, 0]."""
-    labels = torch.zeros((emb.shape[0],), dtype=torch.long,
-                         device=emb.device)
-    if add_loss in ("ocsoftmax", "ang_iso", "p2sgrad"):
-        _loss, score = loss_module(emb, labels)
-        return score
-    if add_loss == "amsoftmax":
-        outputs, _margin = loss_module(emb, labels)
-        return torch.softmax(outputs, dim=1)[:, 0]
-    if add_loss in ("isolate", "iso_sq"):
-        return torch.linalg.vector_norm(emb - loss_module.center, dim=1)
-    return -torch.softmax(logits, dim=1)[:, 0]
+    with span("asv.score_rule"):
+        labels = torch.zeros((emb.shape[0],), dtype=torch.long,
+                             device=emb.device)
+        if add_loss in ("ocsoftmax", "ang_iso", "p2sgrad"):
+            _loss, score = loss_module(emb, labels)
+            return score
+        if add_loss == "amsoftmax":
+            outputs, _margin = loss_module(emb, labels)
+            return torch.softmax(outputs, dim=1)[:, 0]
+        if add_loss in ("isolate", "iso_sq"):
+            return torch.linalg.vector_norm(emb - loss_module.center, dim=1)
+        return -torch.softmax(logits, dim=1)[:, 0]
 
 
 def build_scoring_model(state_dict, model: str = "ecapa", *,

@@ -47,6 +47,7 @@ from asvspoof2021_air_tpu_torch.ops.quantize import qdot, quant_w
 from asvspoof2021_air_tpu_torch.ops.res2_chain_cuda import (
     pack_chain_params, res2_chain_infer)
 from asvspoof2021_air_tpu_torch.serving.ecapa_fused import Head
+from asvspoof2021_air_tpu_torch.utils.profiling import span
 
 DILATIONS = (2, 3, 4)
 QUANTIZE = (False, True, "mfa")
@@ -200,26 +201,30 @@ class ServingECAPA(torch.nn.Module):
         activation)`` sees each quantized site's input, as JAX's does."""
         if self.dtype == torch.float32:
             disable_tf32()
-        x = feats.to(self.device, self.dtype)
-        T = x.shape[1]
-        t_sem = T if valid_len is None else int(valid_len)
-        if t_sem != T:
-            keep = torch.arange(T, device=self.device) < t_sem
-            x = x * keep[None, :, None].to(self.dtype)
-        x = F.conv1d(x.transpose(1, 2), self.stem_w, padding=2).transpose(1, 2)
-        x = (torch.relu(x + self.stem_b) * self.bn1_a + self.bn1_b).contiguous()
-        xs = []
-        for i, blk in enumerate(self.blocks):
-            x = self._block(i, blk, x, t_sem, observer)
-            xs.append(x)
-        acc = None
-        for i, (xi, prod) in enumerate(zip(xs, self.mfa)):
-            term = prod(xi, self._site(f"mfa_{i}", xi, observer))
-            acc = term if acc is None else acc + term
-        x = torch.relu(acc + self.mfa_b)
-        pool = PoolParams(*(getattr(self, "pool_" + f)
-                            for f in PoolParams._fields))
-        pooled = attention_pooling(x, pool, valid_len=t_sem)
+        with span("asv.trunk"):
+            x = feats.to(self.device, self.dtype)
+            T = x.shape[1]
+            t_sem = T if valid_len is None else int(valid_len)
+            if t_sem != T:
+                keep = torch.arange(T, device=self.device) < t_sem
+                x = x * keep[None, :, None].to(self.dtype)
+            x = F.conv1d(x.transpose(1, 2), self.stem_w,
+                         padding=2).transpose(1, 2)
+            x = (torch.relu(x + self.stem_b) * self.bn1_a
+                 + self.bn1_b).contiguous()
+            xs = []
+            for i, blk in enumerate(self.blocks):
+                x = self._block(i, blk, x, t_sem, observer)
+                xs.append(x)
+            acc = None
+            for i, (xi, prod) in enumerate(zip(xs, self.mfa)):
+                term = prod(xi, self._site(f"mfa_{i}", xi, observer))
+                acc = term if acc is None else acc + term
+            x = torch.relu(acc + self.mfa_b)
+        with span("asv.pool"):
+            pool = PoolParams(*(getattr(self, "pool_" + f)
+                                for f in PoolParams._fields))
+            pooled = attention_pooling(x, pool, valid_len=t_sem)
         return self.head(pooled)
 
 

@@ -9,9 +9,9 @@ into the graph's input and replays it, one launch of the graph for the
 K batches' kernels. On the CPU the runner is a plain loop over the K
 batches.
 
-The kernels' wrappers count a launch when Python launches a kernel, so
-their counters move during the capture (and the warm-up before it), not
-on a replay.
+The capture records the graph's node table (``utils/profiling.Capture``),
+and each replay adds the launches counted in the capture to the kernels'
+counters (``utils/profiling.count``): they count the launches that ran.
 """
 
 from __future__ import annotations
@@ -21,6 +21,7 @@ from typing import Callable
 import torch
 
 from asvspoof2021_air_tpu_torch._device import resolve_device
+from asvspoof2021_air_tpu_torch.utils import profiling
 
 
 class CudaGraphScan:
@@ -31,6 +32,7 @@ class CudaGraphScan:
         self.infer_fn, self.device = infer_fn, device
         self.graph = None
         self.key = None
+        self.table = None
 
     def _capture(self, stacked: torch.Tensor) -> None:
         self.static_in = stacked.to(self.device, copy=True)
@@ -43,17 +45,20 @@ class CudaGraphScan:
                 self.infer_fn(batch)
         torch.cuda.current_stream(self.device).wait_stream(side)
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
+        profiling.drop(self.table)
+        cap = profiling.Capture(side, "scan", owner=self)
+        with torch.cuda.graph(self.graph, stream=side), cap:
             self.static_out = torch.stack(
                 [self.infer_fn(batch) for batch in self.static_in])
-        self.key = (tuple(stacked.shape), stacked.dtype)
+        self.key, self.table = (tuple(stacked.shape), stacked.dtype), cap.table
 
     def __call__(self, stacked) -> torch.Tensor:
         stacked = torch.as_tensor(stacked)
         if self.key != (tuple(stacked.shape), stacked.dtype):
             self._capture(stacked)
         self.static_in.copy_(stacked)
-        self.graph.replay()
+        with profiling.replay(self.table):
+            self.graph.replay()
         return self.static_out.clone()
 
 

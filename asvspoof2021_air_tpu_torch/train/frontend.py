@@ -37,6 +37,7 @@ from asvspoof2021_air_tpu_torch._device import resolve_device
 from asvspoof2021_air_tpu_torch.ops.cqcc import CQCC
 from asvspoof2021_air_tpu_torch.ops.lfcc import LFCC, LFCCConfig
 from asvspoof2021_air_tpu_torch.ops.lfcc_cuda import CudaLFCC
+from asvspoof2021_air_tpu_torch.utils import profiling
 
 
 class OnDeviceFrontend:
@@ -88,11 +89,24 @@ class OnDeviceFrontend:
 
     def __call__(self, batch: Dict[str, torch.Tensor], rng=None,
                  params=None) -> torch.Tensor:
-        wave = batch["wave"].to(self.device)
-        lengths = batch.get("length")
+        with profiling.span("asv.frontend"):
+            return self._features(batch, rng, params)
+
+    def _to_device(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` on the front end's device; the bytes copied from the host
+        count under ``h2d_bytes``."""
+        if t.device.type == "cpu" and self.device.type != "cpu":
+            profiling.count("h2d_bytes", t.numel() * t.element_size())
+        return t.to(self.device)
+
+    def _features(self, batch: Dict[str, torch.Tensor], rng,
+                  params) -> torch.Tensor:
+        wave, lengths = batch["wave"], batch.get("length")
         if lengths is None:
             lengths = torch.full((wave.shape[0],), wave.shape[1])
-        lengths = lengths.to(self.device).long()
+        with profiling.span("asv.frontend.copy"):
+            wave = self._to_device(wave)
+            lengths = self._to_device(lengths).long()
         if self.augmenter is not None:
             if rng is None:
                 raise ValueError("the channel augmenter needs rng: its draws "

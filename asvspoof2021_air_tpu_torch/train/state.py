@@ -36,6 +36,7 @@ import torch
 from torch import nn
 
 from asvspoof2021_air_tpu_torch.parallel.mesh import average_
+from asvspoof2021_air_tpu_torch.utils.profiling import span
 
 
 def step_decay_schedule(base_lr: float, decay: float, interval_epochs: int,
@@ -117,8 +118,9 @@ class TrainState:
                 if c is not None]
 
     def zero_grad(self) -> None:
-        for opt in self.optimizers():
-            opt.zero_grad(set_to_none=not self.capturable)
+        with span("asv.optimizer"):
+            for opt in self.optimizers():
+                opt.zero_grad(set_to_none=not self.capturable)
 
     def set_rate(self) -> None:
         """Write ``schedule(step)`` and ``schedule_d(step)`` where the
@@ -189,16 +191,18 @@ class TrainState:
         so every rank takes the same step. Inside a CUDA graph's capture the
         rates are not written: the graph's caller writes them before each
         replay."""
-        for p in self.model.parameters():
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        if group is not None:
-            average_([p.grad for p in self.all_parameters()
-                      if p.grad is not None], group)
-        if not (self.capturable and torch.cuda.is_current_stream_capturing()):
-            self.set_rate()
-        for opt in self.optimizers():
-            opt.step()
+        with span("asv.optimizer"):
+            for p in self.model.parameters():
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            if group is not None:
+                average_([p.grad for p in self.all_parameters()
+                          if p.grad is not None], group)
+            if not (self.capturable
+                    and torch.cuda.is_current_stream_capturing()):
+                self.set_rate()
+            for opt in self.optimizers():
+                opt.step()
         self.step += 1
 
     def state_dict(self) -> Dict[str, Any]:

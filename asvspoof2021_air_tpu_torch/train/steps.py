@@ -91,6 +91,7 @@ from asvspoof2021_air_tpu_torch.losses.basic import (
 from asvspoof2021_air_tpu_torch.ops.bn_relu_vjp import batch_norm_group
 from asvspoof2021_air_tpu_torch.parallel.mesh import average_, mean_metrics
 from asvspoof2021_air_tpu_torch.train.state import TrainState
+from asvspoof2021_air_tpu_torch.utils import profiling
 
 TRAINED_LOSSES = (None, "isolate", "iso_sq", "ang_iso", "p2sgrad")
 
@@ -367,35 +368,38 @@ def _losses(state: TrainState, config: StepConfig, x: torch.Tensor,
             labels: torch.Tensor, batch: Dict[str, Any], model_draws,
             adv_gate, dev):
     """(metrics, the backbone's loss, the classifiers' loss or None) of the
-    train-mode forward of ``x``."""
+    train-mode forward of ``x``; what follows the model's forward is the
+    span ``asv.loss``."""
     feats, logits = _forward(state.model, x, model_draws,
                              config.remat_policy)
-    base, _ = base_loss_and_score(config.base_loss, logits, labels)
-    metrics = {"base_loss": base.detach()}
-    if config.add_loss is None:
-        total = base
-    elif config.add_loss in ("isolate", "iso_sq"):
-        add = state.loss_module(feats, labels)
-        total = add * config.weight_loss
-    else:
-        add, _scores = state.loss_module(feats, labels)
-        total = add if config.add_loss == "p2sgrad" \
-            else add * config.weight_loss
-    if config.add_loss is not None:
-        metrics[config.add_loss] = add.detach()
-    clf_loss = None
-    if config.adv_aug:
-        channel = batch["channel"].to(dev).long()
-        if config.add_loss == "ang_iso":
-            adv, acc = _channel_ce(state, config, feats, channel)
-            metrics["adv_loss"], metrics["adv_acc"] = adv.detach(), acc
-            total = total + state.gate(adv_gate) * adv
-        # the classifier phase: the same embeddings, detached, against
-        # the classifiers' parameters from before this step
-        clf_loss, clf_acc = _channel_ce(state, config, feats.detach(),
-                                        channel)
-        metrics["clf_loss"], metrics["clf_acc"] = clf_loss.detach(), clf_acc
-    return metrics, total, clf_loss
+    with profiling.span("asv.loss", (feats, logits)) as s:
+        base, _ = base_loss_and_score(config.base_loss, logits, labels)
+        metrics = {"base_loss": base.detach()}
+        if config.add_loss is None:
+            total = base
+        elif config.add_loss in ("isolate", "iso_sq"):
+            add = state.loss_module(feats, labels)
+            total = add * config.weight_loss
+        else:
+            add, _scores = state.loss_module(feats, labels)
+            total = add if config.add_loss == "p2sgrad" \
+                else add * config.weight_loss
+        if config.add_loss is not None:
+            metrics[config.add_loss] = add.detach()
+        clf_loss = None
+        if config.adv_aug:
+            channel = batch["channel"].to(dev).long()
+            if config.add_loss == "ang_iso":
+                adv, acc = _channel_ce(state, config, feats, channel)
+                metrics["adv_loss"], metrics["adv_acc"] = adv.detach(), acc
+                total = total + state.gate(adv_gate) * adv
+            # the classifier phase: the same embeddings, detached, against
+            # the classifiers' parameters from before this step
+            clf_loss, clf_acc = _channel_ce(state, config, feats.detach(),
+                                            channel)
+            metrics["clf_loss"] = clf_loss.detach()
+            metrics["clf_acc"] = clf_acc
+        return metrics, s.out(total), clf_loss
 
 
 def _run_steps(train_step: Callable, state: TrainState,
@@ -449,6 +453,7 @@ class _GraphedSteps:
         self.draws: Optional[List] = None
         self.out: Dict[str, torch.Tensor] = {}
         self.captured: List[int] = []
+        self.table: Optional[profiling.GraphTable] = None
 
     @staticmethod
     def _pointers(state) -> List[int]:
@@ -493,8 +498,9 @@ class _GraphedSteps:
                 step, graph = state.step, torch.cuda.CUDAGraph()
                 self.draws = self._draws(state.model, rng, step,
                                          self.static)
+                cap = profiling.Capture(side, "train_steps", owner=self)
                 with _named_capture_failure(self.train_step, self.n_steps), \
-                        torch.cuda.graph(graph, stream=side):
+                        torch.cuda.graph(graph, stream=side), cap:
                     self.out = _run_steps(self.train_step, state,
                                           self.static, self.n_steps, rng,
                                           adv_gate, frontend_params,
@@ -502,6 +508,7 @@ class _GraphedSteps:
                 state.step = step
             torch.cuda.current_stream(dev).wait_stream(side)
             self.graph, self.captured = graph, self._pointers(state)
+            self.table = cap.table
             return out
         if self._pointers(state) != self.captured:
             raise RuntimeError("the train state's tensors moved since the "
@@ -518,7 +525,8 @@ class _GraphedSteps:
                         self.draws)
         state.set_rate()
         state.gate(adv_gate)
-        self.graph.replay()
+        with profiling.replay(self.table):
+            self.graph.replay()
         state.step += self.n_steps
         return {k: v.clone() for k, v in self.out.items()}
 
@@ -536,8 +544,10 @@ def make_multi_step(train_step: Callable, n_steps: int) -> Callable:
     backward, every optimizer); every later call copies its batches and
     the augmenter's and the model's draws for its steps into the graph's
     static buffers, writes the learning rates and the gate (constant within
-    a call) and replays. The batches must keep their shapes. A kernel launched inside
-    the graph counts its launch once, at the capture. A step with
+    a call) and replays. The batches must keep their shapes. The capture
+    records the graph's node table (``utils/profiling.Capture``), and a
+    kernel launched inside the graph counts its launch on every replay. A
+    step with
     ``remat_policy="conv_dot"`` is captured with its checkpointed backward
     (the recompute inside the graph). A data-parallel or
     mesh step's all-reduces are captured with it: NCCL's only (the step's
