@@ -161,8 +161,11 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
 
+    def _out_dtype(self, x: torch.Tensor) -> torch.dtype:
+        return self.dtype or torch.promote_types(x.dtype, torch.float32)
+
     def _out(self, y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-        return y.to(self.dtype or torch.promote_types(x.dtype, torch.float32))
+        return y.to(self._out_dtype(x))
 
     def _update(self, mu: torch.Tensor, var: torch.Tensor) -> None:
         m = self.momentum
@@ -182,9 +185,10 @@ class BatchNorm(nn.Module):
         if not self.training:
             return self._out(self._eval(x, dim), x)
         if self.recompute:
-            y, mu, var = bn_train(x, self.weight, self.bias, self.eps, dim)
+            y, mu, var = bn_train(x, self.weight, self.bias, self.eps, dim,
+                                  self._out_dtype(x))
             self._update(mu.detach(), var.detach())
-            return self._out(y, x)
+            return y
         dims, shape = channel_layout(x, dim)
         xf = x.float()
         group = current_group()
@@ -211,9 +215,10 @@ class BatchNorm(nn.Module):
         residuals)."""
         if not (self.training and self.fused):
             return self(torch.relu(x), dim)
-        y, mu, var = relu_bn_train(x, self.weight, self.bias, self.eps, dim)
+        y, mu, var = relu_bn_train(x, self.weight, self.bias, self.eps, dim,
+                                   self._out_dtype(x))
         self._update(mu.detach(), var.detach())
-        return self._out(y, x)
+        return y
 
     @_bn_span
     def bn_relu(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
@@ -225,9 +230,10 @@ class BatchNorm(nn.Module):
             return torch.relu(self(x, dim))
         if not self.training:
             return self._out(torch.relu(self._eval(x, dim)), x)
-        y, mu, var = bn_relu_train(x, self.weight, self.bias, self.eps, dim)
+        y, mu, var = bn_relu_train(x, self.weight, self.bias, self.eps, dim,
+                                   self._out_dtype(x))
         self._update(mu.detach(), var.detach())
-        return self._out(y, x)
+        return y
 
     @_bn_span
     def bn_leaky_relu(self, x: torch.Tensor, slope: float,
@@ -244,9 +250,9 @@ class BatchNorm(nn.Module):
             y = self._eval(x, dim)
             return self._out(torch.where(y >= 0, y, slope * y), x)
         y, mu, var = bn_leaky_relu_train(x, self.weight, self.bias, self.eps,
-                                         slope, dim)
+                                         slope, dim, self._out_dtype(x))
         self._update(mu.detach(), var.detach())
-        return self._out(y, x)
+        return y
 
 
 BatchNorm1d = BatchNorm     # the name ECAPA's modules use

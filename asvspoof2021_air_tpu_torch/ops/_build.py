@@ -37,6 +37,7 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 P = ctypes.c_void_p
 I = ctypes.c_int
 L = ctypes.c_longlong
+F = ctypes.c_float
 # C entry point -> argument types; every entry returns cudaGetLastError(),
 # but for those in RESTYPES. The asv_capture_* entries (the node tables of
 # utils/profiling.Capture) return the error of their own CUDA calls.
@@ -48,6 +49,9 @@ SIGNATURES = {
                           I, P],
     "attn_pool_vjp_forward": [P, P, P, P, I, I, I, P, P, P, P, I, P],
     "attn_pool_vjp_backward": [P] * 10 + [I, I, I, P, P, P, P, I, P],
+    "bn_bwd_reduce": [P] * 5 + [I] * 7 + [F, I, I, P, P],
+    "bn_bwd_apply": [P] * 8 + [I, P, P, F] + [I] * 7 + [F, I, I] + [P] * 4,
+    "bn_bwd_sums": [P, I, I, P, P],
     "asv_capture_frontier": [P, P, L, P],
     "asv_capture_node_table": [P, P, L, P, P, L, P, L, P, P, P],
 }

@@ -32,6 +32,22 @@ Phases, each fatal on failure:
    yardstick (the port never calls it), B4a's and B4b's times against one
    and three of those, and their bounds at the 3xTF32 rate beside the
    f32-FMA ones;
+2c. hold the train-mode BN backward (``csrc/bn_bwd.cu``, reduce and
+   apply) against its plain version in each mode (``relu_bn``,
+   ``bn_relu``, ``bn_leaky_relu``, ``bn``), f32 and bf16, with nonzero
+   (mu, var) cotangents, at the training cells' shapes in both layouts and
+   at ragged ones (an inner extent no vector width divides, C = 1, one
+   split, channels last with an odd C, a (B, C) input); two launches
+   bitwise equal; print its time at the cells' shapes beside its byte
+   bound (10 bytes an element in bf16), the plain version's and PyTorch's
+   ``native_batch_norm_backward`` (a yardstick the port never calls), and
+   their sums over a step of each training cell;
+2d. the ECAPA-TDNN-512 and ResNet18 training cells' bf16 K = 8 graphs:
+   the BN backward launches 29 and 18 times a step, counted over the first
+   call's eager steps and over one replay; each graph with the BN forward
+   as it was before y left ``BNTrainVJP`` in the layer's type (an f32 y
+   cast after) gives bitwise the same losses, parameters, BN running
+   statistics and Adam moments after both calls;
 3. drive the serving path at full width: ECAPA-TDNN C=512 (scale 8,
    embedding 256) and an OC-Softmax center from a numpy seed, 136 synthetic
    utterances written as FLAC (16-bit verbatim subframes, by the numpy
@@ -305,7 +321,9 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import itertools
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -353,6 +371,31 @@ def time_ms(torch, fn, iters: int = 10, warmup: int = 2) -> float:
     start.record()
     for _ in range(iters):
         fn()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def graph_ms(torch, fn, iters: int = 20) -> float:
+    """Mean device time of fn() over iters calls captured in one CUDA graph
+    and replayed (CUDA events): the device's time without the host's
+    launch overhead, which exceeds it for small calls."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     stop.record()
     stop.synchronize()
     return start.elapsed_time(stop) / iters
@@ -914,6 +957,260 @@ def vjp_checks(torch, gen, entries):
         ms=bwd_ms, plain_ms=bwd_plain_ms, matmul_ms=matmul_ms,
         max_abs_err=max(errs["B4b"]), bytes=bwd_bytes, flops=3 * 3 * flop,
         kind="tf32", extra={"peak_mib": bwd_mib})
+
+
+# The train-mode BN backward's shapes a step of the training cells (B = 64,
+# T = 750): (x's shape, channel dim, mode, BNs a step).
+BN_STEP_SHAPES = {
+    "ecapa": [((B, C, T), 1, "relu_bn", 7),                # stem, bn1, bn3
+              ((B, C // 8, T), 1, "relu_bn", 21),          # the chains
+              ((B, T, 128), -1, "relu_bn", 1)],            # attention
+    "resnet18": [((B, 16, 18, T), 1, "bn_relu", 2),
+                 ((B, 64, 18, T), 1, "bn_relu", 4),
+                 ((B, 128, 9, 375), 1, "bn_relu", 4),
+                 ((B, 256, 5, 188), 1, "bn_relu", 4),
+                 ((B, 512, 3, 94), 1, "bn_relu", 3),
+                 ((B, 256, 1, 94), 1, "bn_relu", 1)],
+}
+# Ragged shapes: an inner extent that no vector width divides, C = 1, one
+# split, channels last with an odd C, a (B, C) input.
+BN_RAGGED = [((5, 3, 37), 1), ((6, 1, 130), 1), ((3, 4, 20), 1),
+             ((37, 70), -1), ((9, 33), 1), ((2, 5, 13, 3), 1)]
+BN_MODES = ("relu_bn", "bn_relu", "bn_leaky_relu", "bn")
+
+
+def bn_case(torch, gen, shape, dim, mode, dtype):
+    """Inputs of the BN backward at ``shape``: x, gy in ``dtype``, the
+    forward's residuals (mu, inv, a, scale, bias) computed as
+    ``BNTrainVJP.forward`` computes them, nonzero (gmu, gvar), N."""
+    from asvspoof2021_air_tpu_torch.ops.bn_relu_vjp import channel_layout
+
+    dev = torch.device(DEVICE)
+    randn = lambda *s: torch.randn(*s, generator=gen, device=dev)
+    dims, _ = channel_layout(torch.empty(shape, device="meta"), dim)
+    Cn = shape[dim]
+    x = (1.5 * randn(*shape) + 0.3).to(dtype)
+    gy = randn(*shape).to(dtype)
+    scale, bias = 1 + 0.2 * randn(Cn), 0.3 * randn(Cn)
+    r = (torch.relu(x) if mode == "relu_bn" else x).float()
+    mu = r.mean(dims)
+    var = torch.clamp((r * r).mean(dims) - mu * mu, min=0.0)
+    inv = torch.rsqrt(var + 1e-5)
+    res = (mu, inv, inv * scale, scale, bias)
+    return x, gy, res, randn(Cn), randn(Cn), x.numel() // Cn
+
+
+def bn_library_ms(torch, x, gy, res):
+    """PyTorch's ``native_batch_norm_backward`` (mode ``bn``) at x's shape,
+    a yardstick the port never calls, timed as :func:`graph_ms`; None
+    where it refuses the types."""
+    try:
+        return graph_ms(torch, lambda: torch.ops.aten.native_batch_norm_backward(
+            gy, x, res[3], None, None, res[0], res[1], True, 1e-5,
+            [True, True, True]))
+    except RuntimeError as e:
+        print(f"native_batch_norm_backward refused ({str(e)[:120]})")
+        return None
+
+
+def bn_vjp_checks(torch, gen, entries):
+    """Phase 2c: the BN backward's two passes (``csrc/bn_bwd.cu``) against
+    the plain version in every mode, f32 and bf16, at the training cells'
+    shapes (both layouts) and ragged ones, with nonzero (gmu, gvar); two
+    launches bitwise equal; the kernel's time at the cells' shapes beside
+    its byte bound, the plain version's and, for mode ``bn``, PyTorch's
+    ``native_batch_norm_backward`` (a yardstick the port never calls), each
+    replayed from a CUDA graph as the training cells run them.
+    Adds the ``bn_bwd`` entry (without launches) to ``entries``."""
+    from asvspoof2021_air_tpu_torch.ops import bn_relu_vjp as bv
+
+    cases = [(shape, dim) for fam in BN_STEP_SHAPES.values()
+             for shape, dim, _, _ in fam] + BN_RAGGED
+    worst = {"dx": 0.0, "dgamma": 0.0}
+    for (shape, dim), mode, dtype in itertools.product(
+            cases, BN_MODES, (torch.float32, torch.bfloat16)):
+        x, gy, res, gmu, gvar, n = bn_case(torch, gen, shape, dim, mode,
+                                           dtype)
+        args = (x, gy, res, gmu, gvar, n, mode, 0.1, dim)
+        got = bv.bn_backward_kernel(*args)
+        again = bv.bn_backward_kernel(*args)
+        want = bv.bn_backward_plain(*args)
+        tag = f"{mode} {str(dtype)[6:]} {tuple(shape)} dim {dim}"
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"BN-bwd: two launches differ ({tag})")
+        check(got[0].dtype == dtype, f"BN-bwd dx is {got[0].dtype} ({tag})")
+        # dx: the f32 values of two summation orders, 1e-4 of the largest
+        # |dx| (a channel's sums run over up to 864 K terms); in bf16 each
+        # side rounds its f32 value once, which may flip one ulp.
+        g, w = got[0].float(), want[0].float()
+        tol = 1e-4 * float(w.abs().max())
+        if dtype == torch.bfloat16:
+            tol = tol + bf16_ulp(w.abs().clamp(min=1e-30))
+        dx_ok = bool(((g - w).abs() <= tol).all())
+        rel = max_err(g, w) / max(float(w.abs().max()), 1e-30)
+        # dgamma, dbeta: f32 sums, 1e-4 of the largest of each
+        sums_rel = max(max_err(a, b) / max(float(b.abs().max()), 1e-30)
+                       for a, b in zip(got[1:], want[1:]))
+        worst["dx"] = max(worst["dx"], rel)
+        worst["dgamma"] = max(worst["dgamma"], sums_rel)
+        check(dx_ok and sums_rel <= 1e-4,
+              f"BN-bwd disagrees with its plain version ({tag}): dx "
+              f"{rel:.3e} of its largest, dgamma/dbeta {sums_rel:.3e}")
+    print(f"BN-bwd against the plain version, {len(cases)} shapes x "
+          f"{len(BN_MODES)} modes x f32/bf16, nonzero (gmu, gvar): largest "
+          f"dx gap {worst['dx']:.3e} of max|dx| (bar 1e-4, + 1 ulp in "
+          f"bf16), dgamma/dbeta {worst['dgamma']:.3e} (bar 1e-4); two "
+          f"launches bitwise equal in every case")
+
+    # Times at the training cells' shapes, bf16, the cells' modes.
+    per_step = {}
+    rows = []
+    for fam, shapes in BN_STEP_SHAPES.items():
+        k_ms = p_ms = b_ms = 0.0
+        for shape, dim, mode, count in shapes:
+            x, gy, res, gmu, gvar, n = bn_case(torch, gen, shape, dim, mode,
+                                               torch.bfloat16)
+            args = (x, gy, res, None, None, n, mode, 0.0, dim)
+            ms = graph_ms(torch, lambda: bv.bn_backward_kernel(*args))
+            plain = graph_ms(torch, lambda: bv.bn_backward_plain(*args),
+                             iters=3)
+            lib = (bn_library_ms(torch, x, gy, res) if dim == 1
+                   else None)
+            least = bound(10 * x.numel(), 0.0, "bf16")[0]
+            rows.append((fam, shape, mode, ms, least, plain, lib))
+            print(f"BN-bwd {fam} {mode} bf16 {tuple(shape)} dim {dim}: "
+                  f"{ms:.4f} ms, bound {least:.4f} ms by bytes "
+                  f"({10 * x.numel() / 1e6:.1f} MB), {100 * least / ms:.1f}% "
+                  f"of it; plain {plain:.4f} ms; native_batch_norm_backward "
+                  f"(mode bn, a yardstick) "
+                  f"{'-' if lib is None else f'{lib:.4f} ms'}; x{count} a step")
+            k_ms += count * ms
+            p_ms += count * plain
+            b_ms += count * least
+        per_step[fam] = (k_ms, b_ms, p_ms)
+        print(f"BN-bwd a {fam} training step: {k_ms:.3f} ms of kernels "
+              f"(bound {b_ms:.3f} ms, {100 * b_ms / k_ms:.1f}%), plain "
+              f"{p_ms:.3f} ms")
+    fam, shape, mode, ms, least, plain, lib = rows[0]
+    entries["bn_bwd"] = dict(
+        name=f"BN-bwd train-mode BN backward, reduce + apply ({mode}, bf16, "
+             f"{tuple(shape)})",
+        source="asvspoof2021_air_tpu_torch/csrc/bn_bwd.cu",
+        replaces="none (the JAX package's ops/bn_relu_vjp.py rules are "
+                 "plain jnp)",
+        ms=ms, plain_ms=plain, max_abs_err=worst["dx"],
+        bytes=10 * math.prod(shape), flops=0.0, kind="bf16",
+        extra={"library_ms": lib, "ms_a_step": {
+            f: v[0] for f, v in per_step.items()},
+            "bound_ms_a_step": {f: v[1] for f, v in per_step.items()}})
+
+
+def bn_graph_checks(torch, gpu: str, entries):
+    """Phase 2d: the ECAPA-TDNN-512 and ResNet18 training cells' K = 8
+    bf16 graphs (``setup_training``, OC-Softmax, B = 64, T = 750): the BN
+    backward kernel's launches a step (29 and 18, every BNTrainVJP
+    backward), and the same graph with the BN forward as the port ran it
+    before y left BNTrainVJP in the layer's type (an f32 y, cast after)
+    from the same start, bitwise equal in every loss, parameter, running
+    statistic and Adam moment after the first call (8 eager steps) and
+    after one replay (cuDNN deterministic)."""
+    from asvspoof2021_air_tpu_torch.models import common
+    from asvspoof2021_air_tpu_torch.train.loop import (
+        TrainConfig, setup_training)
+    from asvspoof2021_air_tpu_torch.train.steps import make_multi_step
+    from asvspoof2021_air_tpu_torch.utils import profiling
+
+    def f32_then_cast(fn):
+        def run(*args, **kw):
+            dtype = args[-1] if len(args) > 0 and isinstance(
+                args[-1], torch.dtype) else None
+            y, mu, var = fn(*(args[:-1] if dtype is not None else args),
+                            **kw)
+            return y.to(dtype or torch.float32), mu, var
+        return run
+
+    names = ("relu_bn_train", "bn_relu_train", "bn_leaky_relu_train",
+             "bn_train")
+    K = 8
+    fb = graph_batches(torch, 2 * K, 23)
+    for model, per in (("ecapa", 29), ("resnet", 18)):
+        conf = TrainConfig(model=model, add_loss="ang_iso",
+                           compute_dtype="bfloat16", steps_per_call=K,
+                           batch_size=B, feat_len=T, feat_dim=60,
+                           enc_dim=256)
+        runs = []
+        for parent in (False, True):
+            saved = {k: getattr(common, k) for k in names}
+            if parent:
+                for k in names:
+                    setattr(common, k, f32_then_cast(saved[k]))
+            try:
+                torch.manual_seed(7)
+                torch.backends.cudnn.deterministic = True
+                _m, _l, st, step, _e = setup_training(conf, 397,
+                                                      device=DEVICE)
+                multi = make_multi_step(step, K)
+                sync(torch)
+                profiling.reset()
+                m1 = multi(st, stack_batches(torch, fb[:K]), rng=23)
+                sync(torch)
+                eager = profiling.counts().get("bn_bwd", 0)
+                first = state_hash((m1, st.state_dict()))
+                profiling.reset()
+                m2 = multi(st, stack_batches(torch, fb[K:]), rng=23)
+                sync(torch)
+                replay = profiling.counts().get("bn_bwd", 0)
+                runs.append((first, state_hash((m2, st.state_dict()))))
+                if not parent:
+                    bn_ms, step_ms = bn_kernels_in_replay(
+                        torch, lambda: multi(st, stack_batches(torch, fb[:K]),
+                                             rng=23))
+                    print(f"2d {model}: one replay profiled: the BN-bwd "
+                          f"kernels {bn_ms / K:.3f} ms a step of "
+                          f"{step_ms / K:.3f} ms of device time")
+            finally:
+                for k in names:
+                    setattr(common, k, saved[k])
+                torch.backends.cudnn.deterministic = False
+            what = "f32 y cast after" if parent else "y in bf16"
+            print(f"2d {model} K={K} ({what}): BN-bwd launches {eager} in "
+                  f"the first call's {K} eager steps (the capture's taken "
+                  f"back), {replay} in one replay: {replay / K:g} a step")
+            check(eager == K * per and replay == K * per,
+                  f"2d {model}: BN-bwd launched {eager} and {replay} times, "
+                  f"not {K * per} ({per} a step)")
+            if not parent:
+                entries.setdefault("bn_bwd", {})[
+                    f"launches_train_graph_{model}"] = eager + replay
+        same = [a == b for a, b in zip(*runs)]
+        print(f"2d {model}: y in the layer's type against the f32 y cast "
+              f"after, losses, parameters, BN statistics and Adam's moments "
+              f"bitwise equal after the first call and after one replay: "
+              f"{same}")
+        check(all(same), f"2d {model}: the BN forward moved: {same}")
+        torch.cuda.empty_cache()
+
+
+def bn_kernels_in_replay(torch, call):
+    """(device ms of the BN backward's kernels, device ms of all kernels)
+    in one profiled ``call`` of a graph replay."""
+    from torch.profiler import ProfilerActivity, profile
+
+    names = ("reduce_rows", "apply_rows", "reduce_cols", "apply_cols")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    bn = total = 0.0
+    for ev in prof.key_averages():
+        if not str(getattr(ev, "device_type", "")).endswith("CUDA") \
+                or _annotation(ev):
+            continue
+        us = float(getattr(ev, "self_device_time_total", 0.0) or 0.0)
+        total += us
+        if any(n in ev.key for n in names):
+            bn += us
+    return bn / 1e3, total / 1e3
 
 
 @contextlib.contextmanager
@@ -5338,6 +5635,8 @@ def main() -> int:
 
     entries = phase("2", kernel_checks, torch, gen)
     phase("2b", vjp_checks, torch, gen, entries)
+    phase("2c", bn_vjp_checks, torch, gen, entries)
+    phase("2d", bn_graph_checks, torch, gpu, entries)
     fwd_ms = phase("3", main_path, torch, gpu, entries)
     keep = tempfile.mkdtemp()      # phase 3b's files, read by phase 10
     phase("3b", score_path, torch, gpu, entries, keep)
@@ -5359,7 +5658,7 @@ def main() -> int:
     print(f"phase seconds: { {k: round(v, 1) for k, v in seconds.items()} }")
 
     kernels = []
-    for key in ("B1", "B2", "B3", "B4a", "B4b"):
+    for key in ("B1", "B2", "B3", "B4a", "B4b", "bn_bwd"):
         e = entries[key]
         bound_ms, bound_by = bound(e["bytes"], e["flops"], e["kind"])
         by_path = {p: e[f"launches_{p}"] for p in (
@@ -5371,7 +5670,8 @@ def main() -> int:
             "serve_int8", "export", "train_dp", "score_dp",
             "train_member_dp", "train_member_data_dp", "preprocess_aug",
             "train_laaug", "score_laaug", "train_conv_dot_graph",
-            "train_dp_fused_chain", "score_installed")
+            "train_dp_fused_chain", "score_installed", "train_graph_ecapa",
+            "train_graph_resnet")
             if f"launches_{p}" in e}
         launches = sum(by_path.values())
         print(f"{e['name']} [{gpu}]: max_abs_err {e['max_abs_err']:.3e}, "

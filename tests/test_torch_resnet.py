@@ -13,13 +13,16 @@ import jax
 import jax.numpy as jnp
 
 from asvspoof2021_air_tpu.interop.torch_port import port_resnet
+from asvspoof2021_air_tpu.ops import bn_relu_vjp as jbn
 from asvspoof2021_air_tpu.ops.bn_relu_vjp import bn_relu_train as j_bn_relu
 from asvspoof2021_air_tpu_torch.interop.checkpoints import (
     resnet_from_state_dict)
 from asvspoof2021_air_tpu_torch.interop.flax_weights import (
     from_flax_variables, random_flax_variables)
 from asvspoof2021_air_tpu_torch.models.resnet import pooled_frames
+from asvspoof2021_air_tpu_torch.ops import bn_relu_vjp as pbn
 from asvspoof2021_air_tpu_torch.ops.bn_relu_vjp import bn_relu_train
+from asvspoof2021_air_tpu_torch.utils import profiling
 from test_torch_train_families import (
     B, ENC, family_input, family_variables, flax_name, given_draws,
     jax_model, port_draws, port_model, recorder, reversed_draw)
@@ -28,10 +31,11 @@ from torch_threads import one_thread  # noqa: F401
 RUNNING = ("running_mean", "running_var")
 
 
-def check_bn_vjp(j_fn, p_fn, seed: int) -> None:
+def check_bn_vjp(j_fn, p_fn, seed: int, channels_last: bool = False) -> None:
     """y, mu, var and the three cotangents of a recompute-VJP BN over NCHW
-    (channel dim 1) against the JAX rule over NHWC, with nonzero
-    cotangents on (mu, var) too; f32, 1e-5."""
+    (channel dim 1), or with ``channels_last`` over NHWC (dim -1), against
+    the JAX rule over NHWC, with nonzero cotangents on (mu, var) too; f32,
+    1e-5."""
     g = np.random.default_rng(seed)
     x = g.standard_normal((4, 6, 5, 7)).astype(np.float32)       # NCHW
     scale = (1 + 0.1 * g.standard_normal(6)).astype(np.float32)
@@ -43,17 +47,20 @@ def check_bn_vjp(j_fn, p_fn, seed: int) -> None:
                                  jnp.asarray(nhwc(x)), jnp.asarray(scale),
                                  jnp.asarray(bias))
     want = pull((jnp.asarray(nhwc(gy)), jnp.asarray(gmu), jnp.asarray(gvar)))
+    port = nhwc if channels_last else (lambda a: a)     # the port's layout
+    back = (lambda a: a) if channels_last else nhwc     # port -> NHWC
     tx, ts, tb = (torch.from_numpy(a).requires_grad_()
-                  for a in (x, scale, bias))
-    ty, tmu, tvar = p_fn(tx, ts, tb, 1e-5, 1)
+                  for a in (port(x), scale, bias))
+    ty, tmu, tvar = p_fn(tx, ts, tb, 1e-5, -1 if channels_last else 1)
     torch.autograd.backward((ty, tmu, tvar), (
-        torch.from_numpy(gy), torch.from_numpy(gmu), torch.from_numpy(gvar)))
+        torch.from_numpy(port(gy)), torch.from_numpy(gmu),
+        torch.from_numpy(gvar)))
     tol = dict(rtol=1e-5, atol=1e-5)
-    np.testing.assert_allclose(nhwc(ty.detach().numpy()), np.asarray(y),
+    np.testing.assert_allclose(back(ty.detach().numpy()), np.asarray(y),
                                **tol)
     np.testing.assert_allclose(tmu.detach().numpy(), np.asarray(mu), **tol)
     np.testing.assert_allclose(tvar.detach().numpy(), np.asarray(var), **tol)
-    for name, got, w in (("dx", nhwc(tx.grad.numpy()), want[0]),
+    for name, got, w in (("dx", back(tx.grad.numpy()), want[0]),
                          ("dscale", ts.grad.numpy(), want[1]),
                          ("dbias", tb.grad.numpy(), want[2])):
         np.testing.assert_allclose(got, np.asarray(w), err_msg=name, **tol)
@@ -61,6 +68,89 @@ def check_bn_vjp(j_fn, p_fn, seed: int) -> None:
 
 def test_bn_relu_train_matches_jax():
     check_bn_vjp(j_bn_relu, bn_relu_train, 0)
+
+
+# Each mode of the port's BNTrainVJP (the plain backward on the CPU, in the
+# arithmetic of csrc/bn_bwd.cu) against its JAX rule.
+BN_MODES = {
+    "relu_bn": (jbn.relu_bn_train, pbn.relu_bn_train),
+    "bn_relu": (jbn.bn_relu_train, pbn.bn_relu_train),
+    "bn_leaky_relu": (
+        lambda x, s, b, eps: jbn.bn_leaky_relu_train(x, s, b, eps, 0.1),
+        lambda x, s, b, eps, dim: pbn.bn_leaky_relu_train(x, s, b, eps, 0.1,
+                                                          dim)),
+    "bn": (jbn.bn_train, pbn.bn_train),
+}
+
+
+@pytest.mark.parametrize("channels_last", [False, True],
+                         ids=["nchw", "channels_last"])
+@pytest.mark.parametrize("mode", list(BN_MODES))
+def test_bn_vjp_matches_jax_in_every_mode_and_layout(mode, channels_last):
+    check_bn_vjp(*BN_MODES[mode], 10 + list(BN_MODES).index(mode),
+                 channels_last)
+
+
+def _bn_backward_args(x, gy):
+    C = x.shape[1]
+    res = tuple(torch.ones(C) for _ in range(5))
+    return (x, gy, res, None, None, x.numel() // C, "bn_relu", 0.0, 1)
+
+
+@pytest.mark.parametrize("fault", ["float64", "mixed_dtypes", "gy_shape",
+                                   "cpu_tensors"])
+def test_bn_backward_kernel_refuses_what_it_cannot_take(fault):
+    """The kernel's wrapper raises, before any launch, on a type, a shape or
+    a device it does not take; CPU tensors are refused last, so the first
+    three are the checks a CUDA caller meets."""
+    x = torch.randn(2, 3, 5)
+    gy = {"float64": torch.randn(2, 3, 5, dtype=torch.float64),
+          "mixed_dtypes": torch.randn(2, 3, 5, dtype=torch.bfloat16),
+          "gy_shape": torch.randn(2, 3, 4),
+          "cpu_tensors": torch.randn(2, 3, 5)}[fault]
+    if fault == "float64":
+        x = x.double()
+    match = {"float64": "dtype", "mixed_dtypes": "dtype", "gy_shape": "shape",
+             "cpu_tensors": "CUDA"}[fault]
+    with pytest.raises(ValueError, match=match):
+        pbn.bn_backward_kernel(*_bn_backward_args(x, gy))
+
+
+def test_bn_backward_on_cpu_tensors_counts_no_kernel_launch():
+    """On CPU tensors the backward is the plain version: the ``bn_bwd``
+    counter stays 0 through a forward and backward of every mode."""
+    profiling.reset()
+    x = torch.randn(4, 6, 5, requires_grad=True)
+    for mode, (_, p_fn) in BN_MODES.items():
+        y, _, _ = p_fn(x, torch.ones(6), torch.zeros(6), 1e-5, 1)
+        y.sum().backward()
+    assert x.grad is not None
+    assert profiling.counts().get("bn_bwd", 0) == 0
+
+
+@pytest.mark.parametrize("shape", [
+    (64, 512, 750, 2), (64, 64, 750, 2), (48000, 128, 1, 2),
+    (64, 16, 13500, 4), (64, 128, 3375, 1), (64, 512, 282, 2),
+    (64, 256, 94, 2), (3, 1, 7, 1), (2, 5, 1, 1), (9, 3, 282, 2)])
+def test_bn_vjp_plan_covers_every_item_once(shape):
+    """The grid of csrc/bn_bwd.cu for x viewed as (outer, C, inner) with
+    vectors of ``vec`` elements on 132 SMs (the cells' shapes, ragged
+    ones): at most MAX_SPLITS blocks a channel, none empty, together
+    covering every piece of every row (channels last: every row) once, and
+    a row's pieces covering its vectors."""
+    outer, C, inner, vec = shape
+    splits, pieces, per_block = pbn.bn_vjp_plan(outer, C, inner, vec, 132)
+    items = outer * pieces
+    assert 1 <= splits <= pbn.MAX_SPLITS
+    assert (splits - 1) * per_block < items <= splits * per_block
+    if inner == 1:
+        assert pieces == 1
+    else:
+        sv = inner // vec
+        lv = -(-sv // pieces)
+        assert 1 <= pieces <= sv and lv * pieces >= sv and lv <= 512
+        # about 64 warps an SM wherever the rows are long enough for it
+        assert items * C >= min(64 * 132, C * outer * -(-sv // 64))
 
 
 def rel_err(got, want) -> float:

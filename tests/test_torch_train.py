@@ -107,6 +107,71 @@ def test_relu_bn_train_matches_jax(channels_last):
         np.testing.assert_allclose(got, np.asarray(w), err_msg=name, **tol)
 
 
+def _parent_bn_forward(x, scale, bias, eps, mode, out_dtype):
+    """The train-mode BN pair's forward as the port computed it before y
+    left BNTrainVJP in the layer's type: f32 y, mu, var, then the cast."""
+    dims = (0, 2)
+    r = (torch.relu(x) if mode == "relu_bn" else x).float()
+    mu = r.mean(dims)
+    var = torch.clamp((r * r).mean(dims) - mu * mu, min=0.0)
+    inv = torch.rsqrt(var + eps)
+    y = ((r - mu[None, :, None]) * (inv * scale)[None, :, None]
+         + bias[None, :, None])
+    if mode == "bn_relu":
+        y = torch.relu(y)
+    elif mode == "bn_leaky_relu":
+        y = torch.where(y >= 0, y, 0.1 * y)
+    return y.to(out_dtype), mu, var
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("mode", ["relu_bn", "bn_relu", "bn_leaky_relu",
+                                  "bn"])
+def test_fused_batchnorm_forward_is_unchanged_bit_for_bit(mode, dtype):
+    """A BatchNorm pair in train mode returns y in its type from
+    BNTrainVJP: output, running statistics and the stats bit-equal to the
+    f32 y cast afterwards; the gradient, arriving in that type, equals
+    bit for bit the one through an f32 y with the same gradient cast up
+    (the backward reads either in f32)."""
+    g = np.random.default_rng(5)
+    x = torch.from_numpy(g.standard_normal((4, 12, 9)).astype(np.float32))
+    x = x.to(dtype)
+    gy = torch.from_numpy(g.standard_normal((4, 12, 9)).astype(np.float32))
+    gy = gy.to(dtype)
+    bn = BatchNorm1d(12, dtype=dtype).train()
+    with torch.no_grad():
+        bn.weight.copy_(torch.from_numpy(
+            (1 + 0.1 * g.standard_normal(12)).astype(np.float32)))
+        bn.bias.copy_(torch.from_numpy(
+            (0.2 * g.standard_normal(12)).astype(np.float32)))
+    want, mu, var = _parent_bn_forward(x, bn.weight.detach(),
+                                       bn.bias.detach(), bn.eps, mode, dtype)
+    xg = x.clone().requires_grad_()
+    got = {"relu_bn": lambda: bn.relu_bn(xg),
+           "bn_relu": lambda: bn.bn_relu(xg),
+           "bn_leaky_relu": lambda: bn.bn_leaky_relu(xg, 0.1),
+           "bn": lambda: bn.forward(xg)}
+    if mode == "bn":
+        bn.recompute = True
+    y = got[mode]()
+    assert y.dtype == dtype
+    assert torch.equal(y.detach(), want)
+    m = bn.momentum
+    assert torch.equal(bn.running_mean, m * torch.zeros(12) + (1 - m) * mu)
+    assert torch.equal(bn.running_var, m * torch.ones(12) + (1 - m) * var)
+    y.backward(gy)
+
+    from asvspoof2021_air_tpu_torch.ops.bn_relu_vjp import BNTrainVJP
+    x32 = x.clone().requires_grad_()
+    y32, _, _ = BNTrainVJP.apply(x32, bn.weight, bn.bias, bn.eps, 1, mode,
+                                 0.1, None)
+    assert y32.dtype == torch.float32
+    assert torch.equal(y32.detach().to(dtype), want)
+    y32.backward(gy.float())
+    assert torch.equal(xg.grad, x32.grad)
+
+
 @pytest.mark.parametrize("fuse_relu", [False, True])
 def test_train_batchnorm_running_stats_follow_jax_rule(fuse_relu):
     """The output and the running statistics of one train-mode step, from
